@@ -1,0 +1,23 @@
+"""RaTrack in PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
+
+The port of `ratrack_tpu` (JAX/Flax/Pallas), which stays in the repository
+as the reference every module here is tested against. The layout mirrors
+it module for module:
+
+ops/       point ops (ball query, kNN, 3-NN interpolation, gathers) and the
+           wrappers of the three eval kernels: fused_sa (SA pair),
+           fused_fp (3-NN interpolation), fused_correlator (cost volume).
+csrc/      the CUDA C++ sources of those kernels (sm_90a).
+kernels/   nvcc build + ctypes loading of csrc/ into one shared library.
+models/    nn.Modules: PNHead, FeatureCorrelator, FlowDecoder, predictors,
+           Affinity, Track4D.
+tracker/   DBSCAN, log-Sinkhorn with dustbin, association, track state.
+train/     the cached-backbone eval scan.
+data/      FrameBatch and the synthetic clip generator (numpy, no JAX).
+utils/     flax-variables -> state_dict converter.
+
+Tensors are points-major with a written-out stream dimension:
+(B, N, C). This package never imports JAX.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,160 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Every `ratrack_tpu_torch/csrc/*.cu` compiles into ONE shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o kernels/build/libratrack_kernels_<hash>.so \
+         csrc/*.cu
+
+The library is built at first use into `kernels/build/` (git-ignored),
+keyed by a hash of the sources and flags, so a fresh checkout builds
+everything on its first kernel launch and a changed source rebuilds.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of csrc/*.cu; every launcher returns cudaGetLastError().
+SIGNATURES = {
+    "ratrack_sa_pair": [_P, _P, _P, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
+                        _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P],
+    "ratrack_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
+                                  _P, _P],
+    "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "ratrack_corr_aggregate": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                               _P, _P, _P, _P, _P, _P, _P, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+last_build: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Path:
+    """Compile csrc/ into the library unless a build of these exact sources
+    exists. Safe against concurrent builds (file lock + atomic rename).
+    Records the seconds spent and nvcc's stderr (ptxas register, shared
+    memory and spill report per kernel) in `last_build`."""
+    target = BUILD_DIR / f"libratrack_kernels_{source_hash()}.so"
+    if target.exists():
+        last_build.update(seconds=0.0, cached=True, log="")
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():
+            last_build.update(seconds=0.0, cached=True, log="")
+            return target
+        tmp = target.with_suffix(f".tmp{os.getpid()}")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in sources() if p.suffix == ".cu"]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, target)
+        last_build.update(seconds=time.perf_counter() - t0, cached=False,
+                          log=proc.stderr)
+    return target
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ratrack_error_string.argtypes = [ctypes.c_int]
+        lib.ratrack_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if code != 0:
+        msg = load().ratrack_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t) -> int | None:
+    """Device pointer of a tensor, None for None (a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """A host array of device pointers (the caller keeps `tensors` alive)."""
+    return (ctypes.c_void_p * max(len(tensors), 1))(
+        *[t.data_ptr() for t in tensors])
+
+
+def int_array(values) -> ctypes.Array:
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, shape, device, dtype=None, align16: bool = False):
+    """Raise unless `t` is what a kernel takes: on `device`, of `dtype`
+    (float32 by default), contiguous, of `shape` (None entries match any
+    size) and, for float4 access, 16-byte aligned."""
+    import torch
+    dtype = torch.float32 if dtype is None else dtype
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if align16 and t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")

@@ -1,0 +1,57 @@
+"""Cost-volume feature correlator, eval path (n <= 4096), through
+kernel B3. Counterpart of `ratrack_tpu/models/correlator.py:67-98`.
+
+  1. kNN(16) of pc1 in pc2; MLP over [f1_i, f2_j, x_j - x_i] (no BN, leaky
+     0.1); WeightNet1(direction)-weighted unnormalised sum over the slots.
+  2. kNN(16) of pc1 in pc1; WeightNet2-weighted sum of the stage-1 cost
+     over the self-neighbourhood.
+
+Layer 1 of the pair MLP factorises: with W1 = [W_f1; W_f2; W_dir],
+pre1_ij = (f1 W_f1 - x1 W_dir)_i + (f2 W_f2 + x2 W_dir + b1)_j, two torch
+matmuls here, as the JAX package computes them outside its kernel. The
+split formulation for n > 4096 (kernels B4/B5) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from torch import nn
+
+from ..ops.fused_correlator import fused_knn_weight_aggregate
+from .layers import PointwiseMLP, WeightNet
+
+
+class FeatureCorrelator(nn.Module):
+    def __init__(self, nsample: int = 16,
+                 mlp: Sequence[int] = (256, 256, 256), d1: int = 256,
+                 d2: int = 256):
+        super().__init__()
+        self.nsample, self.d1, self.d2 = nsample, d1, d2
+        self.mlp = PointwiseMLP(d1 + d2 + 3, mlp, bn=False, act="leaky_relu")
+        self.weightnet1 = WeightNet(mlp[-1])
+        self.weightnet2 = WeightNet(mlp[-1])
+
+    def forward(self, pc1, pc2, f1, f2, mask1=None, mask2=None):
+        """pc (B, N, 3), f1 (B, N, d1), f2 (B, N, d2) -> (B, N, mlp[-1])."""
+        if pc1.shape[1] > 4096:
+            raise NotImplementedError(
+                "clouds above 4096 points need the split correlator "
+                "(not ported yet)")
+        d1, d2 = self.d1, self.d2
+        dense = [getattr(self.mlp, f"dense_{i}")
+                 for i in range(len(self.mlp.features))]
+        w1 = dense[0].weight.t()
+        w_f1, w_f2, w_dir = w1[:d1], w1[d1:d1 + d2], w1[d1 + d2:]
+        add_q = (f1 @ w_f1 - pc1 @ w_dir).contiguous()
+        feats_p = (f2 @ w_f2 + pc2 @ w_dir + dense[0].bias).contiguous()
+        mlp_ws = [d.weight.t().contiguous() for d in dense[1:]]
+        mlp_bs = [d.bias for d in dense[1:]]
+        wn1_ws, wn1_bs = self.weightnet1.kernel_params()
+        wn2_ws, wn2_bs = self.weightnet2.kernel_params()
+        cost = fused_knn_weight_aggregate(
+            pc1, pc2, feats_p, add_q, mask2, mlp_ws, mlp_bs, wn1_ws, wn1_bs,
+            k=self.nsample)
+        return fused_knn_weight_aggregate(
+            pc1, pc1, cost, None, mask1, [], [], wn2_ws, wn2_bs,
+            k=self.nsample)

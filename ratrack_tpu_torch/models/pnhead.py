@@ -1,0 +1,106 @@
+"""PointNet++-MSG backbone head, eval path: set abstraction through kernel
+B1, feature propagation through kernel B2.
+
+Counterpart of `ratrack_tpu/models/pnhead.py`. The eval path at the live
+config has npoint == N, so the centers are the identity sample (every
+valid point, padding rows taking the first valid point) and FPS does not
+run; a smaller npoint (true FPS, kernel B6) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.fused_fp import fused_three_interpolate
+from ..ops.fused_sa import fused_sa_pair
+from ..ops.sampling import identity_gather
+from .layers import PointwiseMLP
+
+
+class SetAbstractionMSG(nn.Module):
+    """Both scales of one multi-scale-grouping level: ball query at two
+    radii, BN-folded shared MLP, max-pool, concatenated over scales."""
+
+    def __init__(self, npoint: int, radii: Sequence[float],
+                 nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
+                 c_in: int):
+        super().__init__()
+        if len(radii) != 2:
+            raise ValueError("kernel B1 takes exactly two scales per level")
+        self.npoint = npoint
+        self.radii, self.nsamples = tuple(radii), tuple(nsamples)
+        self.mlp_0 = PointwiseMLP(c_in, mlps[0], bn=True)
+        self.mlp_1 = PointwiseMLP(c_in, mlps[1], bn=True)
+
+    def forward(self, xyz, features, mask=None):
+        """xyz (B, N, 3), features (B, N, C) or None, mask (B, N) or None
+        -> (new_xyz (B, N, 3), new_feats (B, N, sum of scale widths))."""
+        if self.npoint != xyz.shape[1]:
+            raise NotImplementedError(
+                "npoint < N needs farthest point sampling (not ported yet)")
+        new_xyz = identity_gather(xyz, mask)
+        ws_a, bs_a = self.mlp_0.folded()
+        ws_b, bs_b = self.mlp_1.folded()
+        out_a, out_b = fused_sa_pair(
+            xyz, new_xyz, features, mask, ws_a, bs_a, ws_b, bs_b,
+            radius_a=self.radii[0], radius_b=self.radii[1],
+            nsample_a=self.nsamples[0], nsample_b=self.nsamples[1])
+        return new_xyz, torch.cat([out_a, out_b], dim=-1)
+
+
+class FeaturePropagation(nn.Module):
+    """3-NN inverse-distance interpolation, concat skip features, MLP."""
+
+    def __init__(self, c_in: int, mlp: Sequence[int]):
+        super().__init__()
+        self.mlp = PointwiseMLP(c_in, mlp, bn=True)
+
+    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats):
+        interp = fused_three_interpolate(unknown_xyz, known_xyz, known_feats)
+        if unknown_feats is not None:
+            interp = torch.cat([interp, unknown_feats], dim=-1)
+        return self.mlp(interp)
+
+
+class PNHead(nn.Module):
+    """3-level SA-MSG encoder + 3-level FP decoder -> 128-d per point.
+
+    Channel flow (c = input feature channels):
+      sa1 [(3+c -> 16,16,32) x 2] -> 64 -> linear1 -> 32
+      sa2 [(35 -> 32,32), (35 -> 32,64)] -> 96 -> linear2 -> 64
+      sa3 [(67 -> 64,64) x 2] -> 128 -> linear3 -> 64
+      fp3 128 -> 128, fp2 160 -> 128, fp1 128 -> 128
+    Only sa1 sees the cloud mask; sa2/sa3 run over the identity-gathered
+    centers with no mask, and the FP levels take no known-point mask
+    (pnhead.py:248-265).
+    """
+
+    def __init__(self, npoint: int, c_feat: int):
+        super().__init__()
+        self.sa1 = SetAbstractionMSG(npoint, (2.0, 4.0), (4, 8),
+                                     ((16, 16, 32), (16, 16, 32)), 3 + c_feat)
+        self.sa2 = SetAbstractionMSG(npoint, (4.0, 8.0), (8, 16),
+                                     ((32, 32), (32, 64)), 3 + 32)
+        self.sa3 = SetAbstractionMSG(npoint, (8.0, 16.0), (16, 32),
+                                     ((64, 64), (64, 64)), 3 + 64)
+        self.linear1 = nn.Linear(64, 32)
+        self.linear2 = nn.Linear(96, 64)
+        self.linear3 = nn.Linear(128, 64)
+        self.fp3 = FeaturePropagation(64 + 64, [128])
+        self.fp2 = FeaturePropagation(128 + 32, [128])
+        self.fp1 = FeaturePropagation(128, [128])
+
+    def forward(self, xyz, features, mask=None):
+        l1_xyz, l1 = self.sa1(xyz, features, mask)
+        l1 = self.linear1(l1)
+        l2_xyz, l2 = self.sa2(l1_xyz, l1, None)
+        l2 = self.linear2(l2)
+        l3_xyz, l3 = self.sa3(l2_xyz, l2, None)
+        l3 = self.linear3(l3)
+        l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
+        l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
+        l0 = self.fp1(xyz, l1_xyz, None, l1)
+        return l3_xyz, l0

@@ -1,0 +1,135 @@
+"""Track4D: the radar moving-object tracking network, eval path, batched
+over streams. Counterpart of `ratrack_tpu/models/track4d.py`.
+
+Per-point feature tensor F (B, N, 139) = [warp 3 | pc1 3 | flow 3 |
+RCS, v_r 2 | prop 128]. Clustering features are F[..., 3:9] u F[..., 10:12]:
+the reference indexes 10:12 (v_r plus the first prop channel), a quirk kept
+for parity. `bin_score` is registered and never used, as in the reference
+(the association passes the constant 0.9).
+
+Eval only: the module is built with requires_grad off; the train path
+(batch-stat BN, losses, the backward kernels) is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..data.frames import FrameBatch
+from ..tracker.association import (associate, cluster_descriptors,
+                                   greedy_gt_match)
+from ..tracker.dbscan import dbscan
+from ..tracker.state import TrackState, init_state, reset_where
+from .affinity import Affinity
+from .correlator import FeatureCorrelator
+from .decoder import FlowDecoder, masked_max
+from .layers import init_parameters
+from .pnhead import PNHead
+
+
+class Track4D(nn.Module):
+    def __init__(self, npoint: int = 512, k_max: int = 32,
+                 feat_dim: int = 128, gru_layers: int = 5,
+                 min_obj_points: int = 2, dbscan_eps: float = 1.5,
+                 dbscan_max_iters: int = 64, sinkhorn_iters: int = 500,
+                 sinkhorn_alpha: float = 0.9, match_conf_thres: float = 0.01,
+                 mov_thres: float = 0.5,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.npoint, self.k_max = npoint, k_max
+        self.feat_dim, self.gru_layers = feat_dim, gru_layers
+        self.min_obj_points = min_obj_points
+        self.dbscan_eps, self.dbscan_max_iters = dbscan_eps, dbscan_max_iters
+        self.sinkhorn_iters, self.sinkhorn_alpha = sinkhorn_iters, sinkhorn_alpha
+        self.match_conf_thres, self.mov_thres = match_conf_thres, mov_thres
+        self.pn_head = PNHead(npoint, 2)
+        self.fc_layer = FeatureCorrelator(16, (256, 256, 256))
+        self.fd_layer = FlowDecoder(npoint, feat_dim, gru_layers)
+        self.affinity = Affinity(141)
+        self.bin_score = nn.Parameter(torch.ones(()))
+        if generator is not None:
+            init_parameters(self, generator)
+        self.requires_grad_(False)
+        self.eval()
+
+    def head_stage(self, pc, ft, mask) -> torch.Tensor:
+        """One cloud through the PNHead -> (B, N, 128). In eval this is a
+        pure function of the cloud, so the eval scan carries frame t's result
+        forward as frame t+1's pc2 head."""
+        return self.pn_head(pc, ft, mask)[1]
+
+    def _frame_stage_from_heads(self, frame: FrameBatch, f1, f2):
+        m1, m2 = frame.mask1, frame.mask2
+        f1 = torch.cat([f1, masked_max(f1, m1).unsqueeze(1).expand_as(f1)],
+                       dim=-1)                          # (B, N, 256)
+        f2 = torch.cat([f2, masked_max(f2, m2).unsqueeze(1).expand_as(f2)],
+                       dim=-1)
+        cor = self.fc_layer(frame.pc1, frame.pc2, f1, f2, m1, m2)
+        return self.fd_layer.pre_gru(frame.pc1, frame.ft1, f1, cor, m1)
+
+    def output_stage(self, frame: FrameBatch, cls, prop, gfeat_out,
+                     frame_idx):
+        """Flow, clustering, descriptors and GT match for one frame."""
+        flow = self.fd_layer.post_gru(prop, gfeat_out)
+        warp = frame.pc1 + flow
+        feats = torch.cat([warp, frame.pc1, flow, frame.ft1, prop], dim=-1)
+        mov = (cls > self.mov_thres) & frame.mask1
+        db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]], dim=-1)
+        labels = dbscan(db_in, mov, self.dbscan_eps, self.min_obj_points,
+                        self.dbscan_max_iters)
+        labels = torch.where(labels < self.k_max, labels,
+                             torch.full_like(labels, -1))
+        desc, curr_valid, sizes, _ = cluster_descriptors(feats, labels,
+                                                         self.k_max)
+        curr_gt = greedy_gt_match(labels, frame.gt_dense, frame.gt_label_ids,
+                                  frame.gt_valid, self.k_max, frame_idx)
+        return dict(flow=flow, warp=warp, feats=feats, labels=labels,
+                    desc=desc, curr_valid=curr_valid, sizes=sizes,
+                    curr_gt=curr_gt,
+                    n=curr_valid.sum(dim=1).to(torch.int32))
+
+    def affinity_stage(self, desc_prev, desc_curr) -> torch.Tensor:
+        """(B, K_prev, K_curr) affinity on descriptor differences."""
+        return self.affinity(desc_curr.unsqueeze(1) - desc_prev.unsqueeze(2))
+
+    def forward(self, frame: FrameBatch, state: TrackState
+                ) -> Tuple[Dict[str, torch.Tensor], TrackState]:
+        f1 = self.head_stage(frame.pc1, frame.ft1, frame.mask1)
+        f2 = self.head_stage(frame.pc2, frame.ft2, frame.mask2)
+        return self._step_from_heads(frame, state, f1, f2)
+
+    def step_cached(self, frame: FrameBatch, state: TrackState, f2_local):
+        """Full step with the pc2 head carried from the previous frame;
+        valid when pc2 is the previous frame's pc1. Returns
+        (outputs, new_state, f1_local) so f1 becomes the next f2."""
+        f1 = self.head_stage(frame.pc1, frame.ft1, frame.mask1)
+        out, new_state = self._step_from_heads(frame, state, f1, f2_local)
+        return out, new_state, f1
+
+    def _step_from_heads(self, frame: FrameBatch, state: TrackState, f1, f2):
+        b = frame.pc1.shape[0]
+        fresh = init_state(b, self.k_max, self.gru_layers, self.feat_dim,
+                           device=frame.pc1.device)
+        state = reset_where(frame.new_seq, state, fresh)
+        cls, prop, gfeat_in = self._frame_stage_from_heads(frame, f1, f2)
+        gfeat_out, h_new = self.fd_layer.gru_apply(gfeat_in, state.h)
+        o = self.output_stage(frame, cls, prop, gfeat_out, state.frame_idx)
+        m = state.valid.sum(dim=1).to(torch.int32)
+        aff = self.affinity_stage(state.desc, o["desc"])
+        res = associate(aff, m, o["n"], state.track_id, state.next_id,
+                        self.sinkhorn_alpha, self.sinkhorn_iters,
+                        self.match_conf_thres)
+        new_state = TrackState(
+            h=h_new, desc=o["desc"], valid=o["curr_valid"],
+            track_id=res.track_id, gt_id=o["curr_gt"], next_id=res.next_id,
+            frame_idx=state.frame_idx + 1)
+        outputs = dict(
+            flow=o["flow"], warp=o["warp"], cls=cls, feats=o["feats"],
+            labels=o["labels"], track_id=res.track_id, conf=res.conf,
+            aff=aff, m=m, n=o["n"], sizes=o["sizes"],
+            prev_gt_id=state.gt_id, prev_valid=state.valid,
+            curr_gt_id=o["curr_gt"], curr_valid=o["curr_valid"])
+        return outputs, new_state

@@ -1,0 +1,19 @@
+"""Point ops and the wrappers of the three eval kernels."""
+
+from .neighborhood import (square_distance, point_distance, knn, ball_query,
+                           three_nn)
+from .sampling import identity_sample, identity_gather, gather
+from .grouping import group, three_interpolate, three_interpolate_weights
+from .fused_sa import fused_sa_pair, sa_pair, sa_pair_reference
+from .fused_fp import fused_three_interpolate, three_interpolate_reference
+from .fused_correlator import (fused_knn_weight_aggregate,
+                               knn_weight_aggregate_reference)
+
+__all__ = [
+    "square_distance", "point_distance", "knn", "ball_query", "three_nn",
+    "identity_sample", "identity_gather", "gather", "group",
+    "three_interpolate", "three_interpolate_weights",
+    "fused_sa_pair", "sa_pair", "sa_pair_reference",
+    "fused_three_interpolate", "three_interpolate_reference",
+    "fused_knn_weight_aggregate", "knn_weight_aggregate_reference",
+]

@@ -1,0 +1,100 @@
+"""Cost-volume correlator stage: kernel B3 and its plain twin.
+
+Replaces `ratrack_tpu/ops/pallas_correlator.py::_corr_kernel`
+(`fused_knn_weight_aggregate`). The CUDA kernels are in
+`csrc/correlator.cu` (a kNN selection launch and a fused gather + pair
+MLP + WeightNet + slot-sum launch); its header says what bounds them on
+the H100 and how the design answers that.
+
+  fused_knn_weight_aggregate      the kernel wrapper: CUDA tensors launch
+                                  the kernels (or raise), CPU tensors take
+  knn_weight_aggregate_reference  the plain version.
+
+Stage 1 (pc1 queries in pc2): feats_p = f2 @ W_f2 + pc2 @ W_dir + b1 and
+add_q = f1 @ W_f1 - pc1 @ W_dir are the factorised layer 1
+(pallas_correlator.py:18-24), then 2 more leaky 256x256 layers.
+Stage 2 (pc1 in pc1): feats_p is the stage-1 cost volume, no add_q, no
+pair MLP. Weights are in x @ W layout (in, out).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import build as kb
+from .grouping import group
+from .neighborhood import knn
+
+KERNEL_K = 16
+KERNEL_C = 256
+
+
+def knn_weight_aggregate_reference(query, points, feats_p, add_q, mask_p,
+                                   mlp_ws, mlp_bs, wn_ws, wn_bs, *,
+                                   k: int = KERNEL_K):
+    """Plain version -> (out (B, N, C_out), idx (B, N, k))."""
+    _, idx = knn(k, query, points, mask_p)
+    h = group(feats_p, idx)                               # (B, N, k, C)
+    dirs = group(points, idx) - query.unsqueeze(2)        # (B, N, k, 3)
+    if add_q is not None:
+        h = F.leaky_relu(h + add_q.unsqueeze(2), 0.1)
+    for w, b in zip(mlp_ws, mlp_bs):
+        h = F.leaky_relu(h @ w + b, 0.1)
+    for w, b in zip(wn_ws, wn_bs):
+        dirs = torch.relu(dirs @ w + b)
+    return torch.sum(dirs * h, dim=2), idx
+
+
+def fused_knn_weight_aggregate(query, points, feats_p, add_q, mask_p,
+                               mlp_ws, mlp_bs, wn_ws, wn_bs, *,
+                               k: int = KERNEL_K,
+                               return_indices: bool = False):
+    """Kernel B3 over (B, N, 3) queries and (B, M, 3) candidates."""
+    if not query.is_cuda:
+        out, idx = knn_weight_aggregate_reference(
+            query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs, wn_ws,
+            wn_bs, k=k)
+        return (out, idx) if return_indices else out
+
+    dev = query.device
+    b, n, m, c = query.shape[0], query.shape[1], points.shape[1], KERNEL_C
+    if k != KERNEL_K or len(mlp_ws) > 2 or len(wn_ws) != 3:
+        raise ValueError(f"the kernel takes k={KERNEL_K}, <= 2 pair layers "
+                         f"and a 3-layer WeightNet; got k={k}, "
+                         f"{len(mlp_ws)} and {len(wn_ws)}")
+    kb.require(query, "query", (b, n, 3), dev)
+    kb.require(points, "points", (b, m, 3), dev)
+    kb.require(feats_p, "feats_p", (b, m, c), dev, align16=True)
+    if add_q is not None:
+        kb.require(add_q, "add_q", (b, n, c), dev, align16=True)
+    if mask_p is not None:
+        kb.require(mask_p, "mask_p", (b, m), dev, torch.bool)
+    for i, (w, bias) in enumerate(zip(mlp_ws, mlp_bs)):
+        kb.require(w, f"mlp_w{i}", (c, c), dev, align16=True)
+        kb.require(bias, f"mlp_b{i}", (c,), dev, align16=True)
+    hid = 8
+    for i, (w, bias, shape) in enumerate(zip(
+            wn_ws, wn_bs, ((3, hid), (hid, hid), (hid, c)))):
+        kb.require(w, f"wn_w{i}", shape, dev, align16=True)
+        kb.require(bias, f"wn_b{i}", (shape[1],), dev, align16=True)
+
+    idx = torch.empty((b, n, k), device=dev, dtype=torch.int32)
+    out = torch.empty((b, n, c), device=dev, dtype=torch.float32)
+    lib = kb.load()
+    stream = kb.stream_of(query)
+    with torch.cuda.device(dev):
+        code = lib.ratrack_knn(kb.ptr(query), kb.ptr(points), kb.ptr(mask_p),
+                               b, n, m, k, kb.ptr(idx), stream)
+        kb.check(code, "knn")
+        wn = [kb.ptr(t) for pair in zip(wn_ws, wn_bs) for t in pair]
+        code = lib.ratrack_corr_aggregate(
+            kb.ptr(query), kb.ptr(points), kb.ptr(idx), b, n, m,
+            kb.ptr(feats_p), kb.ptr(add_q), kb.ptr_array(list(mlp_ws)),
+            kb.ptr_array(list(mlp_bs)), len(mlp_ws), *wn, kb.ptr(out), stream)
+    kb.check(code, "corr_aggregate")
+    fused_knn_weight_aggregate.launches += 1
+    return (out, idx) if return_indices else out
+
+
+fused_knn_weight_aggregate.launches = 0

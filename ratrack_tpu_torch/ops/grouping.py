@@ -1,0 +1,29 @@
+"""Group gathers and 3-NN inverse-distance interpolation, batched.
+
+Counterpart of `ratrack_tpu/ops/grouping.py` (and of `group` in its
+sampling.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def group(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Group gather (B, N, C) x (B, M, S) -> (B, M, S, C)."""
+    b, m, s = idx.shape
+    flat = torch.gather(
+        points, 1, idx.reshape(b, m * s, 1).expand(-1, -1, points.shape[-1]))
+    return flat.reshape(b, m, s, points.shape[-1])
+
+
+def three_interpolate_weights(dist: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance weights 1/(d + 1e-8), normalised over the 3 slots."""
+    recip = 1.0 / (dist + 1e-8)
+    return recip / torch.sum(recip, dim=-1, keepdim=True)
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """(B, M, C) x (B, N, 3) x (B, N, 3) -> (B, N, C)."""
+    return torch.sum(group(features, idx) * weight.unsqueeze(-1), dim=2)
