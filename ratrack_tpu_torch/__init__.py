@@ -5,14 +5,17 @@ as the reference every module here is tested against. The layout mirrors
 it module for module:
 
 ops/       point ops (ball query, kNN, 3-NN interpolation, gathers) and the
-           wrappers of the three eval kernels: fused_sa (SA pair),
-           fused_fp (3-NN interpolation), fused_correlator (cost volume).
+           kernel wrappers: eval fused_sa (SA pair), fused_fp (3-NN
+           interpolation), fused_correlator (cost volume); train
+           fused_sa_train, fused_correlator_train (forward + backward).
 csrc/      the CUDA C++ sources of those kernels (sm_90a).
-kernels/   nvcc build + ctypes loading of csrc/ into one shared library.
+kernels/   nvcc build + ctypes loading of csrc/ into one shared library;
+           seeded kernel cases for the card checks.
 models/    nn.Modules: PNHead, FeatureCorrelator, FlowDecoder, predictors,
-           Affinity, Track4D.
+           Affinity, Track4D (eval by default, `train()` for training).
 tracker/   DBSCAN, log-Sinkhorn with dustbin, association, track state.
-train/     the cached-backbone eval scan.
+train/     the cached-backbone eval scan, losses, Adam + StepLR, the
+           per-frame train steps, train checkpoints.
 data/      FrameBatch and the synthetic clip generator (numpy, no JAX).
 utils/     flax-variables -> state_dict converter.
 

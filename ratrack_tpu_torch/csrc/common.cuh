@@ -43,4 +43,76 @@ __device__ __forceinline__ void warp_argmin(float& d, int& j) {
   }
 }
 
+// Ball query of one center at two radii, by one warp: the first nsa (nsb)
+// valid points of the stream's cloud xb (n x 3, mask mb or null) with
+// d^2 < r2a (r2b), in index order, go to the warp's slots_a (slots_b).
+// The cloud is scanned 32 points a step; one ballot per radius ranks
+// every hit with __popc, and the scan stops once both lists are full.
+// On return *hits_a / *hits_b hold the filled slot counts.
+__device__ __forceinline__ void ball_query_pair(
+    const float* xb, const unsigned char* mb, int n, float cx, float cy,
+    float cz, float r2a, int nsa, float r2b, int nsb, int* slots_a,
+    int* slots_b, int lane, int* hits_a, int* hits_b) {
+  const float sqc = sq_norm3(cx, cy, cz);
+  int cnt_a = 0, cnt_b = 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < n; base += 32) {
+    const int j = base + lane;
+    bool ha = false, hb = false;
+    if (j < n && (mb == nullptr || mb[j] != 0)) {
+      const float x = xb[3 * j], y = xb[3 * j + 1], z = xb[3 * j + 2];
+      const float d = sq_dist(cx, cy, cz, sqc, x, y, z, sq_norm3(x, y, z));
+      ha = d < r2a;
+      hb = d < r2b;
+    }
+    const unsigned bal_a = __ballot_sync(kFullMask, ha);
+    const unsigned bal_b = __ballot_sync(kFullMask, hb);
+    if (ha) {
+      const int r = cnt_a + __popc(bal_a & below);
+      if (r < nsa) slots_a[r] = j;
+    }
+    if (hb) {
+      const int r = cnt_b + __popc(bal_b & below);
+      if (r < nsb) slots_b[r] = j;
+    }
+    cnt_a += __popc(bal_a);
+    cnt_b += __popc(bal_b);
+    if (cnt_a >= nsa && cnt_b >= nsb) break;
+  }
+  __syncwarp();
+  *hits_a = min(cnt_a, nsa);
+  *hits_b = min(cnt_b, nsb);
+}
+
+// out[e] = sum over p < nparts of part[p * len + e], e < len, added in a
+// fixed order in float64: blockDim (32, 8), thread (x, y) sums parts
+// y, y + 8, ... of element blockIdx.x * 32 + x, then row y = 0 adds the
+// eight group sums in order. Deterministic, no atomics.
+template <typename T>
+__global__ void __launch_bounds__(256)
+reduce_parts_kernel(const T* __restrict__ part, int nparts, int len,
+                    float* __restrict__ out) {
+  __shared__ double red[8][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  double acc = 0.0;
+  if (e < len)
+    for (int p = threadIdx.y; p < nparts; p += 8)
+      acc += (double)part[(size_t)p * len + e];
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < len) {
+    double t = 0.0;
+    for (int g = 0; g < 8; ++g) t += red[g][threadIdx.x];
+    out[e] = (float)t;
+  }
+}
+
+template <typename T>
+inline cudaError_t reduce_parts(const T* part, int nparts, int len,
+                                float* out, cudaStream_t stream) {
+  reduce_parts_kernel<T><<<(len + 31) / 32, dim3(32, 8), 0, stream>>>(
+      part, nparts, len, out);
+  return cudaGetLastError();
+}
+
 }  // namespace ratrack

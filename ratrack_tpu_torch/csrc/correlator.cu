@@ -28,23 +28,27 @@
 // The kNN selection costs 16 warp passes over the candidates per query:
 // the k-th pass takes the (distance, index) minimum strictly after the
 // (k-1)-th winner, which needs no per-query list in memory.
+//
+// The same aggregate kernel is the forward of the train kernel B10
+// (replacing ratrack_tpu/ops/pallas_correlator_train.py::_fwd_kernel,
+// entry ratrack_corr_train_fwd): stage 1 then adds dir @ W_dir to layer 1
+// from the exact directions, h = leaky(feats_p[j] + add_q[i] + dir @
+// W_dir), and the activations entering each pair layer and leaving the
+// last are stashed (three (B*N*16, 256) float32 tensors, ~200 MB at the
+// main-path shape) for the backward in correlator_train.cu. Eval passes
+// no W_dir and no stash. The 256x256 layer lives in corr_common.cuh,
+// shared with the backward.
 
-#include "common.cuh"
+#include "corr_common.cuh"
 
 #include <climits>
 #include <math_constants.h>
 
 namespace {
 
+using namespace ratrack::corr;
+
 constexpr int kKnnWarps = 8;
-constexpr int kC = 256;        // channel width of both stages
-constexpr int kK = 16;         // neighbours per query
-constexpr int kQ = 4;          // queries per aggregate block
-constexpr int kRows = kQ * kK;
-constexpr int kKT = 32;        // weight rows per streamed K-tile
-constexpr int kThreads = 256;  // kQ * (kC / 4)
-constexpr int kMaxMlp = 2;
-constexpr int kWnHidden = 8;
 
 __global__ void __launch_bounds__(kKnnWarps * 32)
 knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
@@ -101,30 +105,41 @@ struct WeightNet {
   const float* b2;
 };
 
-__device__ __forceinline__ float leaky(float x) { return x > 0.0f ? x : 0.1f * x; }
+// Train-mode extras of the aggregate kernel (all null in eval):
+//   w_dir  (3, kC): stage 1 adds dir @ W_dir to layer 1 in the kernel, from
+//          the exact directions (the train hoists leave it out);
+//   h[l]   (B * N * kK, kC): the activations entering pair layer l + 1
+//          (h[0]: the activated layer-1 rows) and h[n]: the last layer's,
+//          stashed for the backward (correlator_train.cu).
+struct TrainExtras {
+  const float* w_dir;
+  float* h[kMaxMlp + 1];
+};
 
 __global__ void __launch_bounds__(kThreads)
 aggregate_kernel(const float* __restrict__ query,
                  const float* __restrict__ points, const int* __restrict__ idx,
                  int nb, int n, int m, const float* __restrict__ feats_p,
                  const float* __restrict__ add_q, Mlp mlp, WeightNet wn,
-                 float* __restrict__ out) {
+                 TrainExtras tx, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);   // (kRows, kC)
   float* wt = hs + kRows * kC;                   // (kKT, kC)
   float* gs = wt + kKT * kC;                     // (kRows, kWnHidden)
-  int* sj = reinterpret_cast<int*>(gs + kRows * kWnHidden);
+  float* ds = gs + kRows * kWnHidden;            // (kRows, 4) directions
+  int* sj = reinterpret_cast<int*>(ds + kRows * 4);
   const float4* hs4 = reinterpret_cast<const float4*>(hs);
-  const float4* wt4 = reinterpret_cast<const float4*>(wt);
 
   const int tid = threadIdx.x;
   const long long q0 = (long long)blockIdx.x * kQ;
   const long long total = (long long)nb * n;
 
-  // neighbour ids and the WeightNet hidden layers, one pair row a thread
+  // neighbour ids, directions and the WeightNet hidden layers, one pair
+  // row a thread
   if (tid < kRows) {
     const long long g = q0 + tid / kK;
-    float h2[kWnHidden];
+    float d[3] = {0.0f, 0.0f, 0.0f};
+    float h1[kWnHidden], h2[kWnHidden];
 #pragma unroll
     for (int o = 0; o < kWnHidden; ++o) h2[o] = 0.0f;
     int j = 0;
@@ -133,27 +148,16 @@ aggregate_kernel(const float* __restrict__ query,
       j = idx[(size_t)g * kK + tid % kK];
       const float* q = query + (size_t)g * 3;
       const float* p = points + ((size_t)bi * m + j) * 3;
-      const float d[3] = {p[0] - q[0], p[1] - q[1], p[2] - q[2]};
-      float h1[kWnHidden];
-#pragma unroll
-      for (int o = 0; o < kWnHidden; ++o) {
-        float a = 0.0f;
-#pragma unroll
-        for (int t = 0; t < 3; ++t) a = fmaf(d[t], wn.w0[t * kWnHidden + o], a);
-        h1[o] = fmaxf(a + wn.b0[o], 0.0f);
-      }
-#pragma unroll
-      for (int o = 0; o < kWnHidden; ++o) {
-        float a = 0.0f;
-#pragma unroll
-        for (int t = 0; t < kWnHidden; ++t)
-          a = fmaf(h1[t], wn.w1[t * kWnHidden + o], a);
-        h2[o] = fmaxf(a + wn.b1[o], 0.0f);
-      }
+      d[0] = p[0] - q[0];
+      d[1] = p[1] - q[1];
+      d[2] = p[2] - q[2];
+      ratrack::corr::weightnet_hidden(d, wn.w0, wn.b0, wn.w1, wn.b1, h1, h2);
     }
     sj[tid] = j;
 #pragma unroll
     for (int o = 0; o < kWnHidden; ++o) gs[tid * kWnHidden + o] = h2[o];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) ds[tid * 4 + t] = d[t];
   }
   __syncthreads();
 
@@ -167,9 +171,21 @@ aggregate_kernel(const float* __restrict__ query,
       v = reinterpret_cast<const float4*>(feats_p + ((size_t)bi * m + sj[r]) * kC)[c4];
       if (add_q != nullptr) {
         const float4 a = reinterpret_cast<const float4*>(add_q + (size_t)g * kC)[c4];
-        v = make_float4(leaky(v.x + a.x), leaky(v.y + a.y), leaky(v.z + a.z),
-                        leaky(v.w + a.w));
+        v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
+        if (tx.w_dir != nullptr) {
+          const float d0 = ds[r * 4], d1 = ds[r * 4 + 1], d2 = ds[r * 4 + 2];
+          const float4 w0 = reinterpret_cast<const float4*>(tx.w_dir)[c4];
+          const float4 w1 = reinterpret_cast<const float4*>(tx.w_dir + kC)[c4];
+          const float4 w2 = reinterpret_cast<const float4*>(tx.w_dir + 2 * kC)[c4];
+          v = make_float4(v.x + fmaf(d2, w2.x, fmaf(d1, w1.x, d0 * w0.x)),
+                          v.y + fmaf(d2, w2.y, fmaf(d1, w1.y, d0 * w0.y)),
+                          v.z + fmaf(d2, w2.z, fmaf(d1, w1.z, d0 * w0.z)),
+                          v.w + fmaf(d2, w2.w, fmaf(d1, w1.w, d0 * w0.w)));
+        }
+        v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
       }
+      if (tx.h[0] != nullptr)
+        reinterpret_cast<float4*>(tx.h[0] + ((size_t)g * kK + r % kK) * kC)[c4] = v;
     }
     reinterpret_cast<float4*>(hs)[e] = v;
   }
@@ -177,35 +193,10 @@ aggregate_kernel(const float* __restrict__ query,
 
   const int qq = tid / (kC / 4);        // local query
   const int col4 = tid % (kC / 4);      // owns channels 4*col4 .. 4*col4+3
+  const long long g = q0 + qq;
   float acc[kK][4];
   for (int l = 0; l < mlp.n; ++l) {
-#pragma unroll
-    for (int s = 0; s < kK; ++s)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) acc[s][cc] = 0.0f;
-    const float* w = mlp.w[l];
-    for (int kt = 0; kt < kC; kt += kKT) {
-      __syncthreads();   // previous tile fully read
-      for (int e = tid; e < kKT * (kC / 4); e += kThreads)
-        reinterpret_cast<float4*>(wt)[e] =
-            reinterpret_cast<const float4*>(w + (size_t)kt * kC)[e];
-      __syncthreads();
-#pragma unroll 2
-      for (int kk = 0; kk < kKT; kk += 4) {
-        const float4 w0 = wt4[(kk + 0) * (kC / 4) + col4];
-        const float4 w1 = wt4[(kk + 1) * (kC / 4) + col4];
-        const float4 w2 = wt4[(kk + 2) * (kC / 4) + col4];
-        const float4 w3 = wt4[(kk + 3) * (kC / 4) + col4];
-#pragma unroll
-        for (int s = 0; s < kK; ++s) {
-          const float4 h = hs4[(qq * kK + s) * (kC / 4) + (kt + kk) / 4];
-          acc[s][0] = fmaf(h.w, w3.x, fmaf(h.z, w2.x, fmaf(h.y, w1.x, fmaf(h.x, w0.x, acc[s][0]))));
-          acc[s][1] = fmaf(h.w, w3.y, fmaf(h.z, w2.y, fmaf(h.y, w1.y, fmaf(h.x, w0.y, acc[s][1]))));
-          acc[s][2] = fmaf(h.w, w3.z, fmaf(h.z, w2.z, fmaf(h.y, w1.z, fmaf(h.x, w0.z, acc[s][2]))));
-          acc[s][3] = fmaf(h.w, w3.w, fmaf(h.z, w2.w, fmaf(h.y, w1.w, fmaf(h.x, w0.w, acc[s][3]))));
-        }
-      }
-    }
+    ratrack::corr::tile_layer(mlp.w[l], hs4, wt, acc, tid, qq, col4);
     const float4 b = reinterpret_cast<const float4*>(mlp.b[l])[col4];
 #pragma unroll
     for (int s = 0; s < kK; ++s) {
@@ -213,6 +204,13 @@ aggregate_kernel(const float* __restrict__ query,
       acc[s][1] = leaky(acc[s][1] + b.y);
       acc[s][2] = leaky(acc[s][2] + b.z);
       acc[s][3] = leaky(acc[s][3] + b.w);
+    }
+    float* stash = tx.h[l + 1];
+    if (stash != nullptr && g < total) {
+#pragma unroll
+      for (int s = 0; s < kK; ++s)
+        reinterpret_cast<float4*>(stash + ((size_t)g * kK + s) * kC)[col4] =
+            make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
     }
     if (l + 1 < mlp.n) {   // next layer reads this one's output
       __syncthreads();
@@ -235,7 +233,6 @@ aggregate_kernel(const float* __restrict__ query,
   }
 
   // epilogue: WeightNet output layer x pair features, summed over slots
-  const long long g = q0 + qq;
   if (g >= total) return;
   float res[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   const float4 bo = reinterpret_cast<const float4*>(wn.b2)[col4];
@@ -264,6 +261,35 @@ aggregate_kernel(const float* __restrict__ query,
       make_float4(res[0], res[1], res[2], res[3]);
 }
 
+int launch_aggregate(const float* query, const float* points, const int* idx,
+                     int nb, int n, int m, const float* feats_p,
+                     const float* add_q, const float* const* mlp_w,
+                     const float* const* mlp_b, int n_mlp, const float* wn_w0,
+                     const float* wn_b0, const float* wn_w1, const float* wn_b1,
+                     const float* wn_w2, const float* wn_b2,
+                     const TrainExtras& tx, float* out, void* stream) {
+  if (nb < 1 || n < 1 || m < 1 || n_mlp < 0 || n_mlp > kMaxMlp)
+    return (int)cudaErrorInvalidValue;
+  Mlp mlp;
+  mlp.n = n_mlp;
+  for (int l = 0; l < kMaxMlp; ++l) {
+    mlp.w[l] = l < n_mlp ? mlp_w[l] : nullptr;
+    mlp.b[l] = l < n_mlp ? mlp_b[l] : nullptr;
+  }
+  const WeightNet wn = {wn_w0, wn_b0, wn_w1, wn_b1, wn_w2, wn_b2};
+  const size_t smem = sizeof(float) * (kRows * kC + kKT * kC + kRows * kWnHidden +
+                                       kRows * 4) +
+                      sizeof(int) * kRows;
+  cudaError_t err = cudaFuncSetAttribute(
+      aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)nb * n;
+  const int grid = (int)((total + kQ - 1) / kQ);
+  aggregate_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      query, points, idx, nb, n, m, feats_p, add_q, mlp, wn, tx, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ratrack_knn(const float* query, const float* points,
@@ -286,23 +312,26 @@ extern "C" int ratrack_corr_aggregate(
     const float* wn_w0, const float* wn_b0, const float* wn_w1,
     const float* wn_b1, const float* wn_w2, const float* wn_b2, float* out,
     void* stream) {
-  if (nb < 1 || n < 1 || m < 1 || n_mlp < 0 || n_mlp > kMaxMlp)
-    return (int)cudaErrorInvalidValue;
-  Mlp mlp;
-  mlp.n = n_mlp;
-  for (int l = 0; l < kMaxMlp; ++l) {
-    mlp.w[l] = l < n_mlp ? mlp_w[l] : nullptr;
-    mlp.b[l] = l < n_mlp ? mlp_b[l] : nullptr;
-  }
-  const WeightNet wn = {wn_w0, wn_b0, wn_w1, wn_b1, wn_w2, wn_b2};
-  const size_t smem = sizeof(float) * (kRows * kC + kKT * kC + kRows * kWnHidden) +
-                      sizeof(int) * kRows;
-  cudaError_t err = cudaFuncSetAttribute(
-      aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)nb * n;
-  const int grid = (int)((total + kQ - 1) / kQ);
-  aggregate_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      query, points, idx, nb, n, m, feats_p, add_q, mlp, wn, out);
-  return (int)cudaGetLastError();
+  const TrainExtras none = {nullptr, {nullptr, nullptr, nullptr}};
+  return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
+                          mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
+                          wn_b2, none, out, stream);
+}
+
+// Train forward of one stage (kernel B10, with correlator_train.cu): the
+// aggregate with dir @ w_dir added to layer 1 (w_dir may be null) and the
+// activations stashed into stash[0..n_mlp] (entries may be null).
+extern "C" int ratrack_corr_train_fwd(
+    const float* query, const float* points, const int* idx, int nb, int n,
+    int m, const float* feats_p, const float* add_q, const float* w_dir,
+    const float* const* mlp_w, const float* const* mlp_b, int n_mlp,
+    const float* wn_w0, const float* wn_b0, const float* wn_w1,
+    const float* wn_b1, const float* wn_w2, const float* wn_b2,
+    float* const* stash, float* out, void* stream) {
+  if (n_mlp < 0 || n_mlp > kMaxMlp) return (int)cudaErrorInvalidValue;
+  TrainExtras tx = {w_dir, {nullptr, nullptr, nullptr}};
+  for (int l = 0; l <= n_mlp; ++l) tx.h[l] = stash[l];
+  return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
+                          mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
+                          wn_b2, tx, out, stream);
 }

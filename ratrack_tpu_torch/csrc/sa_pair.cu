@@ -123,46 +123,18 @@ sa_pair_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
   const int bi = (int)(g / m), ci = (int)(g % m);
 
   const float* c = centers + (size_t)g * 3;
-  const float cx = c[0], cy = c[1], cz = c[2];
-  const float sqc = ratrack::sq_norm3(cx, cy, cz);
-  const float* xb = xyz + (size_t)bi * n * 3;
-  const unsigned char* mb = mask != nullptr ? mask + (size_t)bi * n : nullptr;
   int* slots_a = sidx + warp * 2 * kMaxNs;
   int* slots_b = slots_a + kMaxNs;
-
-  // ball query at both radii: hit ranks from one ballot per radius
-  int cnt_a = 0, cnt_b = 0;
-  const unsigned below = (1u << lane) - 1u;
-  for (int base = 0; base < n; base += 32) {
-    const int j = base + lane;
-    bool ha = false, hb = false;
-    if (j < n && (mb == nullptr || mb[j] != 0)) {
-      const float x = xb[3 * j], y = xb[3 * j + 1], z = xb[3 * j + 2];
-      const float d = ratrack::sq_dist(cx, cy, cz, sqc, x, y, z,
-                                       ratrack::sq_norm3(x, y, z));
-      ha = d < sa.r2;
-      hb = d < sb.r2;
-    }
-    const unsigned bal_a = __ballot_sync(ratrack::kFullMask, ha);
-    const unsigned bal_b = __ballot_sync(ratrack::kFullMask, hb);
-    if (ha) {
-      const int r = cnt_a + __popc(bal_a & below);
-      if (r < sa.ns) slots_a[r] = j;
-    }
-    if (hb) {
-      const int r = cnt_b + __popc(bal_b & below);
-      if (r < sb.ns) slots_b[r] = j;
-    }
-    cnt_a += __popc(bal_a);
-    cnt_b += __popc(bal_b);
-    if (cnt_a >= sa.ns && cnt_b >= sb.ns) break;
-  }
-  __syncwarp();
+  int hits_a, hits_b;
+  ratrack::ball_query_pair(
+      xyz + (size_t)bi * n * 3,
+      mask != nullptr ? mask + (size_t)bi * n : nullptr, n, c[0], c[1], c[2],
+      sa.r2, sa.ns, sb.r2, sb.ns, slots_a, slots_b, lane, &hits_a, &hits_b);
 
   float* h0 = hbuf + warp * 2 * kMaxC;
   float* h1 = h0 + kMaxC;
-  pool_scale(sa, swa, slots_a, min(cnt_a, sa.ns), bi, ci, n, m, h0, h1, lane);
-  pool_scale(sb, swb, slots_b, min(cnt_b, sb.ns), bi, ci, n, m, h0, h1, lane);
+  pool_scale(sa, swa, slots_a, hits_a, bi, ci, n, m, h0, h1, lane);
+  pool_scale(sb, swb, slots_b, hits_b, bi, ci, n, m, h0, h1, lane);
 }
 
 bool make_scale(Scale* s, const float* p1, const float* cw,

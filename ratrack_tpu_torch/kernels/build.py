@@ -1,11 +1,13 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Every `ratrack_tpu_torch/csrc/*.cu` compiles into ONE shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds):
+a plain C interface (no PyTorch headers, so a build takes seconds). One
+nvcc per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o kernels/build/libratrack_kernels_<hash>.so \
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
+         kernels/build/libratrack_kernels_<hash>.so *.o
 
 The library is built at first use into `kernels/build/` (git-ignored),
 keyed by a hash of the sources and flags, so a fresh checkout builds
@@ -27,8 +29,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,10 +46,27 @@ SIGNATURES = {
     "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ratrack_corr_aggregate": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P],
+    "ratrack_sa_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    "ratrack_sa_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
+                             _P],
+    "ratrack_corr_train_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                               _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ratrack_corr_train_bwd": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P],
 }
 
 _lib: ctypes.CDLL | None = None
 last_build: dict = {}
+
+
+class Counter:
+    """Launches of one kernel (`.launches`): its wrapper adds one where it
+    launches the kernel, and nowhere else."""
+
+    def __init__(self) -> None:
+        self.launches = 0
 
 
 def sources() -> list[Path]:
@@ -86,16 +106,36 @@ def build() -> Path:
             last_build.update(seconds=0.0, cached=True, log="")
             return target
         tmp = target.with_suffix(f".tmp{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sources() if p.suffix == ".cu"]]
+        obj_dir = BUILD_DIR / f"obj{os.getpid()}"
+        obj_dir.mkdir(exist_ok=True)
+        nvcc = find_nvcc()
         t0 = time.perf_counter()
+        jobs = []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                   str(obj_dir / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = []
+        for cmd, proc in jobs:
+            _, err = proc.communicate()
+            log.append(err)
+            if proc.returncode != 0:
+                for _, other in jobs:
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(cmd[-1]) for cmd, _ in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, target)
+        shutil.rmtree(obj_dir, ignore_errors=True)
         last_build.update(seconds=time.perf_counter() - t0, cached=False,
-                          log=proc.stderr)
+                          log="".join(log))
     return target
 
 
@@ -127,9 +167,10 @@ def ptr(t) -> int | None:
 
 
 def ptr_array(tensors) -> ctypes.Array:
-    """A host array of device pointers (the caller keeps `tensors` alive)."""
+    """A host array of device pointers, null for None entries (the caller
+    keeps `tensors` alive)."""
     return (ctypes.c_void_p * max(len(tensors), 1))(
-        *[t.data_ptr() for t in tensors])
+        *[ptr(t) for t in tensors])
 
 
 def int_array(values) -> ctypes.Array:

@@ -9,6 +9,13 @@ clouds (data/synthetic.py) and random weights, all drawn from a seed:
   corr     stage 1 (pc1 in pc2, add_q, 2 pair layers) and stage 2 (pc1 in
            pc1, no pair MLP).
 
+Train kernels: `sa_train_case` (B9, the same six level configs with batch
+norm scales and biases in place of the folded biases) and
+`corr_train_case` (B10, stage 1 with W_dir, stage 2); `sa_train_run` /
+`corr_train_run` run a kernel wrapper or its plain version forward and
+backward against a seeded cotangent, and `compare_train` holds the two
+runs against each other.
+
 Used by chip_smoke.py and tests/test_torch_port_cuda.py to hold every
 kernel against its plain version on the same tensors.
 """
@@ -20,6 +27,7 @@ import torch
 
 from ..data.synthetic import stack_frames, synthetic_clip
 from ..ops.fused_sa import hoist_layer1
+from ..ops.fused_sa_train import hoist_layer1_train
 from ..ops.sampling import identity_gather
 
 # name: (radii, nsamples, per-scale MLP widths, feature channels by head)
@@ -113,3 +121,204 @@ def to_device(case: dict, device) -> dict:
             return type(x)(move(v) for v in x)
         return x
     return {k: move(v) for k, v in case.items()}
+
+
+def sa_train_case(level: str, head: str, pc, mask, gen: torch.Generator,
+                  centers=None):
+    """Keyword arguments of ops.fused_sa_train.sa_pair_train /
+    sa_pair_train_reference at one level config. centers: by default the
+    identity sample of the level's points, as on the model's path."""
+    radii, nsamples, mlps, c_feat = SA_LEVELS[level]
+    b, n, _ = pc.shape
+    if level == "sa1":
+        xyz, m = pc, mask
+    else:
+        xyz, m = identity_gather(pc, mask), None
+    if centers is None:
+        centers = identity_gather(xyz, m)
+    feats = torch.randn((b, n, c_feat[head]), generator=gen)
+    kw = dict(xyz=xyz.contiguous(), centers=centers.contiguous(), mask=m)
+    for tag, widths in zip("ab", mlps):
+        dims = (3 + c_feat[head],) + tuple(widths)
+        ws = [torch.randn((i, o), generator=gen) / i ** 0.5
+              for i, o in zip(dims[:-1], dims[1:])]
+        kw[f"pf{tag}"], kw[f"wxyz_{tag}"] = hoist_layer1_train(feats, ws[0])
+        kw[f"ws_{tag}"] = ws[1:]
+        kw[f"gammas_{tag}"] = [0.5 + torch.rand((c,), generator=gen)
+                               for c in widths]
+        kw[f"betas_{tag}"] = [0.1 * torch.randn((c,), generator=gen)
+                              for c in widths]
+    kw.update(radius_a=radii[0], radius_b=radii[1], nsample_a=nsamples[0],
+              nsample_b=nsamples[1])
+    return kw
+
+
+def corr_train_case(stage: int, pc1, mask1, pc2, mask2,
+                    gen: torch.Generator):
+    """Keyword arguments of ops.fused_correlator_train.
+    fused_knn_weight_aggregate_train (stage 1 with w_dir)."""
+    kw = corr_case(stage, pc1, mask1, pc2, mask2, gen)
+    kw["w_dir"] = (0.05 * torch.randn((3, CORR_C), generator=gen)
+                   if stage == 1 else None)
+    return kw
+
+
+def _leaf(x):
+    return x.detach().clone().requires_grad_(True)
+
+
+def _leaves(kw, names):
+    """kw with the named tensors (and lists of tensors) replaced by fresh
+    leaves that require grad, and those leaves by name."""
+    kw = dict(kw)
+    for key in names:
+        kw[key] = ([_leaf(t) for t in kw[key]] if isinstance(kw[key], list)
+                   else _leaf(kw[key]))
+    return kw, {key: kw[key] for key in names}
+
+
+def flat_leaves(leaves: dict):
+    """{name: tensor or [tensors]} -> [(flat name, tensor)]."""
+    out = []
+    for key, val in leaves.items():
+        if isinstance(val, list):
+            out += [(f"{key}{i}", t) for i, t in enumerate(val)]
+        else:
+            out.append((key, val))
+    return out
+
+
+def _cotangent(shape, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(device)
+
+
+def sa_train_loss(fn, kw: dict, seed: int = 0):
+    """fn(**kw) forward -> (sum(pooled * G) with G seeded normal, outputs
+    {name: tensor}, leaves {name: leaf}). fn is ops.fused_sa_train.
+    sa_pair_train or sa_pair_train_reference."""
+    names = [f"{k}{tag}" for tag in "ab" for k in ("pf", "wxyz_")] + [
+        f"{k}_{tag}" for tag in "ab" for k in ("ws", "gammas", "betas")]
+    kw, leaves = _leaves(kw, names)
+    loss, outs = 0.0, {}
+    for k, (tag, (pooled, mus, vrs, idx)) in enumerate(zip("ab", fn(**kw))):
+        loss = loss + (pooled * _cotangent(pooled.shape, seed + k,
+                                           pooled.device)).sum()
+        outs[f"pooled_{tag}"] = pooled.detach()
+        outs[f"idx_{tag}"] = idx
+        for li, (mu, var) in enumerate(zip(mus, vrs)):
+            outs[f"mu_{tag}{li}"] = mu.detach()
+            outs[f"var_{tag}{li}"] = var.detach()
+    return loss, outs, leaves
+
+
+def corr_train_loss(fn, kw: dict, seed: int = 0):
+    """As sa_train_loss for ops.fused_correlator_train.
+    fused_knn_weight_aggregate_train (return_indices=True) or
+    knn_weight_aggregate_train_reference; the leaves include the query
+    and point positions (one leaf when they are one cloud)."""
+    names = [k for k in ("query", "points", "feats_p", "add_q", "w_dir")
+             if kw[k] is not None] + ["mlp_ws", "mlp_bs", "wn_ws", "wn_bs"]
+    one_cloud = kw["points"] is kw["query"]       # stage 2: pc1 in pc1
+    if one_cloud:
+        names.remove("points")
+    kw, leaves = _leaves(kw, names)
+    if one_cloud:
+        kw["points"] = kw["query"]
+    out, idx = fn(**kw)
+    loss = (out * _cotangent(out.shape, seed, out.device)).sum()
+    return loss, {"out": out.detach(), "idx": idx}, leaves
+
+
+def _run(loss_fn, fn, kw, seed):
+    loss, outs, leaves = loss_fn(fn, kw, seed)
+    loss.backward()
+    return outs, {name: torch.zeros_like(t) if t.grad is None else t.grad
+                  for name, t in flat_leaves(leaves)}
+
+
+def sa_train_run(fn, kw: dict, seed: int = 0):
+    """sa_train_loss forward and backward -> (outputs, gradients by
+    name)."""
+    return _run(sa_train_loss, fn, kw, seed)
+
+
+def corr_train_run(fn, kw: dict, seed: int = 0):
+    """corr_train_loss forward and backward -> (outputs, gradients)."""
+    return _run(corr_train_loss, fn, kw, seed)
+
+
+def to_float64(case: dict) -> dict:
+    """Every floating tensor of a case (lists included) in float64."""
+    def cast(x):
+        if torch.is_tensor(x):
+            return x.double() if x.is_floating_point() else x
+        if isinstance(x, list):
+            return [cast(v) for v in x]
+        return x
+    return {k: cast(v) for k, v in case.items()}
+
+
+def compare_train(got, want, want64=None, cancelling=None):
+    """Kernel run vs plain run (each (outputs, gradients)) -> a list of
+    failures (empty when they agree) and a dict of each entry's max abs
+    error against the plain run.
+
+    Outputs and batch statistics: max abs error <= 1e-4 * max|plain| +
+    1e-5; selected indices identical; everything finite.
+    Gradients: cosine with the plain run >= 0.9999, and in norm
+    |g - g64| <= 1e-3 |g64| + 2 |g_plain - g64| + 1e-5, g64 the plain
+    version run in float64 on the same inputs (want64; without it, the
+    float32 plain run stands in and the bound is 1e-3 |g_plain|): the
+    kernel's float32 error at most twice the plain version's. The
+    float64 yardstick is needed because the max-pools make the gradient
+    ill-conditioned: where two different slots of a center come within
+    float32 rounding of each other, either run may route the cotangent to
+    the other one. At 8 streams x 512 centers the plain version in float32
+    is itself 1.9e-3 (in norm) and 1.9 (max abs, against a 0.37 bound of
+    the max-abs kind) from its float64 run (sa2, scale b, dW_xyz).
+
+    cancelling {gradient: other gradient}: a gradient that is a sum of
+    terms cancelling to 0 in exact arithmetic (dPF when every slot of a
+    stream is one point: a batch norm's input gradients sum to 0 over its
+    rows) is rounding noise on every side; it is held to 1e-3 * max|plain|
+    of the other gradient, a sum of the same terms weighted by relative
+    coordinates, and has no cosine."""
+    cancelling = cancelling or {}
+    bad, errs = [], {}
+    for key, w in want[0].items():
+        g = got[0][key]
+        if key.startswith("idx"):
+            if not torch.equal(g.long(), w.long()):
+                bad.append(f"{key}: indices differ")
+            continue
+        g, w = g.double(), w.double()
+        errs[key] = err = (g - w).abs().max().item()
+        tol = 1e-4 * w.abs().max().item() + 1e-5
+        if not bool(torch.isfinite(g).all()):
+            bad.append(f"{key}: not finite")
+        if err > tol:
+            bad.append(f"{key}: max abs err {err:.3g} > tol {tol:.3g}")
+    for key, w in want[1].items():
+        g, w = got[1][key].double(), w.double()
+        if not bool(torch.isfinite(g).all()):
+            bad.append(f"{key}: not finite")
+        if key in cancelling:
+            errs[key] = err = (g - w).abs().max().item()
+            tol = 1e-3 * want[1][cancelling[key]].abs().max().item() + 1e-5
+            if err > tol:
+                bad.append(f"{key}: max abs err {err:.3g} > tol {tol:.3g}")
+            continue
+        errs[key] = (g - w).abs().max().item()
+        w64 = w if want64 is None else want64[1][key].double()
+        err = (g - w64).norm().item()
+        tol = (1e-3 * w64.norm().item() + 2.0 * (w - w64).norm().item()
+               + 1e-5)
+        if err > tol:
+            bad.append(f"{key}: error {err:.3g} in norm > {tol:.3g}")
+        ng, nw = g.norm().item(), w.norm().item()
+        if nw > 1e-12 or ng > 1e-12:
+            cos = (g * w).sum().item() / max(ng * nw, 1e-30)
+            if cos < 0.9999:
+                bad.append(f"{key}: cosine {cos:.6f} < 0.9999")
+    return bad, errs

@@ -1,4 +1,4 @@
-"""nn.Modules of the Track4D network, eval path."""
+"""nn.Modules of the Track4D network (eval and train)."""
 
 from .layers import (MaskedBatchNorm, PointwiseMLP, WeightNet, GRUCell,
                      StackedGRU, init_parameters)

@@ -1,15 +1,19 @@
-"""Cost-volume feature correlator, eval path (n <= 4096), through
-kernel B3. Counterpart of `ratrack_tpu/models/correlator.py:67-98`.
+"""Cost-volume feature correlator (n <= 4096). Counterpart of
+`ratrack_tpu/models/correlator.py:67-98, 141-176`.
 
   1. kNN(16) of pc1 in pc2; MLP over [f1_i, f2_j, x_j - x_i] (no BN, leaky
      0.1); WeightNet1(direction)-weighted unnormalised sum over the slots.
   2. kNN(16) of pc1 in pc1; WeightNet2-weighted sum of the stage-1 cost
      over the self-neighbourhood.
 
-Layer 1 of the pair MLP factorises: with W1 = [W_f1; W_f2; W_dir],
-pre1_ij = (f1 W_f1 - x1 W_dir)_i + (f2 W_f2 + x2 W_dir + b1)_j, two torch
-matmuls here, as the JAX package computes them outside its kernel. The
-split formulation for n > 4096 (kernels B4/B5) is not ported yet.
+Layer 1 of the pair MLP factorises; with W1 = [W_f1; W_f2; W_dir]:
+  eval (kernel B3): pre1_ij = (f1 W_f1 - x1 W_dir)_i + (f2 W_f2 + x2 W_dir
+    + b1)_j, two torch matmuls here, as the JAX package computes them
+    outside its kernel;
+  train (kernel B10): add_q = f1 W_f1 and feats_p = f2 W_f2 + b1, and the
+    kernel adds dir @ W_dir from the exact directions (the train hoist of
+    correlator.py:153-163).
+The split formulation for n > 4096 (kernels B4/B5) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Sequence
 from torch import nn
 
 from ..ops.fused_correlator import fused_knn_weight_aggregate
+from ..ops.fused_correlator_train import fused_knn_weight_aggregate_train
 from .layers import PointwiseMLP, WeightNet
 
 
@@ -43,12 +48,20 @@ class FeatureCorrelator(nn.Module):
                  for i in range(len(self.mlp.features))]
         w1 = dense[0].weight.t()
         w_f1, w_f2, w_dir = w1[:d1], w1[d1:d1 + d2], w1[d1 + d2:]
-        add_q = (f1 @ w_f1 - pc1 @ w_dir).contiguous()
-        feats_p = (f2 @ w_f2 + pc2 @ w_dir + dense[0].bias).contiguous()
         mlp_ws = [d.weight.t().contiguous() for d in dense[1:]]
         mlp_bs = [d.bias for d in dense[1:]]
         wn1_ws, wn1_bs = self.weightnet1.kernel_params()
         wn2_ws, wn2_bs = self.weightnet2.kernel_params()
+        if self.training:
+            cost = fused_knn_weight_aggregate_train(
+                pc1, pc2, (f2 @ w_f2 + dense[0].bias).contiguous(),
+                (f1 @ w_f1).contiguous(), mask2, mlp_ws, mlp_bs, wn1_ws,
+                wn1_bs, w_dir=w_dir.contiguous(), k=self.nsample)
+            return fused_knn_weight_aggregate_train(
+                pc1, pc1, cost, None, mask1, [], [], wn2_ws, wn2_bs,
+                k=self.nsample)
+        add_q = (f1 @ w_f1 - pc1 @ w_dir).contiguous()
+        feats_p = (f2 @ w_f2 + pc2 @ w_dir + dense[0].bias).contiguous()
         cost = fused_knn_weight_aggregate(
             pc1, pc2, feats_p, add_q, mask2, mlp_ws, mlp_bs, wn1_ws, wn1_bs,
             k=self.nsample)

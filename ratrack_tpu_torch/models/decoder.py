@@ -1,5 +1,7 @@
 """Flow decoder: motion classification, embedding propagation, GRU, flow.
-Counterpart of `ratrack_tpu/models/decoder.py`, eval path.
+Counterpart of `ratrack_tpu/models/decoder.py`. In train mode the
+predictors' batch norms count only the valid points of pc1 (mask1,
+decoder.py:31-33, 43-44).
 
 Channel flow (fc_inch = 256):
   cls        = ClsPredictor(cor 256) -> (B, N) moving probability
@@ -36,8 +38,8 @@ class FlowPredictor(nn.Module):
         self.mlp = PointwiseMLP(c_in, mlp, bn=True)
         self.out = nn.Linear(mlp[-1], 3, bias=False)
 
-    def forward(self, feat):
-        return self.out(self.mlp(feat))
+    def forward(self, feat, mask=None):
+        return self.out(self.mlp(feat, mask))
 
 
 class ClsPredictor(nn.Module):
@@ -49,8 +51,8 @@ class ClsPredictor(nn.Module):
         self.conv_out = nn.Linear(mlp[-1], 3, bias=False)
         self.linear = nn.Linear(3, 1)
 
-    def forward(self, feat):
-        h = self.linear(self.conv_out(self.mlp(feat)))
+    def forward(self, feat, mask=None):
+        h = self.linear(self.conv_out(self.mlp(feat, mask)))
         return torch.sigmoid(h)[..., 0]
 
 
@@ -68,7 +70,7 @@ class FlowDecoder(nn.Module):
 
     def pre_gru(self, pc1, ft1, pc1_feats, cor_feats, mask1):
         """-> (cls (B, N), prop (B, N, 128), gfeat_in (B, 128))."""
-        cls = self.cp(cor_feats)
+        cls = self.cp(cor_feats, mask1)
         emb = torch.cat([ft1, pc1_feats, cor_feats], dim=-1)
         _, prop = self.mse(pc1, emb, mask1)
         return cls, prop, masked_max(prop, mask1)
@@ -77,6 +79,6 @@ class FlowDecoder(nn.Module):
         """(B, 128), (B, layers, 128) -> (B, 128), (B, layers, 128)."""
         return self.gru(gfeat_in, h)
 
-    def post_gru(self, prop, gfeat_out):
+    def post_gru(self, prop, gfeat_out, mask1=None):
         g = gfeat_out.unsqueeze(1).expand(-1, prop.shape[1], -1)
-        return self.fp(torch.cat([prop, g], dim=-1))
+        return self.fp(torch.cat([prop, g], dim=-1), mask1)

@@ -1,11 +1,17 @@
-"""Core building blocks: eval-mode batch norm, pointwise MLPs, WeightNet,
-GRU stack. Counterpart of `ratrack_tpu/models/layers.py`.
+"""Core building blocks: masked batch norm, pointwise MLPs, WeightNet, GRU
+stack. Counterpart of `ratrack_tpu/models/layers.py`.
 
 Parameter names mirror the flax tree (`dense_0.weight`, `bn_0.running_mean`,
 `cell_0.ih.weight`, ...) so `utils/convert.py` is a flatten plus a Dense
 kernel transpose. Linear weights are torch's (out, in); the kernels take
 the x @ W layout (in, out), which `PointwiseMLP.folded` and the modules
 that call kernels produce.
+
+Batch norm in train mode (`self.training`) takes its moments PER STREAM:
+the JAX train step vmaps the model over clip streams (train/step.py:88-100),
+so a (B, ..., C) tensor reduces over every axis but B and C. The running
+statistics then take the mean over streams of the per-stream updates
+(step.py:98-99).
 """
 
 from __future__ import annotations
@@ -20,11 +26,15 @@ from ..ops.fused_sa import fold_bn_params
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over the channel axis with running statistics (eval).
+    """Batch norm over the channel axis with an optional validity mask.
 
-    The JAX module's train mode (masked batch moments, running-stat
-    updates, override_stats) waits for the train-path port.
-    """
+    Eval: running statistics. Train: per-stream masked moments (count
+    max(sum(mask), 1); the variance two-pass, mean((x - mu)^2), which is
+    the JAX max(E[x^2] - mu^2, 0) without its cancellation) normalise the
+    input, and the running statistics move by momentum 0.1 towards them,
+    with the unbiased factor count / max(count - 1, 1) on the variance."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -34,9 +44,47 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * inv + self.bias
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, ..., C), mask (B, ...) bool or None."""
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            red = tuple(range(1, x.dim() - 1))
+            shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+            if mask is None:
+                count = torch.full((x.shape[0],), float(x[0, ..., 0].numel()),
+                                   device=x.device)
+                mean = x.mean(dim=red)
+                var = torch.square(x - mean.reshape(shape)).mean(dim=red)
+            else:
+                m = mask.to(x.dtype).unsqueeze(-1)
+                count = torch.clamp_min(m.sum(dim=red)[:, 0], 1.0)
+                mean = (x * m).sum(dim=red) / count[:, None]
+                var = (torch.square(x - mean.reshape(shape)) * m).sum(
+                    dim=red) / count[:, None]
+            self.update_running_stats(mean, var, count)
+            mean, var = mean.reshape(shape), var.reshape(shape)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * inv + self.bias
+
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                             count) -> None:
+        """Running averages from per-stream batch statistics mean, var
+        (B, C) over count rows (a number or a (B,) tensor): the mean over
+        streams of the per-stream momentum updates. The torch form of the
+        JAX module's `override_stats` (layers.py:52-62), which a train
+        kernel that computes the statistics itself feeds."""
+        count = torch.as_tensor(count, dtype=torch.float32,
+                                device=mean.device)
+        count = count.reshape(-1, 1) if count.dim() else count
+        unbias = count / torch.clamp_min(count - 1.0, 1.0)
+        mo = self.MOMENTUM
+        self.running_mean.copy_(((1 - mo) * self.running_mean
+                                 + mo * mean.detach()).mean(dim=0))
+        self.running_var.copy_(((1 - mo) * self.running_var
+                                + mo * var.detach() * unbias).mean(dim=0))
 
 
 class PointwiseMLP(nn.Module):
@@ -57,16 +105,34 @@ class PointwiseMLP(nn.Module):
                 self.add_module(f"bn_{i}", MaskedBatchNorm(f))
             prev = f
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, ..., C_in); mask (B, ...) selects the rows that count in
+        the train-mode batch statistics (None: every row)."""
         n_layers = len(self.features)
         for i in range(n_layers):
             x = getattr(self, f"dense_{i}")(x)
             if self.bn:
-                x = getattr(self, f"bn_{i}")(x)
+                x = getattr(self, f"bn_{i}")(x, mask)
             if self.last_act or i < n_layers - 1:
                 x = (torch.relu(x) if self.act == "relu"
                      else F.leaky_relu(x, 0.1))
         return x
+
+    def train_params(self):
+        """([W (in, out)], [BN weight], [BN bias]) per layer for the train
+        kernel, which computes the batch statistics itself."""
+        layers = range(len(self.features))
+        return ([getattr(self, f"dense_{i}").weight.t().contiguous()
+                 for i in layers],
+                [getattr(self, f"bn_{i}").weight for i in layers],
+                [getattr(self, f"bn_{i}").bias for i in layers])
+
+    def update_running_stats(self, means, variances, count) -> None:
+        """Each batch norm's running averages from per-stream (B, C)
+        statistics a train kernel returned (see MaskedBatchNorm)."""
+        for i, (mu, var) in enumerate(zip(means, variances)):
+            getattr(self, f"bn_{i}").update_running_stats(mu, var, count)
 
     def folded(self):
         """BN folded into the weights: ([W (in, out)], [b]) per layer, so

@@ -1,10 +1,15 @@
-"""PointNet++-MSG backbone head, eval path: set abstraction through kernel
-B1, feature propagation through kernel B2.
+"""PointNet++-MSG backbone head: set abstraction and feature propagation.
 
-Counterpart of `ratrack_tpu/models/pnhead.py`. The eval path at the live
-config has npoint == N, so the centers are the identity sample (every
-valid point, padding rows taking the first valid point) and FPS does not
-run; a smaller npoint (true FPS, kernel B6) is not ported yet.
+Counterpart of `ratrack_tpu/models/pnhead.py`. The live config has
+npoint == N, so the centers are the identity sample (every valid point,
+padding rows taking the first valid point) and FPS does not run; a
+smaller npoint (true FPS, kernel B6) is not ported yet.
+
+Eval: SA through kernel B1 (BN folded), FP through kernel B2.
+Train (`self.training`): SA through kernel B9 (`fused_sa_pair_train`,
+train-mode batch statistics computed by the kernel, which feed the running
+averages with count npoint * nsample), FP through the plain three_nn /
+three_interpolate with autograd, as the JAX train path (pnhead.py:197-207).
 """
 
 from __future__ import annotations
@@ -14,9 +19,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.fused_fp import fused_three_interpolate
+from ..ops.fused_fp import (fused_three_interpolate,
+                            three_interpolate_reference)
 from ..ops.fused_sa import fused_sa_pair
-from ..ops.sampling import identity_gather
+from ..ops.fused_sa_train import fused_sa_pair_train
+from ..ops.sampling import gather, identity_gather, identity_sample
 from .layers import PointwiseMLP
 
 
@@ -41,6 +48,8 @@ class SetAbstractionMSG(nn.Module):
         if self.npoint != xyz.shape[1]:
             raise NotImplementedError(
                 "npoint < N needs farthest point sampling (not ported yet)")
+        if self.training:
+            return self._forward_train(xyz, features, mask)
         new_xyz = identity_gather(xyz, mask)
         ws_a, bs_a = self.mlp_0.folded()
         ws_b, bs_b = self.mlp_1.folded()
@@ -50,6 +59,22 @@ class SetAbstractionMSG(nn.Module):
             nsample_a=self.nsamples[0], nsample_b=self.nsamples[1])
         return new_xyz, torch.cat([out_a, out_b], dim=-1)
 
+    def _forward_train(self, xyz, features, mask):
+        n = xyz.shape[1]
+        new_xyz = gather(xyz, identity_sample(n, self.npoint, mask,
+                                              batch=xyz.shape[0],
+                                              device=xyz.device))
+        (pa, mus_a, vars_a), (pb, mus_b, vars_b) = fused_sa_pair_train(
+            xyz.contiguous(), new_xyz.contiguous(), features, mask,
+            *self.mlp_0.train_params(), *self.mlp_1.train_params(),
+            radius_a=self.radii[0], nsample_a=self.nsamples[0],
+            radius_b=self.radii[1], nsample_b=self.nsamples[1])
+        self.mlp_0.update_running_stats(mus_a, vars_a,
+                                        self.npoint * self.nsamples[0])
+        self.mlp_1.update_running_stats(mus_b, vars_b,
+                                        self.npoint * self.nsamples[1])
+        return new_xyz, torch.cat([pa, pb], dim=-1)
+
 
 class FeaturePropagation(nn.Module):
     """3-NN inverse-distance interpolation, concat skip features, MLP."""
@@ -58,11 +83,18 @@ class FeaturePropagation(nn.Module):
         super().__init__()
         self.mlp = PointwiseMLP(c_in, mlp, bn=True)
 
-    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats):
-        interp = fused_three_interpolate(unknown_xyz, known_xyz, known_feats)
+    def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats,
+                unknown_mask=None):
+        """unknown_mask: rows that count in the train-mode batch norm."""
+        if self.training:
+            interp, _ = three_interpolate_reference(unknown_xyz, known_xyz,
+                                                    known_feats)
+        else:
+            interp = fused_three_interpolate(unknown_xyz, known_xyz,
+                                             known_feats)
         if unknown_feats is not None:
             interp = torch.cat([interp, unknown_feats], dim=-1)
-        return self.mlp(interp)
+        return self.mlp(interp, unknown_mask)
 
 
 class PNHead(nn.Module):
@@ -75,7 +107,8 @@ class PNHead(nn.Module):
       fp3 128 -> 128, fp2 160 -> 128, fp1 128 -> 128
     Only sa1 sees the cloud mask; sa2/sa3 run over the identity-gathered
     centers with no mask, and the FP levels take no known-point mask
-    (pnhead.py:248-265).
+    (pnhead.py:248-265). In train mode fp1's batch norm alone counts only
+    the cloud's valid points (pnhead.py:263-265).
     """
 
     def __init__(self, npoint: int, c_feat: int):
@@ -102,5 +135,5 @@ class PNHead(nn.Module):
         l3 = self.linear3(l3)
         l2 = self.fp3(l2_xyz, l3_xyz, l2, l3)
         l1 = self.fp2(l1_xyz, l2_xyz, l1, l2)
-        l0 = self.fp1(xyz, l1_xyz, None, l1)
+        l0 = self.fp1(xyz, l1_xyz, None, l1, mask)
         return l3_xyz, l0

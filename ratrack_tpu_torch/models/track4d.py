@@ -1,5 +1,5 @@
-"""Track4D: the radar moving-object tracking network, eval path, batched
-over streams. Counterpart of `ratrack_tpu/models/track4d.py`.
+"""Track4D: the radar moving-object tracking network, batched over
+streams. Counterpart of `ratrack_tpu/models/track4d.py`.
 
 Per-point feature tensor F (B, N, 139) = [warp 3 | pc1 3 | flow 3 |
 RCS, v_r 2 | prop 128]. Clustering features are F[..., 3:9] u F[..., 10:12]:
@@ -7,8 +7,16 @@ the reference indexes 10:12 (v_r plus the first prop channel), a quirk kept
 for parity. `bin_score` is registered and never used, as in the reference
 (the association passes the constant 0.9).
 
-Eval only: the module is built with requires_grad off; the train path
-(batch-stat BN, losses, the backward kernels) is a later slice.
+The module is built for eval (requires_grad off, `eval()`);
+`train.step.create_train_state` turns it to training. In train mode both
+heads are recomputed every frame (`step_cached` is eval only), batch norm
+takes batch statistics, and the kernels are the train kernels B9 / B10.
+No gradient reaches the loss through DBSCAN labels, track ids or the
+Sinkhorn association: their inputs are detached, so autograd records none
+of the 500 Sinkhorn iterations. The object descriptors stay differentiable
+(the affinity loss reaches the decoder through them); the recurrent state
+carried to the next frame (GRU state, descriptors) is detached
+(track4d.py:208, step.py:116-118).
 """
 
 from __future__ import annotations
@@ -73,11 +81,12 @@ class Track4D(nn.Module):
     def output_stage(self, frame: FrameBatch, cls, prop, gfeat_out,
                      frame_idx):
         """Flow, clustering, descriptors and GT match for one frame."""
-        flow = self.fd_layer.post_gru(prop, gfeat_out)
+        flow = self.fd_layer.post_gru(prop, gfeat_out, frame.mask1)
         warp = frame.pc1 + flow
         feats = torch.cat([warp, frame.pc1, flow, frame.ft1, prop], dim=-1)
         mov = (cls > self.mov_thres) & frame.mask1
-        db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]], dim=-1)
+        db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]],
+                          dim=-1).detach()
         labels = dbscan(db_in, mov, self.dbscan_eps, self.min_obj_points,
                         self.dbscan_max_iters)
         labels = torch.where(labels < self.k_max, labels,
@@ -103,8 +112,12 @@ class Track4D(nn.Module):
 
     def step_cached(self, frame: FrameBatch, state: TrackState, f2_local):
         """Full step with the pc2 head carried from the previous frame;
-        valid when pc2 is the previous frame's pc1. Returns
-        (outputs, new_state, f1_local) so f1 becomes the next f2."""
+        valid when pc2 is the previous frame's pc1 and the head is fixed
+        (eval). Returns (outputs, new_state, f1_local) so f1 becomes the
+        next f2."""
+        if self.training:
+            raise RuntimeError("step_cached is eval only: in training the "
+                               "pc2 head changes with every update")
         f1 = self.head_stage(frame.pc1, frame.ft1, frame.mask1)
         out, new_state = self._step_from_heads(frame, state, f1, f2_local)
         return out, new_state, f1
@@ -112,18 +125,18 @@ class Track4D(nn.Module):
     def _step_from_heads(self, frame: FrameBatch, state: TrackState, f1, f2):
         b = frame.pc1.shape[0]
         fresh = init_state(b, self.k_max, self.gru_layers, self.feat_dim,
-                           device=frame.pc1.device)
+                           device=frame.pc1.device, dtype=state.h.dtype)
         state = reset_where(frame.new_seq, state, fresh)
         cls, prop, gfeat_in = self._frame_stage_from_heads(frame, f1, f2)
         gfeat_out, h_new = self.fd_layer.gru_apply(gfeat_in, state.h)
         o = self.output_stage(frame, cls, prop, gfeat_out, state.frame_idx)
         m = state.valid.sum(dim=1).to(torch.int32)
         aff = self.affinity_stage(state.desc, o["desc"])
-        res = associate(aff, m, o["n"], state.track_id, state.next_id,
-                        self.sinkhorn_alpha, self.sinkhorn_iters,
-                        self.match_conf_thres)
+        res = associate(aff.detach(), m, o["n"], state.track_id,
+                        state.next_id, self.sinkhorn_alpha,
+                        self.sinkhorn_iters, self.match_conf_thres)
         new_state = TrackState(
-            h=h_new, desc=o["desc"], valid=o["curr_valid"],
+            h=h_new.detach(), desc=o["desc"].detach(), valid=o["curr_valid"],
             track_id=res.track_id, gt_id=o["curr_gt"], next_id=res.next_id,
             frame_idx=state.frame_idx + 1)
         outputs = dict(

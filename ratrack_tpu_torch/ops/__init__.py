@@ -1,4 +1,4 @@
-"""Point ops and the wrappers of the three eval kernels."""
+"""Point ops and the kernel wrappers (eval B1-B3, train B9 and B10)."""
 
 from .neighborhood import (square_distance, point_distance, knn, ball_query,
                            three_nn)
@@ -8,6 +8,10 @@ from .fused_sa import fused_sa_pair, sa_pair, sa_pair_reference
 from .fused_fp import fused_three_interpolate, three_interpolate_reference
 from .fused_correlator import (fused_knn_weight_aggregate,
                                knn_weight_aggregate_reference)
+from .fused_sa_train import (fused_sa_pair_train, sa_pair_train,
+                             sa_pair_train_reference)
+from .fused_correlator_train import (fused_knn_weight_aggregate_train,
+                                     knn_weight_aggregate_train_reference)
 
 __all__ = [
     "square_distance", "point_distance", "knn", "ball_query", "three_nn",
@@ -16,4 +20,7 @@ __all__ = [
     "fused_sa_pair", "sa_pair", "sa_pair_reference",
     "fused_three_interpolate", "three_interpolate_reference",
     "fused_knn_weight_aggregate", "knn_weight_aggregate_reference",
+    "fused_sa_pair_train", "sa_pair_train", "sa_pair_train_reference",
+    "fused_knn_weight_aggregate_train",
+    "knn_weight_aggregate_train_reference",
 ]

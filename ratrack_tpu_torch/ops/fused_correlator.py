@@ -46,17 +46,11 @@ def knn_weight_aggregate_reference(query, points, feats_p, add_q, mask_p,
     return torch.sum(dirs * h, dim=2), idx
 
 
-def fused_knn_weight_aggregate(query, points, feats_p, add_q, mask_p,
-                               mlp_ws, mlp_bs, wn_ws, wn_bs, *,
-                               k: int = KERNEL_K,
-                               return_indices: bool = False):
-    """Kernel B3 over (B, N, 3) queries and (B, M, 3) candidates."""
-    if not query.is_cuda:
-        out, idx = knn_weight_aggregate_reference(
-            query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs, wn_ws,
-            wn_bs, k=k)
-        return (out, idx) if return_indices else out
-
+def check_kernel_args(query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs,
+                      wn_ws, wn_bs, k):
+    """Raise unless the correlator kernels (eval and train) take these
+    CUDA tensors: k = 16, 256 channels, <= 2 pair layers, a 3-layer
+    WeightNet, float32, contiguous, 16-byte aligned where read by float4."""
     dev = query.device
     b, n, m, c = query.shape[0], query.shape[1], points.shape[1], KERNEL_C
     if k != KERNEL_K or len(mlp_ws) > 2 or len(wn_ws) != 3:
@@ -79,14 +73,39 @@ def fused_knn_weight_aggregate(query, points, feats_p, add_q, mask_p,
         kb.require(w, f"wn_w{i}", shape, dev, align16=True)
         kb.require(bias, f"wn_b{i}", (shape[1],), dev, align16=True)
 
-    idx = torch.empty((b, n, k), device=dev, dtype=torch.int32)
+
+def launch_knn(query, points, mask_p, k):
+    """The kNN selection launch -> idx (B, N, k) int32 (CUDA tensors that
+    check_kernel_args accepted)."""
+    b, n, m = query.shape[0], query.shape[1], points.shape[1]
+    idx = torch.empty((b, n, k), device=query.device, dtype=torch.int32)
+    code = kb.load().ratrack_knn(kb.ptr(query), kb.ptr(points),
+                                 kb.ptr(mask_p), b, n, m, k, kb.ptr(idx),
+                                 kb.stream_of(query))
+    kb.check(code, "knn")
+    return idx
+
+
+def fused_knn_weight_aggregate(query, points, feats_p, add_q, mask_p,
+                               mlp_ws, mlp_bs, wn_ws, wn_bs, *,
+                               k: int = KERNEL_K,
+                               return_indices: bool = False):
+    """Kernel B3 over (B, N, 3) queries and (B, M, 3) candidates."""
+    if not query.is_cuda:
+        out, idx = knn_weight_aggregate_reference(
+            query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs, wn_ws,
+            wn_bs, k=k)
+        return (out, idx) if return_indices else out
+
+    dev = query.device
+    b, n, m, c = query.shape[0], query.shape[1], points.shape[1], KERNEL_C
+    check_kernel_args(query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs,
+                      wn_ws, wn_bs, k)
     out = torch.empty((b, n, c), device=dev, dtype=torch.float32)
     lib = kb.load()
     stream = kb.stream_of(query)
     with torch.cuda.device(dev):
-        code = lib.ratrack_knn(kb.ptr(query), kb.ptr(points), kb.ptr(mask_p),
-                               b, n, m, k, kb.ptr(idx), stream)
-        kb.check(code, "knn")
+        idx = launch_knn(query, points, mask_p, k)
         wn = [kb.ptr(t) for pair in zip(wn_ws, wn_bs) for t in pair]
         code = lib.ratrack_corr_aggregate(
             kb.ptr(query), kb.ptr(points), kb.ptr(idx), b, n, m,

@@ -1,0 +1,343 @@
+"""Set abstraction at both radii of a level, train mode: kernel B9 and its
+plain twin.
+
+Replaces `ratrack_tpu/ops/pallas_sa_train.py::_pair_fwd_kernel_pk` and
+`_pair_bwd_kernel_pk` (`fused_sa_pair_train`). The CUDA kernels are in
+`csrc/sa_pair_train.cu`; its header says what bounds them on the H100 and
+how the design answers that.
+
+  fused_sa_pair_train   public entry (the JAX signature): hoists the
+                        feature term of layer 1 (a torch matmul, as the JAX
+                        package leaves it to XLA), then `sa_pair_train`.
+  sa_pair_train         the kernel wrapper: CUDA tensors run
+                        `SAPairTrainFunction` (the forward and backward
+                        kernels, or raise), CPU tensors take
+  sa_pair_train_reference  the plain version, differentiated by autograd.
+
+Per scale: ball query with CUDA padding (slots past the hit count repeat
+the first hit, no hit gives point 0), layer 1
+z = group(PF) + (group(xyz) - centers) @ W1[:3] with PF = F @ W1[3:] (no
+bias: batch norm follows), then per layer train-mode batch norm with
+statistics per stream over all M * ns rows, ReLU, the next Dense, and the
+max over slots. The batch statistics are returned for the running
+averages and carry no gradient (the JAX VJP drops their cotangents).
+
+Unlike the JAX kernel (pallas_sa_train.py:1729-1739) the coordinate part
+of layer 1 is not hoisted as xyz @ W1[:3] - centers @ W1[:3]: that
+difference of absolute terms cancels most of float32's digits at radar
+ranges (csrc/sa_pair_train.cu says how much); the kernel takes the
+relative coordinates itself, as the JAX correlator train kernel does. The
+batch variance is the JAX max(E[h^2] - mu^2, 0) on both sides (the
+kernel adds its sums in float64).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from ..kernels import build as kb
+from .grouping import group
+from .neighborhood import ball_query
+
+MAX_LAYERS = 3
+MAX_WIDTH = 64
+MAX_NSAMPLE = 32
+# tile shapes of csrc/sa_pair_train.cu (kRows, kRows * kChunkTiles,
+# kCenters), for sizing the scratch the kernels take
+_ROWS = 64
+_CHUNK = 512
+_CENTERS = 16
+
+_P = ctypes.c_void_p
+
+# launches of the forward and backward kernels (CPU calls do not count)
+sa_pair_train_fwd = kb.Counter()
+sa_pair_train_bwd = kb.Counter()
+
+
+class _Scale(ctypes.Structure):
+    """ctypes mirror of `TrainScale` in csrc/sa_pair_train.cu."""
+    _fields_ = [("pf", _P), ("wxyz", _P), ("w", _P * 3), ("gamma", _P * 3),
+                ("beta", _P * 3), ("dims", ctypes.c_int * 3),
+                ("n_layers", ctypes.c_int), ("ns", ctypes.c_int),
+                ("r2", ctypes.c_float), ("idx", _P), ("z", _P * 3),
+                ("mu", _P * 3), ("var", _P * 3), ("pooled", _P),
+                ("dpooled", _P), ("dy", _P * 2), ("dpf", _P), ("dwxyz", _P),
+                ("dw", _P * 3), ("dgamma", _P * 3), ("dbeta", _P * 3)]
+
+
+def hoist_layer1_train(features, w1):
+    """(PF (B, N, C1) or None, W_xyz (3, C1)): the hoisted feature term
+    F @ W1[3:] of layer 1 (no bias) and its coordinate rows."""
+    pf = None if features is None else (features @ w1[3:]).contiguous()
+    return pf, w1[:3].contiguous()
+
+
+def _scale_reference(xyz, centers, mask, pf, wxyz, ws, gammas, betas,
+                     radius, nsample, eps):
+    idx = ball_query(radius, nsample, xyz, centers, mask)
+    h = (group(xyz, idx) - centers.unsqueeze(2)) @ wxyz   # (B, M, ns, C1)
+    if pf is not None:
+        h = group(pf, idx) + h
+    mus, vrs = [], []
+    for li, (g, b) in enumerate(zip(gammas, betas)):
+        if li > 0:
+            h = h @ ws[li - 1]
+        mu = h.mean(dim=(1, 2))
+        var = torch.clamp_min((h * h).mean(dim=(1, 2)) - mu * mu, 0.0)
+        mus.append(mu.detach())
+        vrs.append(var.detach())
+        inv = torch.rsqrt(var + eps)[:, None, None]
+        h = torch.relu((h - mu[:, None, None]) * inv * g + b)
+    return torch.amax(h, dim=2), mus, vrs, idx
+
+
+def sa_pair_train_reference(xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a,
+                            betas_a, pfb, wxyz_b, ws_b, gammas_b, betas_b, *,
+                            radius_a: float, radius_b: float, nsample_a: int,
+                            nsample_b: int, eps: float = 1e-5):
+    """Plain version of the kernels. pf / wxyz: layer 1 as
+    hoist_layer1_train gives it; ws_*: the layers after layer 1
+    [W_2 .. W_L] (in, out); gammas / betas: the L batch norms. Returns
+    ((pooled_a, mus_a, vars_a, idx_a), (pooled_b, mus_b, vars_b, idx_b)),
+    mus / vars lists of (B, C_l) per-stream batch statistics, idx the
+    (B, M, ns) selected points. `torch.amax` splits the max's cotangent
+    evenly over ties, as `jnp.max` does (duplicate padding slots tie)."""
+    return (_scale_reference(xyz, centers, mask, pfa, wxyz_a, ws_a,
+                             gammas_a, betas_a, radius_a, nsample_a, eps),
+            _scale_reference(xyz, centers, mask, pfb, wxyz_b, ws_b,
+                             gammas_b, betas_b, radius_b, nsample_b, eps))
+
+
+def _ptrs(tensors, n=MAX_LAYERS):
+    vals = [kb.ptr(t) for t in tensors]
+    return (_P * n)(*(vals + [None] * (n - len(vals))))
+
+
+class SAPairTrainFunction(torch.autograd.Function):
+    """Kernel B9: forward and backward launches of csrc/sa_pair_train.cu.
+
+    apply(cfg, xyz, centers, mask, pfa, wxa, pfb, wxb, *params) with cfg
+    (n_layers, radius_a, radius_b, nsample_a, nsample_b, eps) and params =
+    ws_a[1:], gammas_a, betas_a, ws_b[1:], gammas_b, betas_b. Returns
+    pooled_a, pooled_b, idx_a, idx_b, mus_a, vars_a, mus_b, vars_b (the
+    last six carry no gradient)."""
+
+    @staticmethod
+    def forward(ctx, cfg, xyz, centers, mask, pfa, wxa, pfb, wxb, *params):
+        n_layers, ra, rb, nsa, nsb, eps = cfg
+        b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
+        dev = xyz.device
+        per = 3 * n_layers - 1
+        scales = []
+        for pf, wx, prm, r, ns in ((pfa, wxa, params[:per], ra, nsa),
+                                   (pfb, wxb, params[per:], rb, nsb)):
+            ws = list(prm[:n_layers - 1])
+            gam = list(prm[n_layers - 1:2 * n_layers - 1])
+            bet = list(prm[2 * n_layers - 1:])
+            dims = [wx.shape[1]] + [w.shape[1] for w in ws]
+            z = [torch.empty((b, m * ns, c), device=dev) for c in dims]
+            mus = [torch.empty((b, c), device=dev) for c in dims]
+            vrs = [torch.empty((b, c), device=dev) for c in dims]
+            sc = dict(ws=ws, gam=gam, bet=bet, dims=dims, ns=ns, r=r, z=z,
+                      mus=mus, vrs=vrs, pf=pf, wx=wx,
+                      idx=torch.empty((b, m, ns), device=dev,
+                                      dtype=torch.int32),
+                      pooled=torch.empty((b, m, dims[-1]), device=dev))
+            scales.append(sc)
+        structs = [_scale_struct(sc) for sc in scales]
+        part = torch.empty(_part_size(b, m, (nsa, nsb)), device=dev,
+                           dtype=torch.float64)
+        lib = kb.load()
+        with torch.cuda.device(dev):
+            code = lib.ratrack_sa_train_fwd(
+                kb.ptr(xyz), kb.ptr(centers), kb.ptr(mask), b, n, m, eps,
+                ctypes.addressof(structs[0]), ctypes.addressof(structs[1]),
+                kb.ptr(part), kb.stream_of(xyz))
+        kb.check(code, "sa_pair_train_fwd")
+        sa_pair_train_fwd.launches += 1
+        sa_, sb_ = scales
+        ctx.cfg = cfg
+        ctx.meta = [(sc["dims"], sc["ns"], sc["r"]) for sc in scales]
+        ctx.save_for_backward(xyz, centers, pfa, wxa, pfb, wxb, *params,
+                              sa_["idx"], sb_["idx"], sa_["pooled"],
+                              sb_["pooled"], *sa_["z"], *sb_["z"],
+                              *sa_["mus"], *sa_["vrs"], *sb_["mus"],
+                              *sb_["vrs"])
+        outs = (sa_["idx"], sb_["idx"], *sa_["mus"], *sa_["vrs"],
+                *sb_["mus"], *sb_["vrs"])
+        ctx.mark_non_differentiable(*outs)
+        return (sa_["pooled"], sb_["pooled"]) + outs
+
+    @staticmethod
+    def backward(ctx, dpa, dpb, *_unused):
+        n_layers, ra, rb, nsa, nsb, eps = ctx.cfg
+        saved = list(ctx.saved_tensors)
+        xyz, centers, pfa, wxa, pfb, wxb = saved[:6]
+        per = 3 * n_layers - 1
+        params = saved[6:6 + 2 * per]
+        rest = saved[6 + 2 * per:]
+        idx_a, idx_b, pooled_a, pooled_b = rest[:4]
+        rest = rest[4:]
+        L = n_layers
+        z_a, z_b = rest[:L], rest[L:2 * L]
+        mu_a, var_a = rest[2 * L:3 * L], rest[3 * L:4 * L]
+        mu_b, var_b = rest[4 * L:5 * L], rest[5 * L:6 * L]
+        b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
+        dev = xyz.device
+        grads, structs = [], []
+        for (dims, ns, r), pf, wx, prm, idx, pooled, z, mus, vrs, dp in (
+                (ctx.meta[0], pfa, wxa, params[:per], idx_a, pooled_a, z_a,
+                 mu_a, var_a, dpa),
+                (ctx.meta[1], pfb, wxb, params[per:], idx_b, pooled_b, z_b,
+                 mu_b, var_b, dpb)):
+            ws = list(prm[:L - 1])
+            sc = dict(ws=ws, gam=list(prm[L - 1:2 * L - 1]),
+                      bet=list(prm[2 * L - 1:]), dims=dims, ns=ns, r=r,
+                      z=list(z), mus=list(mus), vrs=list(vrs), pf=pf, wx=wx,
+                      idx=idx, pooled=pooled,
+                      dpooled=(torch.zeros_like(pooled) if dp is None
+                               else dp.contiguous()),
+                      dy=[torch.empty((b, m * ns, MAX_WIDTH), device=dev)
+                          for _ in range(2)],
+                      dpf=None if pf is None else torch.zeros_like(pf),
+                      dwx=torch.empty_like(wx),
+                      dw=[None] + [torch.empty_like(w) for w in ws],
+                      dgam=[torch.empty(c, device=dev) for c in dims],
+                      dbet=[torch.empty(c, device=dev) for c in dims])
+            grads.append(sc)
+            structs.append(_scale_struct(sc))
+        part = torch.empty(_part_size(b, m, (nsa, nsb)), device=dev,
+                           dtype=torch.float64)
+        ssum = torch.empty(b * 2 * MAX_WIDTH, device=dev, dtype=torch.float64)
+        chunks = -(-m * max(nsa, nsb) // _CHUNK)
+        pdw = torch.empty(b * max(chunks * MAX_WIDTH * MAX_WIDTH,
+                                  -(-m // _CENTERS) * 3 * MAX_WIDTH),
+                          device=dev)
+        lib = kb.load()
+        with torch.cuda.device(dev):
+            code = lib.ratrack_sa_train_bwd(
+                kb.ptr(xyz), kb.ptr(centers), b, n, m, eps,
+                ctypes.addressof(structs[0]), ctypes.addressof(structs[1]),
+                kb.ptr(part), kb.ptr(ssum), kb.ptr(pdw), kb.stream_of(xyz))
+        kb.check(code, "sa_pair_train_bwd")
+        sa_pair_train_bwd.launches += 1
+        ga, gb = grads
+        dparams = []
+        for g in grads:
+            dparams += g["dw"][1:] + g["dgam"] + g["dbet"]
+        return (None, None, None, None, ga["dpf"], ga["dwx"], gb["dpf"],
+                gb["dwx"], *dparams)
+
+
+def _part_size(b, m, nsamples):
+    tiles = max(max(-(-m * ns // _ROWS), -(-m // (_ROWS // ns)))
+                for ns in nsamples)
+    return b * tiles * 2 * MAX_WIDTH
+
+
+def _scale_struct(sc) -> _Scale:
+    """The C struct of one scale (the dict keeps its tensors alive)."""
+    s = _Scale()
+    s.pf, s.wxyz = kb.ptr(sc["pf"]), kb.ptr(sc["wx"])
+    s.w = _ptrs([None] + sc["ws"])
+    s.gamma, s.beta = _ptrs(sc["gam"]), _ptrs(sc["bet"])
+    s.dims = (ctypes.c_int * 3)(*(sc["dims"] + [0] * (3 - len(sc["dims"]))))
+    s.n_layers, s.ns, s.r2 = len(sc["dims"]), sc["ns"], float(sc["r"]) ** 2
+    s.idx, s.pooled = kb.ptr(sc["idx"]), kb.ptr(sc["pooled"])
+    s.z, s.mu, s.var = _ptrs(sc["z"]), _ptrs(sc["mus"]), _ptrs(sc["vrs"])
+    if "dpooled" in sc:
+        s.dpooled = kb.ptr(sc["dpooled"])
+        s.dy = _ptrs(sc["dy"], 2)
+        s.dpf, s.dwxyz = kb.ptr(sc["dpf"]), kb.ptr(sc["dwx"])
+        s.dw = _ptrs(sc["dw"])
+        s.dgamma, s.dbeta = _ptrs(sc["dgam"]), _ptrs(sc["dbet"])
+    return s
+
+
+def _check_scale(tag, xyz, pf, wxyz, ws, gammas, betas, ns):
+    b, n, dev = xyz.shape[0], xyz.shape[1], xyz.device
+    c1 = wxyz.shape[-1]
+    kb.require(wxyz, f"wxyz_{tag}", (3, c1), dev)
+    if pf is not None:
+        kb.require(pf, f"pf{tag}", (b, n, c1), dev)
+    dims = [c1]
+    for li, w in enumerate(ws):
+        kb.require(w, f"w{tag}{li + 2}", (dims[-1], None), dev)
+        dims.append(w.shape[1])
+    for li, (g, bt) in enumerate(zip(gammas, betas)):
+        kb.require(g, f"gamma{tag}{li + 1}", (dims[li],), dev)
+        kb.require(bt, f"beta{tag}{li + 1}", (dims[li],), dev)
+    if (len(dims) > MAX_LAYERS or len(gammas) != len(dims)
+            or len(betas) != len(dims) or max(dims) > MAX_WIDTH
+            or not 1 <= ns <= MAX_NSAMPLE):
+        raise ValueError(f"scale {tag}: the kernel takes 1-{MAX_LAYERS} "
+                         f"layers with a batch norm each, widths <= "
+                         f"{MAX_WIDTH} and nsample <= {MAX_NSAMPLE}; got "
+                         f"widths {dims}, {len(gammas)} norms, nsample {ns}")
+
+
+def sa_pair_train(xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a,
+                  pfb, wxyz_b, ws_b, gammas_b, betas_b, *, radius_a: float,
+                  radius_b: float, nsample_a: int, nsample_b: int,
+                  eps: float = 1e-5):
+    """Kernel B9 over (B, N, 3) points and (B, M, 3) centers; arguments and
+    returns as `sa_pair_train_reference`."""
+    kw = dict(radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
+              nsample_b=nsample_b, eps=eps)
+    if not xyz.is_cuda:
+        return sa_pair_train_reference(
+            xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a, pfb,
+            wxyz_b, ws_b, gammas_b, betas_b, **kw)
+
+    dev = xyz.device
+    b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    kb.require(xyz, "xyz", (b, n, 3), dev)
+    kb.require(centers, "centers", (b, m, 3), dev)
+    if mask is not None:
+        kb.require(mask, "mask", (b, n), dev, torch.bool)
+    _check_scale("a", xyz, pfa, wxyz_a, ws_a, gammas_a, betas_a, nsample_a)
+    _check_scale("b", xyz, pfb, wxyz_b, ws_b, gammas_b, betas_b, nsample_b)
+    n_layers = len(gammas_a)
+    if len(gammas_b) != n_layers:
+        raise ValueError(f"the pair kernel takes scales of equal depth; got "
+                         f"{n_layers} and {len(gammas_b)} layers")
+    cfg = (n_layers, float(radius_a), float(radius_b), int(nsample_a),
+           int(nsample_b), float(eps))
+    out = SAPairTrainFunction.apply(
+        cfg, xyz, centers, mask, pfa, wxyz_a, pfb, wxyz_b, *ws_a, *gammas_a,
+        *betas_a, *ws_b, *gammas_b, *betas_b)
+    pa, pb, ia, ib = out[:4]
+    st = out[4:]
+    L = n_layers
+    return ((pa, list(st[:L]), list(st[L:2 * L]), ia),
+            (pb, list(st[2 * L:3 * L]), list(st[3 * L:]), ib))
+
+
+def fused_sa_pair_train(xyz, centers, features, mask,
+                        ws_a: Sequence[torch.Tensor],
+                        scales_a: Sequence[torch.Tensor],
+                        biases_a: Sequence[torch.Tensor],
+                        ws_b: Sequence[torch.Tensor],
+                        scales_b: Sequence[torch.Tensor],
+                        biases_b: Sequence[torch.Tensor], *,
+                        radius_a: float, nsample_a: int, radius_b: float,
+                        nsample_b: int, eps: float = 1e-5):
+    """Both scales of one train-mode SA-MSG level (JAX
+    `fused_sa_pair_train`, pallas_sa_train.py:1711).
+
+    ws_*: the Dense weights per scale in x @ W layout, ws[0] (3 + C, C1)
+    with the xyz rows first; scales / biases: the batch norms' weight and
+    bias. Returns ((pooled_a, mus_a, vars_a), (pooled_b, mus_b, vars_b)).
+    """
+    pfa, wxyz_a = hoist_layer1_train(features, ws_a[0])
+    pfb, wxyz_b = hoist_layer1_train(features, ws_b[0])
+    ra, rb = sa_pair_train(
+        xyz, centers, mask, pfa, wxyz_a, list(ws_a[1:]), list(scales_a),
+        list(biases_a), pfb, wxyz_b, list(ws_b[1:]), list(scales_b),
+        list(biases_b), radius_a=radius_a, radius_b=radius_b,
+        nsample_a=nsample_a, nsample_b=nsample_b, eps=eps)
+    return ra[:3], rb[:3]

@@ -25,11 +25,11 @@ def cluster_descriptors(feats: torch.Tensor, labels: torch.Tensor,
     """feats (B, N, 139), labels (B, N) in [-1, k_max) ->
     desc (B, K, 141), valid (B, K), sizes (B, K) int32, onehot (B, N, K)."""
     member = labels.unsqueeze(-1) == torch.arange(k_max, device=feats.device)
-    oh = member.to(torch.float32)
+    oh = member.to(feats.dtype)
     oht = oh.transpose(1, 2)
     sizes = member.sum(dim=1).to(torch.int32)
     valid = sizes > 0
-    denom = torch.clamp_min(sizes.to(torch.float32), 1.0).unsqueeze(-1)
+    denom = torch.clamp_min(sizes.to(feats.dtype), 1.0).unsqueeze(-1)
 
     def mean(sl):
         return (oht @ feats[..., sl]) / denom

@@ -29,17 +29,17 @@ def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
     """scores (B, K, K) prev x curr, m/n (B,) valid counts ->
     (B, K+1, K+1) log-coupling with the dustbin at index K."""
     b, k = scores.shape[0], scores.shape[-1]
-    dev = scores.device
+    dev, dt = scores.device, scores.dtype
     ar = torch.arange(k, device=dev)
     row_ok = ar.unsqueeze(0) < m.unsqueeze(1)                 # (B, K)
     col_ok = ar.unsqueeze(0) < n.unsqueeze(1)
-    mf = torch.clamp_min(m.to(torch.float32), 1.0)
-    nf = torch.clamp_min(n.to(torch.float32), 1.0)
+    mf = torch.clamp_min(m.to(dt), 1.0)
+    nf = torch.clamp_min(n.to(dt), 1.0)
     norm = -torch.log(mf + nf)                                # (B,)
 
-    neg = torch.tensor(NEG, device=dev)
-    a = torch.tensor(alpha, dtype=torch.float32, device=dev)
-    c = torch.full((b, k + 1, k + 1), NEG, device=dev)
+    neg = torch.tensor(NEG, dtype=dt, device=dev)
+    a = torch.tensor(alpha, dtype=dt, device=dev)
+    c = torch.full((b, k + 1, k + 1), NEG, dtype=dt, device=dev)
     c[:, :k, :k] = torch.where(row_ok.unsqueeze(2) & col_ok.unsqueeze(1),
                                scores, neg)
     c[:, :k, k] = torch.where(row_ok, a, neg)
@@ -51,8 +51,8 @@ def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
     log_nu = torch.cat([torch.where(col_ok, norm.unsqueeze(1), neg),
                         (torch.log(mf) + norm).unsqueeze(1)], dim=1)
 
-    u = torch.zeros((b, k + 1), device=dev)
-    v = torch.zeros((b, k + 1), device=dev)
+    u = torch.zeros((b, k + 1), dtype=dt, device=dev)
+    v = torch.zeros((b, k + 1), dtype=dt, device=dev)
     for _ in range(iters):
         u = log_mu - _lse_bounded(c + v.unsqueeze(1), dim=2)
         v = log_nu - _lse_bounded(c + u.unsqueeze(2), dim=1)

@@ -21,11 +21,14 @@ class TrackState(NamedTuple):
 
 
 def init_state(batch: int, k_max: int, gru_layers: int = 5,
-               hidden: int = 128, device="cpu") -> TrackState:
+               hidden: int = 128, device="cpu",
+               dtype=torch.float32) -> TrackState:
     i32 = dict(dtype=torch.int32, device=device)
     return TrackState(
-        h=torch.zeros((batch, gru_layers, hidden), device=device),
-        desc=torch.zeros((batch, k_max, DESC_DIM), device=device),
+        h=torch.zeros((batch, gru_layers, hidden), dtype=dtype,
+                      device=device),
+        desc=torch.zeros((batch, k_max, DESC_DIM), dtype=dtype,
+                         device=device),
         valid=torch.zeros((batch, k_max), dtype=torch.bool, device=device),
         track_id=torch.full((batch, k_max), -1, **i32),
         gt_id=torch.full((batch, k_max), -1, **i32),

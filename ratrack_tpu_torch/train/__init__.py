@@ -1,5 +1,15 @@
-"""The cached-backbone eval scan (the train path is not ported yet)."""
+"""Train and eval steps, losses and train checkpoints."""
 
-from .step import chain_contiguous, make_scan_eval_step_cached
+from .checkpoint import restore_train_state, save_train_state
+from .losses import track4d_loss
+from .step import (TrainConfig, TrainState, chain_contiguous,
+                   create_train_state, make_optimizer,
+                   make_scan_eval_step_cached, make_scan_train_step,
+                   make_train_step, optimizer_step)
 
-__all__ = ["chain_contiguous", "make_scan_eval_step_cached"]
+__all__ = [
+    "TrainConfig", "TrainState", "chain_contiguous", "create_train_state",
+    "make_optimizer", "make_scan_eval_step_cached", "make_scan_train_step",
+    "make_train_step", "optimizer_step", "restore_train_state",
+    "save_train_state", "track4d_loss",
+]

@@ -1,0 +1,46 @@
+"""Train checkpoints: model, optimizer, schedule and step in one file.
+
+Counterpart of `ratrack_tpu/train/checkpoint.py`, whose orbax format is
+not carried over: `torch.save` of the state dicts, read back with
+`torch.load(weights_only=True)` into an existing TrainState, so resuming
+gives the same next step as not stopping. Names follow the JAX package's
+last / last<ep> / best convention: <root>/<name>.pt.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from .step import TrainState
+
+
+def _path(root: str, name: str) -> str:
+    return os.path.abspath(os.path.join(root, f"{name}.pt"))
+
+
+def save_train_state(root: str, name: str, ts: TrainState) -> str:
+    """Write ts to <root>/<name>.pt (through a temporary file and an
+    atomic rename, so a crash never leaves half a checkpoint)."""
+    path = _path(root, name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save({"model": ts.model.state_dict(),
+                "optimizer": ts.optimizer.state_dict(),
+                "scheduler": ts.scheduler.state_dict(),
+                "step": ts.step}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_train_state(root: str, name: str, ts: TrainState) -> TrainState:
+    """Load <root>/<name>.pt into ts (same model and optimizer layout) and
+    return it."""
+    ckpt = torch.load(_path(root, name), map_location="cpu",
+                      weights_only=True)
+    ts.model.load_state_dict(ckpt["model"])
+    ts.optimizer.load_state_dict(ckpt["optimizer"])
+    ts.scheduler.load_state_dict(ckpt["scheduler"])
+    ts.step = int(ckpt["step"])
+    return ts

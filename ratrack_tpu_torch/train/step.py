@@ -1,21 +1,34 @@
-"""The cached-backbone eval scan over B streams x T frames.
+"""Train and eval steps over B streams x T frames.
 
-Counterpart of `ratrack_tpu/train/step.py::make_scan_eval_step_cached` and
-`chain_contiguous` (:406-462). The JAX scan's vmap over streams is the
-batch dimension here and `lax.scan` is a Python loop over T.
+Counterpart of `ratrack_tpu/train/step.py`. The JAX scans' vmap over
+streams is the batch dimension here and `lax.scan` is a Python loop over T.
 
-Frame t's pc2 is frame t-1's pc1 in a contiguous stream, and in eval the
-PNHead is a pure function of the cloud: the pc2 head is computed once at
-block entry and each frame's f1 is carried as the next frame's f2.
+Train (`make_train_step`, `make_scan_train_step`, :128-203): one optimizer
+step per frame on the mean over streams of the per-stream loss, with the
+recurrent state detached between frames (Track4D detaches it). Batch norm
+statistics are per stream and the running averages the mean over streams
+of the per-stream updates (models/layers.py). The optimizer is torch Adam
+with weight decay added to the gradient before the moments (optax
+add_decayed_weights -> adam, :48-62) and a staircase StepLR stepped once
+per optimizer step.
+
+Eval (`make_scan_eval_step_cached`, :406-462): frame t's pc2 is frame
+t-1's pc1 in a contiguous stream, and in eval the PNHead is a pure
+function of the cloud: the pc2 head is computed once at block entry and
+each frame's f1 is carried as the next frame's f2.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..data.frames import FrameBatch
 from ..tracker.state import TrackState
+from .losses import track4d_loss
 
 KEEP = ("cls", "warp", "labels", "track_id", "conf", "n")
 
@@ -52,3 +65,98 @@ def make_scan_eval_step_cached(model):
                              for k, v in outs.items()}
 
     return scan_eval
+
+
+@dataclass
+class TrainConfig:
+    """The optimizer settings of the JAX package's Config (config.py:23-26,
+    reference main.py:61-62); any object with these attributes will do."""
+    lr: float = 1e-3
+    weight_decay: float = 1e-10
+    decay_epochs: int = 1
+    decay_rate: float = 0.97
+
+
+@dataclass
+class TrainState:
+    """The model (in train mode), its optimizer, the LR schedule and the
+    count of optimizer steps taken."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def make_optimizer(params, cfg, steps_per_epoch: int):
+    """Adam(lr, weight_decay) + StepLR(steps_per_epoch * decay_epochs,
+    decay_rate), the scheduler stepped once per optimizer step: the
+    staircase `optax.exponential_decay` of the JAX package. torch's Adam
+    adds weight_decay * p to the gradient before the moments, as
+    optax.add_decayed_weights placed before adam does."""
+    opt = torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+    sched = torch.optim.lr_scheduler.StepLR(
+        opt, step_size=max(1, steps_per_epoch * cfg.decay_epochs),
+        gamma=cfg.decay_rate)
+    return opt, sched
+
+
+def create_train_state(model, cfg, steps_per_epoch: int) -> TrainState:
+    """Turn `model` to training (train mode, gradients on) and give it an
+    optimizer and schedule."""
+    model.train()
+    model.requires_grad_(True)
+    opt, sched = make_optimizer(list(model.parameters()), cfg,
+                                steps_per_epoch)
+    return TrainState(model, opt, sched)
+
+
+def optimizer_step(ts: TrainState) -> None:
+    """One optimizer and schedule step on the gradients in .grad.
+
+    Parity with optax: optax moves every parameter every step, so a leaf
+    with no gradient (bin_score, which nothing uses) still decays and keeps
+    its moments moving. torch's Adam skips a parameter whose .grad is None,
+    so such grads are filled with zeros first."""
+    for group in ts.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    ts.optimizer.step()
+    ts.scheduler.step()
+    ts.step += 1
+
+
+def make_train_step(ts: TrainState):
+    """-> train_step(track_states, frame (B, ...), pretrain) ->
+    (track_states', items {name: (B,)}): forward, backward of the mean over
+    streams of the loss, `optimizer_step`. After the call each parameter's
+    .grad holds that step's gradient."""
+
+    def train_step(track_state: TrackState, frame: FrameBatch, pretrain
+                   ) -> Tuple[TrackState, Dict[str, torch.Tensor]]:
+        ts.optimizer.zero_grad(set_to_none=True)
+        out, new_state = ts.model(frame, track_state)
+        total, items = track4d_loss(out, frame, pretrain)
+        total.mean().backward()
+        optimizer_step(ts)
+        return new_state, {k: v.detach() for k, v in items.items()}
+
+    return train_step
+
+
+def make_scan_train_step(ts: TrainState):
+    """-> scan_train(track_states, frames (B, T, ...), pretrain) ->
+    (track_states', items {name: (T, B)}): T sequential train steps, one
+    optimizer step per frame (JAX make_scan_train_step, :145)."""
+    train_step = make_train_step(ts)
+
+    def scan_train(track_state: TrackState, frames: FrameBatch, pretrain):
+        per_frame = []
+        for t in range(frames.pc1.shape[1]):
+            track_state, items = train_step(track_state, frame_at(frames, t),
+                                            pretrain)
+            per_frame.append(items)
+        return track_state, {k: torch.stack([it[k] for it in per_frame])
+                             for k in per_frame[0]}
+
+    return scan_train
