@@ -4,10 +4,13 @@ The port of `ratrack_tpu` (JAX/Flax/Pallas), which stays in the repository
 as the reference every module here is tested against. The layout mirrors
 it module for module:
 
-ops/       point ops (ball query, kNN, 3-NN interpolation, gathers) and the
-           kernel wrappers: eval fused_sa (SA pair), fused_fp (3-NN
-           interpolation), fused_correlator (cost volume); train
-           fused_sa_train, fused_correlator_train (forward + backward).
+ops/       point ops (ball query, kNN, 3-NN interpolation, gathers, farthest
+           point sampling, the Morton sort) and the kernel wrappers: eval
+           fused_sa (SA pair), fused_fp (3-NN interpolation),
+           fused_correlator (cost volume, and its split form over given
+           indices); train fused_sa_train, fused_correlator_train (forward
+           + backward); stretch fused_knn (tiled kNN), sampling
+           (farthest point sampling), fused_sinkhorn.
 csrc/      the CUDA C++ sources of those kernels (sm_90a).
 kernels/   nvcc build + ctypes loading of csrc/ into one shared library;
            seeded kernel cases for the card checks.
@@ -20,7 +23,13 @@ data/      FrameBatch and the synthetic clip generator (numpy, no JAX).
 utils/     flax-variables -> state_dict converter.
 
 Tensors are points-major with a written-out stream dimension:
-(B, N, C). This package never imports JAX.
+(B, N, C). This package never imports JAX. Its entry points (`Track4D`,
+`init_state`, `to_tensors`, `create_train_state`) run on the CUDA device
+unless the caller passes `device="cpu"`; `default_device()` raises where
+there is no card.
 """
 
+from .device import default_device
+
+__all__ = ["default_device"]
 __version__ = "0.1.0"

@@ -29,6 +29,16 @@
 // the k-th pass takes the (distance, index) minimum strictly after the
 // (k-1)-th winner, which needs no per-query list in memory.
 //
+// The aggregate kernel alone, over indices its caller selected, is kernel
+// B4 (entry ratrack_corr_apply), which replaces the TPU kernel
+// pallas_correlator.py::_apply_kernel (knn_gather_apply), the split
+// formulation for clouds above 4096 points: there the selection is the
+// tiled kNN of knn_tiled.cu. The TPU kernel is fed rows that XLA gathered
+// outside it; here the gather by index stays inside the kernel, so no
+// (N, 16, 259) table reaches device memory. At 8192 queries stage 1 is
+// 34.4 GFLOP of float32 on the CUDA cores: bound by operations. Row
+// offsets are 64-bit; N need not equal M.
+//
 // The same aggregate kernel is the forward of the train kernel B10
 // (replacing ratrack_tpu/ops/pallas_correlator_train.py::_fwd_kernel,
 // entry ratrack_corr_train_fwd): stage 1 then adds dir @ W_dir to layer 1
@@ -316,6 +326,20 @@ extern "C" int ratrack_corr_aggregate(
   return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
                           mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
                           wn_b2, none, out, stream);
+}
+
+// Kernel B4: one stage over the caller's neighbour indices idx (B, N, 16),
+// each in [0, M); no selection launch.
+extern "C" int ratrack_corr_apply(
+    const float* query, const float* points, const int* idx, int nb, int n,
+    int m, const float* feats_p, const float* add_q,
+    const float* const* mlp_w, const float* const* mlp_b, int n_mlp,
+    const float* wn_w0, const float* wn_b0, const float* wn_w1,
+    const float* wn_b1, const float* wn_w2, const float* wn_b2, float* out,
+    void* stream) {
+  return ratrack_corr_aggregate(query, points, idx, nb, n, m, feats_p, add_q,
+                                mlp_w, mlp_b, n_mlp, wn_w0, wn_b0, wn_w1,
+                                wn_b1, wn_w2, wn_b2, out, stream);
 }
 
 // Train forward of one stage (kernel B10, with correlator_train.cu): the

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class FrameBatch(NamedTuple):
     pc1: torch.Tensor         # (..., N, 3) radar xyz, frame t+1
@@ -48,8 +50,10 @@ def empty_frame(n_max: int, g_max: int) -> FrameBatch:
     )
 
 
-def to_tensors(frame: FrameBatch, device="cpu") -> FrameBatch:
-    """numpy (or tensor) record -> contiguous torch tensors on `device`."""
+def to_tensors(frame: FrameBatch, device=None) -> FrameBatch:
+    """numpy (or tensor) record -> contiguous torch tensors on `device`
+    (None: the card, `default_device()`)."""
+    device = resolve_device(device)
     return FrameBatch(*[
         torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                         device=device).contiguous()

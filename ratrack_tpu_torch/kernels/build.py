@@ -46,6 +46,11 @@ SIGNATURES = {
     "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "ratrack_corr_aggregate": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P],
+    "ratrack_corr_apply": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P],
+    "ratrack_knn_tiled": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ratrack_fps": [_P, _P, _I, _I, _I, _P, _P],
+    "ratrack_sinkhorn": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ratrack_sa_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "ratrack_sa_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                              _P],

@@ -16,6 +16,15 @@ norm scales and biases in place of the folded biases) and
 backward against a seeded cotangent, and `compare_train` holds the two
 runs against each other.
 
+Stretch kernels (clouds of 8192 / 16384 points, 512 centers):
+`knn_tiled_case` (B5, both clouds Z-sorted as the split correlator sorts
+them), `apply_case` (B4), `fps_case` (B6), `sinkhorn_case` (B7), and
+`sa_case` / `fp_case` with `npoint` centers sampled from the cloud.
+
+`*_work` functions count the bytes a kernel call must move (every tensor
+of the case read once, every output written once) and the float32
+operations it needs on these inputs, for the roofline bound.
+
 Used by chip_smoke.py and tests/test_torch_port_cuda.py to hold every
 kernel against its plain version on the same tensors.
 """
@@ -26,9 +35,13 @@ import numpy as np
 import torch
 
 from ..data.synthetic import stack_frames, synthetic_clip
+from ..ops.fused_knn import knn_indices_tiled_reference
 from ..ops.fused_sa import hoist_layer1
 from ..ops.fused_sa_train import hoist_layer1_train
-from ..ops.sampling import identity_gather
+from ..ops.morton import morton_perm
+from ..ops.sampling import (furthest_point_sample_reference, gather,
+                            identity_gather)
+from ..tracker.sinkhorn import transport_problem
 
 # name: (radii, nsamples, per-scale MLP widths, feature channels by head)
 SA_LEVELS = {
@@ -63,15 +76,35 @@ def _weights(gen, dims):
     return ws, bs
 
 
-def sa_case(level: str, head: str, pc, mask, gen: torch.Generator):
-    """Keyword arguments of ops.fused_sa.sa_pair / sa_pair_reference."""
+def stretch_static_points(n: int) -> int:
+    """Static points of a stretch scenario's synthetic clip at n_max = n."""
+    return min(4000, max(60, n * 3 // 5))
+
+
+def stretch_clouds(seed: int, n: int):
+    """`clouds` of one stream as the stretch scenarios make them: 5 objects
+    and `stretch_static_points(n)` static points in n_max = n."""
+    return clouds(seed, 1, n, n_static=stretch_static_points(n), n_objects=5)
+
+
+def fps_centers(xyz, mask, npoint: int):
+    """npoint farthest point samples of xyz (B, N, 3) -> (B, npoint, 3)."""
+    return gather(xyz, furthest_point_sample_reference(xyz, npoint, mask))
+
+
+def sa_case(level: str, head: str, pc, mask, gen: torch.Generator,
+            npoint: int | None = None):
+    """Keyword arguments of ops.fused_sa.sa_pair / sa_pair_reference.
+    npoint: that many farthest point samples as centers (sa1 of a stretch
+    cloud); by default the identity sample, one center a point."""
     radii, nsamples, mlps, c_feat = SA_LEVELS[level]
     b, n, _ = pc.shape
     if level == "sa1":
         xyz, m = pc, mask
     else:   # deeper levels run over the identity-gathered centers, no mask
         xyz, m = identity_gather(pc, mask), None
-    centers = identity_gather(xyz, m)
+    centers = (identity_gather(xyz, m) if npoint is None
+               else fps_centers(xyz, m, npoint))
     feats = torch.randn((b, n, c_feat[head]), generator=gen)
     kw = dict(xyz=xyz.contiguous(), centers=centers.contiguous(), mask=m)
     for tag, widths in zip("ab", mlps):
@@ -84,13 +117,16 @@ def sa_case(level: str, head: str, pc, mask, gen: torch.Generator):
     return kw
 
 
-def fp_case(level: str, pc, mask, gen: torch.Generator):
+def fp_case(level: str, pc, mask, gen: torch.Generator,
+            npoint: int | None = None):
     """Arguments of ops.fused_fp.fused_three_interpolate (no known mask,
-    as on the model's path)."""
+    as on the model's path). npoint: that many farthest point samples as
+    the known points (fp1 of a stretch cloud)."""
     b, n, _ = pc.shape
-    known = identity_gather(pc, mask)
+    known = (identity_gather(pc, mask) if npoint is None
+             else fps_centers(pc, mask, npoint))
     unknown = pc if level == "fp1" else known
-    feats = torch.randn((b, n, FP_LEVELS[level]), generator=gen)
+    feats = torch.randn((b, known.shape[1], FP_LEVELS[level]), generator=gen)
     return dict(unknown=unknown.contiguous(), known=known.contiguous(),
                 feats=feats)
 
@@ -110,6 +146,53 @@ def corr_case(stage: int, pc1, mask1, pc2, mask2, gen: torch.Generator):
     return dict(query=pc1, points=pc1, feats_p=feats_p, add_q=None,
                 mask_p=mask1, mlp_ws=[], mlp_bs=[], wn_ws=wn_ws,
                 wn_bs=wn_bs)
+
+
+def _zsorted(pc, mask):
+    perm = morton_perm(pc, mask)
+    return gather(pc, perm).contiguous(), torch.gather(mask, 1, perm)
+
+
+def knn_tiled_case(stage: int, pc1, mask1, pc2, mask2):
+    """Arguments of ops.fused_knn.knn_indices_tiled for one stage of the
+    split correlator: pc1 in pc2 (stage 1) or in itself (stage 2), both
+    clouds Z-sorted with their padding last."""
+    query, qmask = _zsorted(pc1, mask1)
+    points, pmask = _zsorted(pc2, mask2) if stage == 1 else (query, qmask)
+    return dict(query=query, points=points, points_mask=pmask, k=16)
+
+
+def apply_case(stage: int, pc1, mask1, pc2, mask2, gen: torch.Generator):
+    """Arguments of ops.fused_correlator.knn_gather_apply: `corr_case` over
+    the Z-sorted clouds with the plain tiled selection's indices."""
+    sel = knn_tiled_case(stage, pc1, mask1, pc2, mask2)
+    kw = corr_case(stage, sel["query"], None, sel["points"], None, gen)
+    del kw["mask_p"]
+    kw["idx"] = knn_indices_tiled_reference(
+        sel["query"], sel["points"], sel["points_mask"], k=16)[0]
+    return kw
+
+
+def fps_case(pc, mask, npoint: int = 512):
+    """Arguments of ops.sampling.furthest_point_sample."""
+    return dict(xyz=pc.contiguous(), npoint=npoint, mask=mask)
+
+
+def sinkhorn_case(seed: int, batch: int = 8, k: int = 32,
+                  iters: int = 500, alpha: float = 0.9):
+    """Sigmoid affinities (batch, k, k) with valid counts m, n drawn from
+    0..k (stream 0 has no row, stream 1 no column) -> (arguments of
+    ops.fused_sinkhorn.sinkhorn_uv, dict(scores, m, n, norm))."""
+    rng = np.random.RandomState(seed)
+    scores = torch.from_numpy(
+        (1.0 / (1.0 + np.exp(-rng.randn(batch, k, k)))).astype(np.float32))
+    m = rng.randint(0, k + 1, batch).astype(np.int32)
+    n = rng.randint(0, k + 1, batch).astype(np.int32)
+    m[0], n[1 % batch] = 0, 0
+    m, n = torch.from_numpy(m), torch.from_numpy(n)
+    c, log_mu, log_nu, norm = transport_problem(scores, m, n, alpha)
+    return (dict(c=c, log_mu=log_mu, log_nu=log_nu, iters=iters),
+            dict(scores=scores, m=m, n=n, norm=norm))
 
 
 def to_device(case: dict, device) -> dict:
@@ -322,3 +405,136 @@ def compare_train(got, want, want64=None, cancelling=None):
             if cos < 0.9999:
                 bad.append(f"{key}: cosine {cos:.6f} < 0.9999")
     return bad, errs
+
+
+# ---- roofline work: bytes moved and float32 operations needed ----------
+
+DIST_OPS = 10   # one expanded-form distance and its comparison
+
+
+def case_bytes(*trees) -> int:
+    """Bytes of every tensor in the given cases / outputs (dicts, lists,
+    tuples, tensors; anything else counts 0): each read or written once."""
+    total = 0
+    for tree in trees:
+        if torch.is_tensor(tree):
+            total += tree.numel() * tree.element_size()
+        elif isinstance(tree, dict):
+            total += case_bytes(*tree.values())
+        elif isinstance(tree, (list, tuple)):
+            total += case_bytes(*tree)
+    return total
+
+
+def _filled(idx):
+    """Filled slots per center of a ball query's (B, M, ns) indices
+    (padding slots repeat slot 0)."""
+    return (idx != idx[..., :1]).sum(-1) + 1
+
+
+def sa_pair_work(kw: dict, out_a, out_b, idx_a, idx_b):
+    """B1 -> (bytes, operations). Operations: the scan of each center up
+    to where both slot lists are full (the whole cloud otherwise), and the
+    folded MLP over the filled slots only."""
+    n = kw["xyz"].shape[1]
+    ops, full, last = 0, [], []
+    for tag, idx, ns in (("a", idx_a, kw["nsample_a"]),
+                         ("b", idx_b, kw["nsample_b"])):
+        filled = _filled(idx)
+        c1 = kw[f"p1{tag}"].shape[-1]
+        per_slot = 2 * c1 + sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
+                                for w, _ in kw[f"rest_{tag}"])
+        ops += int(filled.sum()) * per_slot
+        full.append(filled >= ns)
+        last.append(idx.amax(-1) + 1)
+    scanned = torch.where(full[0] & full[1], torch.maximum(*last),
+                          torch.full_like(last[0], n))
+    ops += DIST_OPS * int(scanned.sum())
+    return case_bytes(kw, out_a, out_b), ops
+
+
+def three_interpolate_work(kw: dict, out):
+    """B2 -> (bytes, operations): every unknown x known distance, then 3
+    weighted rows."""
+    b, n, _ = kw["unknown"].shape
+    m, c = kw["feats"].shape[1], kw["feats"].shape[2]
+    return case_bytes(kw, out), b * n * (DIST_OPS * m + 6 * c + 12)
+
+
+def _pair_ops(kw: dict) -> int:
+    """Operations per (query, slot) pair of a correlator stage."""
+    c = CORR_C
+    ops = 2 * (3 * 8 + 8 * 8 + 8 * c) + 2 * c         # WeightNet, slot sum
+    ops += sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
+               for w in kw["mlp_ws"])
+    if kw["add_q"] is not None:
+        ops += 2 * c
+    if kw.get("w_dir") is not None:
+        ops += 2 * 3 * c
+    return ops
+
+
+def corr_work(kw: dict, out, select: bool = True):
+    """B3 (select=True: with the kNN's one pass of distances), B4 or B10's
+    forward -> (bytes, operations)."""
+    b, n, _ = kw["query"].shape
+    m = kw["points"].shape[1]
+    ops = b * n * 16 * _pair_ops(kw)
+    if select:
+        ops += DIST_OPS * b * n * m
+    return case_bytes(kw, out), ops
+
+
+def corr_train_bwd_work(kw: dict, out):
+    """B10's backward -> (bytes, operations): per pair layer a dW and a dh
+    product; it reads the forward's inputs, the cotangent and the stashed
+    activations ((n_mlp + 1) x (B N 16, 256) for stage 1) and writes a
+    gradient per input."""
+    b, n, _ = kw["query"].shape
+    rows = b * n * 16
+    n_mlp = len(kw["mlp_ws"])
+    stash = (n_mlp + 1) * rows * CORR_C * 4 if kw["add_q"] is not None else 0
+    return (2 * case_bytes(kw) + case_bytes(out) + stash,
+            2 * rows * _pair_ops(kw))
+
+
+def sa_train_work(kw: dict, outs: dict):
+    """B9 -> (forward (bytes, operations), backward (bytes, operations)).
+    Train-mode batch norm counts every slot, padding included, so the MLP
+    runs over all M x nsample slots; the backward is a dW and a dh product
+    per layer."""
+    b, n, _ = kw["xyz"].shape
+    m = kw["centers"].shape[1]
+    mlp = 0
+    for tag in "ab":
+        widths = [kw[f"wxyz_{tag}"].shape[1]] + [w.shape[1]
+                                                 for w in kw[f"ws_{tag}"]]
+        per_slot = 2 * 3 * widths[0] + sum(
+            2 * i * o for i, o in zip(widths[:-1], widths[1:])) + sum(
+                6 * w for w in widths)                 # BN, ReLU, max
+        mlp += b * m * kw[f"nsample_{tag}"] * per_slot
+    fwd_bytes = case_bytes(kw, outs)
+    return ((fwd_bytes, mlp + DIST_OPS * b * m * n),
+            (2 * fwd_bytes, 2 * mlp))
+
+
+def knn_tiled_work(kw: dict, idx, keys):
+    """B5 -> (bytes, operations): one distance and comparison per query
+    and valid candidate."""
+    b, n, _ = kw["query"].shape
+    valid = (int(kw["points_mask"].sum()) if kw["points_mask"] is not None
+             else b * kw["points"].shape[1])
+    return case_bytes(kw, idx, keys), DIST_OPS * n * valid
+
+
+def fps_work(kw: dict, out):
+    """B6 -> (bytes, operations): 9 operations a point and step."""
+    b, n, _ = kw["xyz"].shape
+    return case_bytes(kw, out), 9 * b * n * (kw["npoint"] - 1)
+
+
+def sinkhorn_work(kw: dict, u, v):
+    """B7 -> (bytes, operations): an add, an exp and an add per matrix
+    entry and half-step."""
+    b, k1 = kw["log_mu"].shape
+    return case_bytes(kw, u, v), 3 * 2 * kw["iters"] * b * k1 * k1

@@ -1,5 +1,5 @@
-"""Cost-volume feature correlator (n <= 4096). Counterpart of
-`ratrack_tpu/models/correlator.py:67-98, 141-176`.
+"""Cost-volume feature correlator. Counterpart of
+`ratrack_tpu/models/correlator.py:67-135, 141-176`.
 
   1. kNN(16) of pc1 in pc2; MLP over [f1_i, f2_j, x_j - x_i] (no BN, leaky
      0.1); WeightNet1(direction)-weighted unnormalised sum over the slots.
@@ -13,36 +13,49 @@ Layer 1 of the pair MLP factorises; with W1 = [W_f1; W_f2; W_dir]:
   train (kernel B10): add_q = f1 W_f1 and feats_p = f2 W_f2 + b1, and the
     kernel adds dir @ W_dir from the exact directions (the train hoist of
     correlator.py:153-163).
-The split formulation for n > 4096 (kernels B4/B5) is not ported yet.
+Eval above SPLIT_ABOVE points takes the split formulation
+(correlator.py:99-135): both clouds sorted along a Z-curve
+(`spatial_sort`), then per stage the tiled kNN selection (kernel B5) and
+the apply over its indices (kernel B4), and one unsort of the result. The
+sort changes only which of several equidistant neighbours is taken (the
+lowest sorted index).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
 
-from ..ops.fused_correlator import fused_knn_weight_aggregate
+from ..ops.fused_correlator import (fused_knn_weight_aggregate,
+                                    knn_gather_apply)
 from ..ops.fused_correlator_train import fused_knn_weight_aggregate_train
+from ..ops.fused_knn import knn_indices_tiled
+from ..ops.morton import invert_perm, morton_perm
+from ..ops.sampling import gather
 from .layers import PointwiseMLP, WeightNet
+
+# clouds above this many points take the split formulation in eval
+SPLIT_ABOVE = 4096
 
 
 class FeatureCorrelator(nn.Module):
+    """spatial_sort: Z-order both clouds on the split path (the JAX
+    module's SPLIT_SPATIAL_SORT switch, here fixed per instance)."""
+
     def __init__(self, nsample: int = 16,
                  mlp: Sequence[int] = (256, 256, 256), d1: int = 256,
-                 d2: int = 256):
+                 d2: int = 256, spatial_sort: bool = True):
         super().__init__()
         self.nsample, self.d1, self.d2 = nsample, d1, d2
+        self.spatial_sort = spatial_sort
         self.mlp = PointwiseMLP(d1 + d2 + 3, mlp, bn=False, act="leaky_relu")
         self.weightnet1 = WeightNet(mlp[-1])
         self.weightnet2 = WeightNet(mlp[-1])
 
     def forward(self, pc1, pc2, f1, f2, mask1=None, mask2=None):
         """pc (B, N, 3), f1 (B, N, d1), f2 (B, N, d2) -> (B, N, mlp[-1])."""
-        if pc1.shape[1] > 4096:
-            raise NotImplementedError(
-                "clouds above 4096 points need the split correlator "
-                "(not ported yet)")
         d1, d2 = self.d1, self.d2
         dense = [getattr(self.mlp, f"dense_{i}")
                  for i in range(len(self.mlp.features))]
@@ -62,9 +75,33 @@ class FeatureCorrelator(nn.Module):
                 k=self.nsample)
         add_q = (f1 @ w_f1 - pc1 @ w_dir).contiguous()
         feats_p = (f2 @ w_f2 + pc2 @ w_dir + dense[0].bias).contiguous()
+        if pc1.shape[1] > SPLIT_ABOVE:
+            return self._split(pc1, pc2, feats_p, add_q, mask1, mask2,
+                               mlp_ws, mlp_bs, wn1_ws, wn1_bs, wn2_ws, wn2_bs)
         cost = fused_knn_weight_aggregate(
             pc1, pc2, feats_p, add_q, mask2, mlp_ws, mlp_bs, wn1_ws, wn1_bs,
             k=self.nsample)
         return fused_knn_weight_aggregate(
             pc1, pc1, cost, None, mask1, [], [], wn2_ws, wn2_bs,
             k=self.nsample)
+
+    def _split(self, pc1, pc2, feats_p, add_q, mask1, mask2, mlp_ws, mlp_bs,
+               wn1_ws, wn1_bs, wn2_ws, wn2_bs):
+        k = self.nsample
+        if self.spatial_sort:
+            perm1, perm2 = morton_perm(pc1, mask1), morton_perm(pc2, mask2)
+            pc1, add_q = gather(pc1, perm1), gather(add_q, perm1)
+            pc2, feats_p = gather(pc2, perm2), gather(feats_p, perm2)
+            if mask1 is not None:
+                mask1 = torch.gather(mask1, 1, perm1)
+            if mask2 is not None:
+                mask2 = torch.gather(mask2, 1, perm2)
+        cost = knn_gather_apply(
+            knn_indices_tiled(pc1, pc2, mask2, k=k), pc1, pc2, feats_p,
+            add_q, mlp_ws, mlp_bs, wn1_ws, wn1_bs, k=k)
+        cost = knn_gather_apply(
+            knn_indices_tiled(pc1, pc1, mask1, k=k), pc1, pc1, cost, None,
+            [], [], wn2_ws, wn2_bs, k=k)
+        if self.spatial_sort:
+            cost = gather(cost, invert_perm(perm1))
+        return cost

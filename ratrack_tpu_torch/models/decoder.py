@@ -60,11 +60,12 @@ class FlowDecoder(nn.Module):
     """Reference FlowDecoder.forward split into the per-frame stages
     `pre_gru` / `post_gru` and the serial `gru_apply`."""
 
-    def __init__(self, npoint: int, feat_dim: int = 128, gru_layers: int = 5):
+    def __init__(self, npoint: int, feat_dim: int = 128, gru_layers: int = 5,
+                 exact_fps: bool = False):
         super().__init__()
         self.feat_dim = feat_dim
         self.cp = ClsPredictor()
-        self.mse = PNHead(npoint, 2 + 256 + 256)
+        self.mse = PNHead(npoint, 2 + 256 + 256, exact_fps)
         self.gru = StackedGRU(feat_dim, gru_layers)
         self.fp = FlowPredictor()
 

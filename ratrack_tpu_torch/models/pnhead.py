@@ -2,8 +2,9 @@
 
 Counterpart of `ratrack_tpu/models/pnhead.py`. The live config has
 npoint == N, so the centers are the identity sample (every valid point,
-padding rows taking the first valid point) and FPS does not run; a
-smaller npoint (true FPS, kernel B6) is not ported yet.
+padding rows taking the first valid point) and FPS does not run. With
+`exact_fps`, or npoint < N (the 8192 / 16384-point stretch clouds with 512
+centers), the centers are farthest point samples (kernel B6).
 
 Eval: SA through kernel B1 (BN folded), FP through kernel B2.
 Train (`self.training`): SA through kernel B9 (`fused_sa_pair_train`,
@@ -23,7 +24,8 @@ from ..ops.fused_fp import (fused_three_interpolate,
                             three_interpolate_reference)
 from ..ops.fused_sa import fused_sa_pair
 from ..ops.fused_sa_train import fused_sa_pair_train
-from ..ops.sampling import gather, identity_gather, identity_sample
+from ..ops.sampling import (furthest_point_sample, gather, identity_gather,
+                            identity_sample)
 from .layers import PointwiseMLP
 
 
@@ -33,24 +35,37 @@ class SetAbstractionMSG(nn.Module):
 
     def __init__(self, npoint: int, radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
-                 c_in: int):
+                 c_in: int, exact_fps: bool = False):
         super().__init__()
         if len(radii) != 2:
             raise ValueError("kernel B1 takes exactly two scales per level")
-        self.npoint = npoint
+        self.npoint, self.exact_fps = npoint, exact_fps
         self.radii, self.nsamples = tuple(radii), tuple(nsamples)
         self.mlp_0 = PointwiseMLP(c_in, mlps[0], bn=True)
         self.mlp_1 = PointwiseMLP(c_in, mlps[1], bn=True)
 
+    def centers(self, xyz, mask):
+        """The level's npoint centers (B, npoint, 3), the three branches of
+        pnhead.py:62-74: the identity sample where npoint == N (as a row
+        select in eval, as a gather in train), else, or with exact_fps,
+        farthest point samples."""
+        n = xyz.shape[1]
+        if self.npoint == n and not self.exact_fps:
+            if not self.training:
+                return identity_gather(xyz, mask)
+            return gather(xyz, identity_sample(n, self.npoint, mask,
+                                               batch=xyz.shape[0],
+                                               device=xyz.device))
+        return gather(xyz, furthest_point_sample(xyz.detach().contiguous(),
+                                                 self.npoint, mask))
+
     def forward(self, xyz, features, mask=None):
         """xyz (B, N, 3), features (B, N, C) or None, mask (B, N) or None
-        -> (new_xyz (B, N, 3), new_feats (B, N, sum of scale widths))."""
-        if self.npoint != xyz.shape[1]:
-            raise NotImplementedError(
-                "npoint < N needs farthest point sampling (not ported yet)")
+        -> (new_xyz (B, npoint, 3), new_feats (B, npoint, sum of scale
+        widths))."""
         if self.training:
             return self._forward_train(xyz, features, mask)
-        new_xyz = identity_gather(xyz, mask)
+        new_xyz = self.centers(xyz, mask).contiguous()
         ws_a, bs_a = self.mlp_0.folded()
         ws_b, bs_b = self.mlp_1.folded()
         out_a, out_b = fused_sa_pair(
@@ -60,10 +75,7 @@ class SetAbstractionMSG(nn.Module):
         return new_xyz, torch.cat([out_a, out_b], dim=-1)
 
     def _forward_train(self, xyz, features, mask):
-        n = xyz.shape[1]
-        new_xyz = gather(xyz, identity_sample(n, self.npoint, mask,
-                                              batch=xyz.shape[0],
-                                              device=xyz.device))
+        new_xyz = self.centers(xyz, mask)
         (pa, mus_a, vars_a), (pb, mus_b, vars_b) = fused_sa_pair_train(
             xyz.contiguous(), new_xyz.contiguous(), features, mask,
             *self.mlp_0.train_params(), *self.mlp_1.train_params(),
@@ -105,20 +117,22 @@ class PNHead(nn.Module):
       sa2 [(35 -> 32,32), (35 -> 32,64)] -> 96 -> linear2 -> 64
       sa3 [(67 -> 64,64) x 2] -> 128 -> linear3 -> 64
       fp3 128 -> 128, fp2 160 -> 128, fp1 128 -> 128
-    Only sa1 sees the cloud mask; sa2/sa3 run over the identity-gathered
-    centers with no mask, and the FP levels take no known-point mask
+    Only sa1 sees the cloud mask; sa2/sa3 run over sa1's centers with no
+    mask (with exact_fps their farthest point sampling of npoint from
+    npoint is a permutation), and the FP levels take no known-point mask
     (pnhead.py:248-265). In train mode fp1's batch norm alone counts only
     the cloud's valid points (pnhead.py:263-265).
     """
 
-    def __init__(self, npoint: int, c_feat: int):
+    def __init__(self, npoint: int, c_feat: int, exact_fps: bool = False):
         super().__init__()
         self.sa1 = SetAbstractionMSG(npoint, (2.0, 4.0), (4, 8),
-                                     ((16, 16, 32), (16, 16, 32)), 3 + c_feat)
+                                     ((16, 16, 32), (16, 16, 32)), 3 + c_feat,
+                                     exact_fps)
         self.sa2 = SetAbstractionMSG(npoint, (4.0, 8.0), (8, 16),
-                                     ((32, 32), (32, 64)), 3 + 32)
+                                     ((32, 32), (32, 64)), 3 + 32, exact_fps)
         self.sa3 = SetAbstractionMSG(npoint, (8.0, 16.0), (16, 32),
-                                     ((64, 64), (64, 64)), 3 + 64)
+                                     ((64, 64), (64, 64)), 3 + 64, exact_fps)
         self.linear1 = nn.Linear(64, 32)
         self.linear2 = nn.Linear(96, 64)
         self.linear3 = nn.Linear(128, 64)

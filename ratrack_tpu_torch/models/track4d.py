@@ -17,6 +17,16 @@ of the 500 Sinkhorn iterations. The object descriptors stay differentiable
 (the affinity loss reaches the decoder through them); the recurrent state
 carried to the next frame (GRU state, descriptors) is detached
 (track4d.py:208, step.py:116-118).
+
+Stretch options, as the JAX module's: `exact_fps` (true farthest point
+sampling in both PNHeads, kernel B6), `mov_budget` (DBSCAN over the
+`mov_budget` moving points of highest score where the cloud is larger,
+track4d.py:137-143) and `sinkhorn_kernel` (the Sinkhorn iterations in
+kernel B7; off by default, as tracker/sinkhorn.py:33 of the JAX package).
+Clouds above 4096 points take the split correlator (kernels B5 and B4).
+
+The parameters live on `device`; None means the card
+(`device.default_device()`, which raises where there is none).
 """
 
 from __future__ import annotations
@@ -27,9 +37,10 @@ import torch
 from torch import nn
 
 from ..data.frames import FrameBatch
+from ..device import resolve_device
 from ..tracker.association import (associate, cluster_descriptors,
                                    greedy_gt_match)
-from ..tracker.dbscan import dbscan
+from ..tracker.dbscan import compact_dbscan, dbscan
 from ..tracker.state import TrackState, init_state, reset_where
 from .affinity import Affinity
 from .correlator import FeatureCorrelator
@@ -44,24 +55,28 @@ class Track4D(nn.Module):
                  min_obj_points: int = 2, dbscan_eps: float = 1.5,
                  dbscan_max_iters: int = 64, sinkhorn_iters: int = 500,
                  sinkhorn_alpha: float = 0.9, match_conf_thres: float = 0.01,
-                 mov_thres: float = 0.5,
-                 generator: torch.Generator | None = None):
+                 mov_thres: float = 0.5, mov_budget: int = 0,
+                 exact_fps: bool = False, sinkhorn_kernel: bool = False,
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.npoint, self.k_max = npoint, k_max
         self.feat_dim, self.gru_layers = feat_dim, gru_layers
         self.min_obj_points = min_obj_points
         self.dbscan_eps, self.dbscan_max_iters = dbscan_eps, dbscan_max_iters
         self.sinkhorn_iters, self.sinkhorn_alpha = sinkhorn_iters, sinkhorn_alpha
         self.match_conf_thres, self.mov_thres = match_conf_thres, mov_thres
-        self.pn_head = PNHead(npoint, 2)
+        self.mov_budget, self.sinkhorn_kernel = mov_budget, sinkhorn_kernel
+        self.pn_head = PNHead(npoint, 2, exact_fps)
         self.fc_layer = FeatureCorrelator(16, (256, 256, 256))
-        self.fd_layer = FlowDecoder(npoint, feat_dim, gru_layers)
+        self.fd_layer = FlowDecoder(npoint, feat_dim, gru_layers, exact_fps)
         self.affinity = Affinity(141)
         self.bin_score = nn.Parameter(torch.ones(()))
         if generator is not None:
             init_parameters(self, generator)
         self.requires_grad_(False)
         self.eval()
+        self.to(device)
 
     def head_stage(self, pc, ft, mask) -> torch.Tensor:
         """One cloud through the PNHead -> (B, N, 128). In eval this is a
@@ -87,8 +102,13 @@ class Track4D(nn.Module):
         mov = (cls > self.mov_thres) & frame.mask1
         db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]],
                           dim=-1).detach()
-        labels = dbscan(db_in, mov, self.dbscan_eps, self.min_obj_points,
-                        self.dbscan_max_iters)
+        if 0 < self.mov_budget < db_in.shape[1]:
+            labels = compact_dbscan(db_in, mov, cls.detach(), self.mov_budget,
+                                    self.dbscan_eps, self.min_obj_points,
+                                    self.dbscan_max_iters)
+        else:
+            labels = dbscan(db_in, mov, self.dbscan_eps, self.min_obj_points,
+                            self.dbscan_max_iters)
         labels = torch.where(labels < self.k_max, labels,
                              torch.full_like(labels, -1))
         desc, curr_valid, sizes, _ = cluster_descriptors(feats, labels,
@@ -134,7 +154,8 @@ class Track4D(nn.Module):
         aff = self.affinity_stage(state.desc, o["desc"])
         res = associate(aff.detach(), m, o["n"], state.track_id,
                         state.next_id, self.sinkhorn_alpha,
-                        self.sinkhorn_iters, self.match_conf_thres)
+                        self.sinkhorn_iters, self.match_conf_thres,
+                        self.sinkhorn_kernel)
         new_state = TrackState(
             h=h_new.detach(), desc=o["desc"].detach(), valid=o["curr_valid"],
             track_id=res.track_id, gt_id=o["curr_gt"], next_id=res.next_id,

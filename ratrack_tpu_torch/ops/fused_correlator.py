@@ -1,14 +1,20 @@
-"""Cost-volume correlator stage: kernel B3 and its plain twin.
+"""Cost-volume correlator stage: kernels B3 and B4 and their plain twins.
 
-Replaces `ratrack_tpu/ops/pallas_correlator.py::_corr_kernel`
-(`fused_knn_weight_aggregate`). The CUDA kernels are in
-`csrc/correlator.cu` (a kNN selection launch and a fused gather + pair
-MLP + WeightNet + slot-sum launch); its header says what bounds them on
-the H100 and how the design answers that.
+B3 replaces `ratrack_tpu/ops/pallas_correlator.py::_corr_kernel`
+(`fused_knn_weight_aggregate`), for clouds of at most 4096 points: a kNN
+selection launch and a fused gather + pair MLP + WeightNet + slot-sum
+launch. B4 replaces `_apply_kernel` (`knn_gather_apply`), the split
+formulation for larger clouds: the same fused launch over indices the
+caller selected (the tiled kNN, kernel B5). The TPU kernel takes rows
+gathered outside it; here the gather is inside the kernel, by index. The
+CUDA kernels are in `csrc/correlator.cu`; its header says what bounds them
+on the H100 and how the design answers that.
 
-  fused_knn_weight_aggregate      the kernel wrapper: CUDA tensors launch
-                                  the kernels (or raise), CPU tensors take
-  knn_weight_aggregate_reference  the plain version.
+  fused_knn_weight_aggregate      B3's wrapper: CUDA tensors launch the
+                                  kernels (or raise), CPU tensors take
+  knn_weight_aggregate_reference  the plain version;
+  knn_gather_apply                B4's wrapper, likewise, and
+  knn_gather_apply_reference      its plain version.
 
 Stage 1 (pc1 queries in pc2): feats_p = f2 @ W_f2 + pc2 @ W_dir + b1 and
 add_q = f1 @ W_f1 - pc1 @ W_dir are the factorised layer 1
@@ -30,11 +36,10 @@ KERNEL_K = 16
 KERNEL_C = 256
 
 
-def knn_weight_aggregate_reference(query, points, feats_p, add_q, mask_p,
-                                   mlp_ws, mlp_bs, wn_ws, wn_bs, *,
-                                   k: int = KERNEL_K):
-    """Plain version -> (out (B, N, C_out), idx (B, N, k))."""
-    _, idx = knn(k, query, points, mask_p)
+def knn_gather_apply_reference(idx, query, points, feats_p, add_q, mlp_ws,
+                               mlp_bs, wn_ws, wn_bs):
+    """Plain version of B4: pair MLP, WeightNet and slot sum over the rows
+    idx (B, N, k) selects -> (B, N, C_out)."""
     h = group(feats_p, idx)                               # (B, N, k, C)
     dirs = group(points, idx) - query.unsqueeze(2)        # (B, N, k, 3)
     if add_q is not None:
@@ -43,7 +48,16 @@ def knn_weight_aggregate_reference(query, points, feats_p, add_q, mask_p,
         h = F.leaky_relu(h @ w + b, 0.1)
     for w, b in zip(wn_ws, wn_bs):
         dirs = torch.relu(dirs @ w + b)
-    return torch.sum(dirs * h, dim=2), idx
+    return torch.sum(dirs * h, dim=2)
+
+
+def knn_weight_aggregate_reference(query, points, feats_p, add_q, mask_p,
+                                   mlp_ws, mlp_bs, wn_ws, wn_bs, *,
+                                   k: int = KERNEL_K):
+    """Plain version of B3 -> (out (B, N, C_out), idx (B, N, k))."""
+    _, idx = knn(k, query, points, mask_p)
+    return knn_gather_apply_reference(idx, query, points, feats_p, add_q,
+                                      mlp_ws, mlp_bs, wn_ws, wn_bs), idx
 
 
 def check_kernel_args(query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs,
@@ -117,3 +131,36 @@ def fused_knn_weight_aggregate(query, points, feats_p, add_q, mask_p,
 
 
 fused_knn_weight_aggregate.launches = 0
+
+
+def knn_gather_apply(idx, query, points, feats_p, add_q, mlp_ws, mlp_bs,
+                     wn_ws, wn_bs, *, k: int = KERNEL_K):
+    """Kernel B4: one correlator stage over precomputed neighbour indices
+    idx (B, N, k) into the (B, M, ...) candidates (fallback-padded, from
+    `ops.fused_knn.knn_indices_tiled`) -> (B, N, C_out). N need not equal
+    M."""
+    if not query.is_cuda:
+        return knn_gather_apply_reference(idx, query, points, feats_p, add_q,
+                                          mlp_ws, mlp_bs, wn_ws, wn_bs)
+    dev = query.device
+    b, n, m = query.shape[0], query.shape[1], points.shape[1]
+    check_kernel_args(query, points, feats_p, add_q, None, mlp_ws, mlp_bs,
+                      wn_ws, wn_bs, k)
+    if idx.device != dev or tuple(idx.shape) != (b, n, k):
+        raise ValueError(f"idx: shape {tuple(idx.shape)} on {idx.device}, "
+                         f"expected {(b, n, k)} on {dev}")
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.empty((b, n, KERNEL_C), device=dev, dtype=torch.float32)
+    wn = [kb.ptr(t) for pair in zip(wn_ws, wn_bs) for t in pair]
+    with torch.cuda.device(dev):
+        code = kb.load().ratrack_corr_apply(
+            kb.ptr(query), kb.ptr(points), kb.ptr(idx), b, n, m,
+            kb.ptr(feats_p), kb.ptr(add_q), kb.ptr_array(list(mlp_ws)),
+            kb.ptr_array(list(mlp_bs)), len(mlp_ws), *wn, kb.ptr(out),
+            kb.stream_of(query))
+    kb.check(code, "corr_apply")
+    knn_gather_apply.launches += 1
+    return out
+
+
+knn_gather_apply.launches = 0

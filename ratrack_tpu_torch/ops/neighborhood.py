@@ -88,8 +88,26 @@ def ball_query(radius: float, nsample: int, points: torch.Tensor,
     return torch.where(found, first, pad)
 
 
+# pairs (N * M per stream) above which `knn_auto` leaves the dense matrix
+KNN_DENSE_LIMIT = 4 * 1024 * 1024
+
+
+def knn_auto(k: int, query: torch.Tensor, points: torch.Tensor,
+             points_mask: torch.Tensor | None = None):
+    """`knn` by size (JAX `knn_auto`, :297-308): above KNN_DENSE_LIMIT
+    pairs the tiled selection (kernel B5, `ops.fused_knn.knn_tiled`), which
+    never holds the (N, M) matrix, where its top-k list is deep enough;
+    the dense `knn` otherwise. Both select the same indices."""
+    from .fused_knn import KERNEL_K_MAX, knn_tiled
+    if (query.shape[-2] * points.shape[-2] > KNN_DENSE_LIMIT
+            and k <= KERNEL_K_MAX):
+        return knn_tiled(k, query, points, points_mask)
+    return knn(k, query, points, points_mask)
+
+
 def three_nn(query: torch.Tensor, points: torch.Tensor,
              points_mask: torch.Tensor | None = None):
-    """3 nearest neighbors with euclidean (sqrt) distances."""
-    dist2, idx = knn(3, query, points, points_mask)
+    """3 nearest neighbors with euclidean (sqrt) distances; stretch shapes
+    route through `knn_auto`."""
+    dist2, idx = knn_auto(3, query, points, points_mask)
     return torch.sqrt(dist2), idx

@@ -94,12 +94,15 @@ class AssocResult(NamedTuple):
 
 
 def associate(aff, m, n, prev_track_id, next_id, alpha: float, iters: int,
-              conf_thres: float = 0.01) -> AssocResult:
+              conf_thres: float = 0.01,
+              use_fused_kernel: bool = False) -> AssocResult:
     """Sinkhorn + mutual-max matching + ID inheritance in slot order: a new
-    id when a slot is unmatched or conf < conf_thres."""
+    id when a slot is unmatched or conf < conf_thres. use_fused_kernel: the
+    Sinkhorn iterations in kernel B7."""
     k = aff.shape[-1]
     dev = aff.device
-    z = log_optimal_transport_masked(aff, m, n, alpha, iters)
+    z = log_optimal_transport_masked(aff, m, n, alpha, iters,
+                                     use_fused_kernel)
     ar = torch.arange(k, device=dev)
     row_ok = ar.unsqueeze(0) < m.unsqueeze(1)
     col_ok = ar.unsqueeze(0) < n.unsqueeze(1)

@@ -1,5 +1,5 @@
 """On-device DBSCAN by min-label propagation, batched over streams.
-Counterpart of `ratrack_tpu/tracker/dbscan.py::dbscan`.
+Counterpart of `ratrack_tpu/tracker/dbscan.py` (`dbscan`, `compact_dbscan`).
 
   * adjacency: squared distance <= eps^2 among valid points;
   * core points: >= min_samples neighbours, the point itself included;
@@ -60,3 +60,28 @@ def dbscan(x: torch.Tensor, mask: torch.Tensor, eps: float,
                           torch.gather(rank, 1, label.clamp(max=n - 1)),
                           torch.full_like(rank, -1))
     return cluster.to(torch.int32)
+
+
+def compact_dbscan(x: torch.Tensor, mask: torch.Tensor, scores: torch.Tensor,
+                   budget: int, eps: float, min_samples: int,
+                   max_iters: int = 64) -> torch.Tensor:
+    """DBSCAN over the `budget` masked points of highest score per stream
+    (JAX `compact_dbscan`, :50-72): the O(N^2) adjacency shrinks to
+    budget^2. x (B, N, D), mask / scores (B, N) -> (B, N) int32 labels.
+
+    The selected indices are sorted ascending, so cluster numbering equals
+    a full `dbscan` whenever at most `budget` points are masked in; beyond
+    that the lowest scores are dropped (label -1). Unmasked points score
+    -inf. Equal scores go to the lower index (`jax.lax.top_k`'s order,
+    which `torch.topk` does not promise): a stable descending sort."""
+    keys = torch.where(mask, scores, torch.full_like(scores, float("-inf")))
+    sel = torch.sort(keys, dim=-1, descending=True,
+                     stable=True).indices[:, :budget]
+    sel = torch.sort(sel, dim=-1).values
+    sel_mask = torch.gather(mask, 1, sel)
+    sub = dbscan(torch.gather(x, 1, sel.unsqueeze(-1).expand(-1, -1,
+                                                            x.shape[-1])),
+                 sel_mask, eps, min_samples, max_iters)
+    labels = torch.full(mask.shape, -1, dtype=torch.int32, device=x.device)
+    return labels.scatter_(1, sel, torch.where(sel_mask, sub,
+                                               torch.full_like(sub, -1)))

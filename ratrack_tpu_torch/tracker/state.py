@@ -7,6 +7,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
+
 DESC_DIM = 141  # 3 pos + 3 pos-var + 128 feat + 3 flow + 2 rrv + 2 rrv-var
 
 
@@ -21,8 +23,11 @@ class TrackState(NamedTuple):
 
 
 def init_state(batch: int, k_max: int, gru_layers: int = 5,
-               hidden: int = 128, device="cpu",
+               hidden: int = 128, device=None,
                dtype=torch.float32) -> TrackState:
+    """A fresh state for `batch` streams on `device` (None: the card,
+    `default_device()`)."""
+    device = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     return TrackState(
         h=torch.zeros((batch, gru_layers, hidden), dtype=dtype,

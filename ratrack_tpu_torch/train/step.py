@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..data.frames import FrameBatch
+from ..device import resolve_device
 from ..tracker.state import TrackState
 from .losses import track4d_loss
 
@@ -100,9 +101,12 @@ def make_optimizer(params, cfg, steps_per_epoch: int):
     return opt, sched
 
 
-def create_train_state(model, cfg, steps_per_epoch: int) -> TrainState:
-    """Turn `model` to training (train mode, gradients on) and give it an
-    optimizer and schedule."""
+def create_train_state(model, cfg, steps_per_epoch: int,
+                       device=None) -> TrainState:
+    """Turn `model` to training (train mode, gradients on) on `device`
+    (None: the card, `default_device()`) and give it an optimizer and
+    schedule."""
+    model.to(resolve_device(device))
     model.train()
     model.requires_grad_(True)
     opt, sched = make_optimizer(list(model.parameters()), cfg,

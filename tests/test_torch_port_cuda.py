@@ -14,7 +14,10 @@ kernels' gradients (kernels.cases.compare_train): cosine with the plain
 version >= 0.9999, and in norm no further from the plain version run in
 float64 than 1e-3 of its norm plus twice the float32 plain version's
 distance (the max-pools make the gradient ill-conditioned;
-compare_train says by how much).
+compare_train says by how much). The stretch kernels: B5 and B6 select
+identical indices; B4 within the tolerance above; B7's potentials within
+1e-4 absolute on the valid rows (another summation order, a few ulps an
+iteration).
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ import torch
 
 from ratrack_tpu_torch.kernels import cases
 from ratrack_tpu_torch.ops import (fused_correlator, fused_correlator_train,
-                                   fused_fp, fused_sa, fused_sa_train)
+                                   fused_fp, fused_knn, fused_sa,
+                                   fused_sa_train, fused_sinkhorn, sampling)
 
 pytestmark = pytest.mark.cuda
 
@@ -173,9 +177,9 @@ def test_track4d_gpu_matches_cpu(device):
              for s in range(2)]
     frames = stack_frames(clips)
     model = Track4D(npoint=n, k_max=k, sinkhorn_iters=50,
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
     scan = make_scan_eval_step_cached(model)
-    _, cpu = scan(init_state(2, k), to_tensors(frames))
+    _, cpu = scan(init_state(2, k, device="cpu"), to_tensors(frames, "cpu"))
     model.to(device)
     _, gpu = scan(init_state(2, k, device=device), to_tensors(frames, device))
     for key in ("cls", "warp"):
@@ -403,8 +407,9 @@ def test_train_step_all_padding_stream_keeps_gradients_finite(device):
                           n_objects=3)[0]
     frame = to_tensors(stack_frames([real, empty_frame(n, k)]), device)
     model = Track4D(npoint=n, k_max=k, sinkhorn_iters=20,
-                    generator=torch.Generator().manual_seed(0)).to(device)
-    ts = create_train_state(model, TrainConfig(), steps_per_epoch=10)
+                    generator=torch.Generator().manual_seed(0), device=device)
+    ts = create_train_state(model, TrainConfig(), steps_per_epoch=10,
+                            device=device)
     counters = [fused_sa_train.sa_pair_train_fwd,
                 fused_sa_train.sa_pair_train_bwd,
                 fused_correlator_train.knn_weight_aggregate_train_fwd,
@@ -420,3 +425,190 @@ def test_train_step_all_padding_stream_keeps_gradients_finite(device):
     assert float(items["Loss"][1]) == 0.0
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+# ---- the stretch kernels: B5, B4, B6, B7 --------------------------------
+
+def _stretch_clouds(seed, n, n_valid=None):
+    """One stream of n points; n_valid: keep only that many valid."""
+    pc1, m1, pc2, m2 = cases.stretch_clouds(seed, n)
+    if n_valid is not None:
+        keep = torch.arange(n) < n_valid
+        m1, m2 = m1 & keep, m2 & keep
+    return pc1, m1, pc2, m2
+
+
+@pytest.mark.parametrize("n,n_valid", [(1024, None), (1500, None),
+                                       (1024, 5), (1024, 0), (2048, 16)])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_knn_tiled_matches_plain(device, stage, n, n_valid):
+    """Several candidate chunks, a ragged last chunk (1500), fewer than 16
+    and no valid candidates, exactly 16."""
+    kw = cases.to_device(cases.knn_tiled_case(
+        stage, *_stretch_clouds(10, n, n_valid)), device)
+    idx, keys, valid = fused_knn.knn_indices_tiled(**kw, return_keys=True)
+    ridx, rkeys, rvalid = fused_knn.knn_indices_tiled_reference(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(valid, rvalid)
+    assert torch.equal(keys, rkeys)       # the same rounded operations
+
+
+def test_knn_tiled_ties_go_to_the_lowest_index(device):
+    """Grid-snapped clouds, 3 streams, no mask, k = 3 and 16: many exactly
+    equal distances."""
+    gen = _gen(11)
+    q = torch.round(4 * torch.randn((3, 700, 3), generator=gen)).to(device)
+    p = torch.round(4 * torch.randn((3, 1300, 3), generator=gen)).to(device)
+    for k in (3, 16):
+        idx = fused_knn.knn_indices_tiled(q, p, None, k=k)
+        ridx = fused_knn.knn_indices_tiled_reference(q, p, None, k=k)[0]
+        assert torch.equal(idx, ridx)
+        assert torch.equal(idx, ops_knn(k, q, p)[1])
+
+
+def ops_knn(k, q, p):
+    from ratrack_tpu_torch.ops.neighborhood import knn
+    return knn(k, q, p)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_knn_gather_apply_matches_plain(device, stage):
+    kw = cases.to_device(cases.apply_case(
+        stage, *_stretch_clouds(12, 1024), _gen(12)), device)
+    out = fused_correlator.knn_gather_apply(**kw)
+    ref = fused_correlator.knn_gather_apply_reference(**kw)
+    torch.cuda.synchronize()
+    _assert_close(out, ref)
+
+
+def test_knn_gather_apply_fewer_queries_than_candidates(device):
+    """N != M: 300 queries into 1024 candidates."""
+    kw = cases.apply_case(1, *_stretch_clouds(13, 1024), _gen(13))
+    for key in ("query", "add_q", "idx"):
+        kw[key] = kw[key][:, :300].contiguous()
+    kw = cases.to_device(kw, device)
+    out = fused_correlator.knn_gather_apply(**kw)
+    ref = fused_correlator.knn_gather_apply_reference(**kw)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 300, 256)
+    _assert_close(out, ref)
+
+
+@pytest.mark.parametrize("n,npoint,n_valid", [
+    (8192, 512, None), (2048, 512, 40), (1000, 64, None), (512, 512, -1),
+    (640, 32, 1), (640, 32, 0), (16384, 128, None)])
+def test_fps_matches_plain(device, n, npoint, n_valid):
+    """n_valid None: the cloud's own mask; -1: no mask (a permutation at
+    npoint == n); 40 / 1 / 0: npoint above the valid count, one valid
+    point, none. 3 streams."""
+    gen = _gen(n + npoint)
+    xyz = (20 * torch.randn((3, n, 3), generator=gen)).to(device)
+    if n_valid == -1:
+        mask = None
+    elif n_valid is None:
+        mask = (torch.rand((3, n), generator=gen) > 0.4).to(device)
+    else:
+        mask = torch.zeros((3, n), dtype=torch.bool)
+        for s in range(3):
+            mask[s, torch.randperm(n, generator=gen)[:n_valid]] = True
+        mask = mask.to(device)
+    got = sampling.furthest_point_sample(xyz, npoint, mask)
+    want = sampling.furthest_point_sample_reference(xyz, npoint, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if n_valid == -1:
+        assert sorted(got[0].tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize("n,npoint", [(4096, 300), (16384, 200), (700, 700)])
+def test_fps_first_maximum_on_exact_ties(device, n, npoint):
+    """Coordinates on a coarse integer grid: many points coincide and many
+    distances are exactly equal, within one thread's points too (4 and 16
+    points a thread at 4096 and 16384), so the choice of the FIRST index of
+    the maximum decides most samples; half the points are masked out."""
+    gen = _gen(n)
+    xyz = torch.round(2 * torch.randn((2, n, 3), generator=gen)).to(device)
+    mask = (torch.rand((2, n), generator=gen) > 0.5).to(device)
+    for m in (mask, None):
+        got = sampling.furthest_point_sample(xyz, npoint, m)
+        want = sampling.furthest_point_sample_reference(xyz, npoint, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,iters", [(32, 500), (8, 20), (100, 50)])
+def test_sinkhorn_matches_plain(device, k, iters):
+    kw, meta = cases.sinkhorn_case(14, 8, k, iters)
+    kw, meta = cases.to_device(kw, device), cases.to_device(meta, device)
+    u, v = fused_sinkhorn.sinkhorn_uv(**kw)
+    ru, rv = fused_sinkhorn.sinkhorn_uv_reference(**kw)
+    torch.cuda.synchronize()
+    ar = torch.arange(k + 1, device=device)
+    rows = (ar < meta["m"].unsqueeze(1)) | (ar == k)
+    cols = (ar < meta["n"].unsqueeze(1)) | (ar == k)
+    assert (u - ru)[rows].abs().max().item() <= 1e-4
+    assert (v - rv)[cols].abs().max().item() <= 1e-4
+    assert bool(torch.isfinite(u).all() and torch.isfinite(v).all())
+
+
+def test_stretch_wrappers_raise_and_count(device):
+    kw = cases.knn_tiled_case(1, *_stretch_clouds(15, 512))
+    before = fused_knn.knn_indices_tiled.launches
+    fused_knn.knn_indices_tiled(**kw)                      # CPU: plain
+    assert fused_knn.knn_indices_tiled.launches == before
+    kw = cases.to_device(kw, device)
+    fused_knn.knn_indices_tiled(**kw)
+    assert fused_knn.knn_indices_tiled.launches == before + 1
+    with pytest.raises(ValueError):
+        fused_knn.knn_indices_tiled(**{**kw, "k": 17})
+    with pytest.raises(TypeError):
+        sampling.furthest_point_sample(kw["query"].double(), 8)
+    with pytest.raises(ValueError):
+        sampling.furthest_point_sample(
+            torch.zeros((1, 20000, 3), device=device), 8)
+    c = torch.zeros((1, 3, 3), device=device, requires_grad=True)
+    with pytest.raises(RuntimeError):
+        fused_sinkhorn.sinkhorn_uv(c, torch.zeros((1, 3), device=device),
+                                   torch.zeros((1, 3), device=device), 2)
+
+
+def test_stretch_track4d_gpu_matches_cpu(device):
+    """exact_fps + mov_budget + the Sinkhorn kernel at 1024 points, 256
+    centers, one stream x 2 frames, the split correlator forced (its limit
+    lowered): the card against the CPU's plain versions."""
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip, to_tensors
+    from ratrack_tpu_torch.models import Track4D, correlator
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import make_scan_eval_step_cached
+
+    n, k = 1024, 8
+    frames = stack_frames([stack_frames(synthetic_clip(
+        0, 2, n_max=n, g_max=k, n_static=600, n_objects=4))])
+    model = Track4D(npoint=256, k_max=k, sinkhorn_iters=50, exact_fps=True,
+                    mov_budget=128, sinkhorn_kernel=True,
+                    generator=torch.Generator().manual_seed(0), device="cpu")
+    scan = make_scan_eval_step_cached(model)
+    limit = correlator.SPLIT_ABOVE
+    correlator.SPLIT_ABOVE = 512
+    try:
+        _, cpu = scan(init_state(1, k, device="cpu"),
+                      to_tensors(frames, "cpu"))
+        model.to(device)
+        counters = [fused_knn.knn_indices_tiled,
+                    fused_correlator.knn_gather_apply,
+                    sampling.furthest_point_sample,
+                    fused_sinkhorn.sinkhorn_uv,
+                    fused_correlator.fused_knn_weight_aggregate]
+        before = [c.launches for c in counters]
+        _, gpu = scan(init_state(1, k, device=device),
+                      to_tensors(frames, device))
+        torch.cuda.synchronize()
+    finally:
+        correlator.SPLIT_ABOVE = limit
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [4, 4, 15, 2, 0]
+    for key in ("cls", "warp"):
+        np.testing.assert_allclose(gpu[key].cpu().numpy(), cpu[key].numpy(),
+                                   atol=1e-3)
+    labels_bad = (gpu["labels"].cpu() != cpu["labels"]).float().mean().item()
+    assert labels_bad <= 0.01, labels_bad

@@ -90,7 +90,7 @@ def world():
     model = JTrack4D(npoint=N, k_max=K, sinkhorn_iters=ITERS)
     f0 = jax.tree_util.tree_map(lambda x: jnp.asarray(x[0, 0]), frames)
     variables = _variables(model, f0)
-    port = Track4D(npoint=N, k_max=K, sinkhorn_iters=ITERS)
+    port = Track4D(npoint=N, k_max=K, sinkhorn_iters=ITERS, device="cpu")
     port.load_state_dict(from_flax_variables(variables), strict=True)
     return model, variables, port, frames
 
@@ -121,7 +121,7 @@ def test_pnhead_matches_jax(world):
     fn = jax.jit(jax.vmap(lambda x, f, m: head.apply(
         _sub(v, "pn_head"), x, f, m, False)))
     want_xyz, want = fn(fr.pc1, fr.ft1, fr.mask1)
-    ft = to_tensors(fr)
+    ft = to_tensors(fr, "cpu")
     got_xyz, got = port.pn_head(ft.pc1, ft.ft1, ft.mask1)
     np.testing.assert_array_equal(got_xyz.numpy(), np.asarray(want_xyz))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -135,7 +135,7 @@ def test_correlator_matches_jax(world):
     fn = jax.jit(jax.vmap(lambda a, b, c, d, m1, m2: mod.apply(
         _sub(v, "fc_layer"), a, b, c, d, m1, m2, train=False)))
     want = np.asarray(fn(fr.pc1, fr.pc2, f1, f2, fr.mask1, fr.mask2))
-    ft = to_tensors(fr)
+    ft = to_tensors(fr, "cpu")
     got = port.fc_layer(ft.pc1, ft.pc2, torch.from_numpy(f1),
                         torch.from_numpy(f2), ft.mask1, ft.mask2).numpy()
     scale = np.abs(want).max()
@@ -157,7 +157,7 @@ def test_decoder_stages_match_jax(world):
     flow = jax.vmap(lambda p, g, m: dec.apply(
         sub, p, g, m, False, method=JFlowDecoder.post_gru))(
         prop, gout, fr.mask1)
-    ft = to_tensors(fr)
+    ft = to_tensors(fr, "cpu")
     t_cls, t_prop, t_gin = port.fd_layer.pre_gru(
         ft.pc1, ft.ft1, torch.from_numpy(f1), torch.from_numpy(cor), ft.mask1)
     t_gout, t_h = port.fd_layer.gru_apply(t_gin, torch.from_numpy(h))
@@ -262,11 +262,11 @@ def test_descriptors_and_gt_match_match_jax():
 
 
 def test_reset_where_keeps_next_id():
-    state = init_state(B, K)._replace(
+    state = init_state(B, K, device="cpu")._replace(
         next_id=torch.tensor([5, 9], dtype=torch.int32),
         frame_idx=torch.tensor([3, 4], dtype=torch.int32),
         track_id=torch.ones((B, K), dtype=torch.int32))
-    out = reset_where(torch.tensor([True, False]), state, init_state(B, K))
+    out = reset_where(torch.tensor([True, False]), state, init_state(B, K, device="cpu"))
     assert out.next_id.tolist() == [5, 9]
     assert out.frame_idx.tolist() == [0, 4]
     assert out.track_id[0].tolist() == [-1] * K
@@ -289,7 +289,7 @@ def test_track4d_step_matches_jax(world, jax_scan):
     _, want = jax_scan
     fr = _frame_t(frames, 0)
     with torch.inference_mode():
-        got, _ = port(to_tensors(fr), init_state(B, K))
+        got, _ = port(to_tensors(fr, "cpu"), init_state(B, K, device="cpu"))
     np.testing.assert_allclose(got["cls"].numpy(),
                                np.asarray(want["cls"][:, 0]), **FWD)
     np.testing.assert_allclose(got["flow"].numpy(),
@@ -305,7 +305,7 @@ def test_cached_scan_matches_jax(world, jax_scan):
     _, _, port, frames = world
     w_state, want = jax_scan
     g_state, got = make_scan_eval_step_cached(port)(
-        init_state(B, K), to_tensors(FrameBatch(*frames)))
+        init_state(B, K, device="cpu"), to_tensors(FrameBatch(*frames), "cpu"))
     for key in ("cls", "warp"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    **FWD)

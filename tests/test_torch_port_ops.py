@@ -213,6 +213,46 @@ def test_three_interpolate_plain_matches_jax_kernel(mask):
         np.testing.assert_allclose(got[b].numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("level", list(cases.SA_LEVELS))
+def test_sa_pair_plain_matches_jax_kernel_fewer_centers(level):
+    """N != M, the stretch shape in small: 256 points (a mask on them), 128
+    centers drawn from the valid ones."""
+    radii, nsamples, mlps, c_feat = cases.SA_LEVELS[level]
+    c, n, m_c = c_feat["pn_head"], 256, 128
+    rng = np.random.RandomState(14)
+    xyz = _cloud(15, n=n, scale=3.0)
+    mask = np.broadcast_to(np.arange(n) < 200, (B, n)).copy()
+    centers = np.stack([xyz[b][rng.permutation(200)[:m_c]] for b in range(B)])
+    feats = rng.randn(B, n, c).astype(np.float32)
+    (wa, ba), (wb, bb) = [_folded(rng, (3 + c,) + w) for w in mlps]
+    kw = dict(radius_a=radii[0], radius_b=radii[1], nsample_a=nsamples[0],
+              nsample_b=nsamples[1])
+    oa, ob = fused_sa.fused_sa_pair(
+        _t(xyz), _t(centers), _t(feats), _t(mask), [_t(w) for w in wa],
+        [_t(x) for x in ba], [_t(w) for w in wb], [_t(x) for x in bb], **kw)
+    assert oa.shape == (B, m_c, mlps[0][-1])
+    for b in range(B):
+        ja, jb = pallas_sa.fused_sa_pair(
+            _j(xyz, b), _j(centers, b), _j(feats, b), _j(mask, b), wa, ba, wb,
+            bb, compute_dtype=jnp.float32, precision=HI, interpret=True, **kw)
+        np.testing.assert_allclose(oa[b].numpy(), np.asarray(ja), **TOL)
+        np.testing.assert_allclose(ob[b].numpy(), np.asarray(jb), **TOL)
+
+
+def test_three_interpolate_plain_matches_jax_kernel_fewer_known():
+    """N != M: 256 unknown points, 128 known ones (no mask, as on the
+    model's path)."""
+    u, k = _cloud(16, n=256), _cloud(17, n=128)
+    f = np.random.RandomState(18).randn(B, 128, 64).astype(np.float32)
+    got, idx = fused_fp.three_interpolate_reference(_t(u), _t(k), _t(f))
+    assert got.shape == (B, 256, 64) and idx.shape == (B, 256, 3)
+    for b in range(B):
+        want = pallas_fp.fused_three_interpolate(
+            _j(u, b), _j(k, b), _j(f, b), None, compute_dtype=jnp.float32,
+            precision=HI, interpret=True)
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("mask", ["partial", "few", "zero"])
 @pytest.mark.parametrize("stage", [1, 2])
 def test_knn_weight_aggregate_plain_matches_jax_kernel(stage, mask):
@@ -332,6 +372,9 @@ def test_port_imports_no_jax():
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'flax', 'ratrack_tpu.'))]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "for name in ('device', 'ops.morton', 'ops.fused_knn', "
+        "'ops.fused_sinkhorn', 'ops.sampling', 'tracker.dbscan'):\n"
+        "    assert 'ratrack_tpu_torch.' + name in sys.modules, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    env={**os.environ, "PYTHONPATH": root})

@@ -107,7 +107,7 @@ def world():
 
 
 def _port(variables):
-    port = Track4D(npoint=N, k_max=K, sinkhorn_iters=ITERS)
+    port = Track4D(npoint=N, k_max=K, sinkhorn_iters=ITERS, device="cpu")
     port.load_state_dict(from_flax_variables(variables), strict=True)
     return port
 
@@ -386,7 +386,7 @@ def test_optimizer_matches_optax():
     st = tx.init(jp)
     module = torch.nn.ParameterDict(
         {k: torch.nn.Parameter(_t(v)) for k, v in p0.items()})
-    ts = create_train_state(module, cfg, steps_per_epoch=2)
+    ts = create_train_state(module, cfg, steps_per_epoch=2, device="cpu")
     for g in grads:
         upd, st = tx.update({"a": jnp.asarray(g), "z": jnp.zeros(5)}, st, jp)
         jp = optax.apply_updates(jp, upd)
@@ -426,8 +426,8 @@ def test_track4d_train_step_matches_jax(world):
         v["params"], v["batch_stats"], _jstates(),
         jax.tree_util.tree_map(jnp.asarray, fr), False)
     port = _port(v)
-    ts = create_train_state(port, TrainConfig(), steps_per_epoch=10)
-    _, items = make_train_step(ts)(init_state(B, K), to_tensors(fr), False)
+    ts = create_train_state(port, TrainConfig(), steps_per_epoch=10, device="cpu")
+    _, items = make_train_step(ts)(init_state(B, K, device="cpu"), to_tensors(fr, "cpu"), False)
     for key, val in jitems.items():
         np.testing.assert_allclose(items[key].numpy(), np.asarray(val),
                                    rtol=1e-4, atol=1e-6, err_msg=key)
@@ -466,9 +466,9 @@ def test_scan_train_matches_jax(world):
     _, _, jitems = jscan_train(model, tx)(
         jts, _jstates(), jax.tree_util.tree_map(jnp.asarray, frames),
         jnp.asarray(False))
-    ts = create_train_state(_port(v), cfg, steps_per_epoch=10)
-    _, items = make_scan_train_step(ts)(init_state(B, K),
-                                        to_tensors(FrameBatch(*frames)),
+    ts = create_train_state(_port(v), cfg, steps_per_epoch=10, device="cpu")
+    _, items = make_scan_train_step(ts)(init_state(B, K, device="cpu"),
+                                        to_tensors(FrameBatch(*frames), "cpu"),
                                         False)
     assert float(np.asarray(jitems["TrackingLoss"])[1].max()) > 0
     for key, val in jitems.items():
@@ -484,19 +484,19 @@ def test_checkpoint_resume_gives_the_same_next_step(world, tmp_path):
     the checkpoint takes the same second step bit for bit (parameters,
     BN statistics, Adam state and learning rate)."""
     _, v, frames = world
-    f0, f1 = to_tensors(_frame_t(frames, 0)), to_tensors(_frame_t(frames, 1))
+    f0, f1 = to_tensors(_frame_t(frames, 0), "cpu"), to_tensors(_frame_t(frames, 1), "cpu")
     cfg = types.SimpleNamespace(lr=1e-3, weight_decay=1e-10, decay_epochs=1,
                                 decay_rate=0.5)
-    ts = create_train_state(_port(v), cfg, steps_per_epoch=1)
+    ts = create_train_state(_port(v), cfg, steps_per_epoch=1, device="cpu")
     step = make_train_step(ts)
-    state1, _ = step(init_state(B, K), f0, False)
+    state1, _ = step(init_state(B, K, device="cpu"), f0, False)
     save_train_state(tmp_path, "last", ts)
     _, items_a = step(state1, f1, False)
 
     fresh = Track4D(npoint=N, k_max=K, sinkhorn_iters=ITERS,
-                    generator=torch.Generator().manual_seed(1))
+                    generator=torch.Generator().manual_seed(1), device="cpu")
     ts_b = restore_train_state(tmp_path, "last",
-                               create_train_state(fresh, cfg, 1))
+                               create_train_state(fresh, cfg, 1, device="cpu"))
     assert ts_b.step == 1
     _, items_b = make_train_step(ts_b)(state1, f1, False)
     for key in items_a:
