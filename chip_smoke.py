@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eval, train and stretch eval paths on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's eval, train, stretch, general-SA-level and
+serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -60,17 +60,54 @@ Phases, each printing one line:
                 16384 x 8 frames, one stream, and the 512-point 8 x 32 scan
                 with sinkhorn_kernel=True: one warm-up, median of 3,
                 frames/s and peak device memory (no gate).
+  12. scale_kernel the one-scale kernels B1' (eval) and B8 (train, forward
+                and backward) on every scale of three levels that are not
+                a same-depth pair (one scale; three scales; two scales of
+                depths 2 and 3), 8 streams x 512 points x 512 centers, 35
+                input channels, against their plain versions as in phases
+                3 and 6; B1' also at 8192 points x 512 centers, one stream;
+                and a pair launch (B1, B9) against two one-scale launches:
+                outputs, indices, statistics and weight gradients equal
+                bit for bit, the feature gradient (float atomics) within
+                1e-5 of its largest element;
+  13. general_slice those three `SetAbstractionMSG` levels in eval and in
+                one train forward + backward on the card against the CPU:
+                eval outputs within 1e-4 x max + 1e-5; train outputs and
+                running statistics likewise, gradients by phase 6's float64
+                yardstick; launch counts by the JAX module's routing: eval
+                1 / 3 / 0 of B1' and 0 / 0 / 1 of B1 (two scales take the
+                pair kernel whatever their depths), train 1 / 3 / 2 of B8
+                forward and backward and none of B9;
+  14. serving   `serve.RadarTracker` over Track4D(npoint=512) on the card:
+                8 streams x 4 synthetic scans against the same tracker on
+                the CPU (0 label, point-track-id and track-id mismatches,
+                flow and conf within 1e-3), then per-call wall time (median
+                and worst of 50 calls after 5 warm-up calls) of `track()`
+                on one stream (bucket 1) and of 8 submits + one `step()`
+                (bucket 8) on random 360-point scans, with
+                `sinkhorn_kernel` off and on; `last_bucket` and the launch
+                counts of a step (9 B1, 9 B2, 2 B3, and 1 B7 when on);
+  15. train_stretch make_scan_train_step over Track4D(npoint=512,
+                exact_fps, mov_budget=512): one frame step of one stream
+                at 8192 points on the card against float64 and float32
+                runs on the CPU at phase 7's gates, launch counts 9 / 9 /
+                2 / 2 of B9 / B10 forward and backward, 9 of B6 and 2 of
+                B5 a frame step (5 at 16384 points, where the three
+                fp1 levels select through it too); then frames/s and peak
+                memory at 8192 points x 2 streams x 8 frames and 16384 x 1
+                x 4 (one warm-up, median of 3, no gate).
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
-phase 11's 8192-point run), error, times summed over the calls one frame
-step of that path makes (6 B1, 6 B2, 2 B3; 9 B9, 2 B10; 2 B5, 2 B4, 6 B6,
-1 B7), the roofline bound of the same work (the larger of bytes / 3.35
+phase 11's 8192-point run, B1' and B8 from phase 13's), error, times
+summed over the calls one frame step of that path makes (6 B1, 6 B2, 2 B3;
+9 B9, 2 B10; 2 B5, 2 B4, 6 B6, 1 B7; for B1' the 4 and for B8 the 6
+scales that phase 13's three levels launch one by one), the roofline bound of the same work (the larger of bytes / 3.35
 TB/s and float32 operations / 67 TFLOP/s, counted by
 kernels/cases.py::*_work) and, where one PyTorch call computes the same
 function, that call's time; and last the result line. Any failed check
-exits non-zero before the result line (phases 6-8 record their failed
-checks and go on, so that one run reports all of them; the script then
-exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
+exits non-zero before the result line (phases 6-8 and 12-15 record their
+failed checks and go on, so that one run reports all of them; the script
+then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
 
@@ -98,6 +135,11 @@ STRETCH_BIG_N = 16384
 STRETCH_NPOINT = 512
 STRETCH_SLICE_T = 2
 STRETCH_SCAN = ((8192, 16), (16384, 8))    # (points, frames), one stream
+TRAIN_STRETCH_SLICE_N = 8192                # one stream, one frame step
+TRAIN_STRETCH_SCAN = ((8192, 2, 8), (16384, 1, 4))  # points, streams, frames
+SERVE_SCANS = 4
+SERVE_CALLS = 50
+SERVE_WARMUP = 5
 REPS = 20
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
@@ -107,6 +149,9 @@ KERNELS = {
     "sa_pair": dict(
         source="ratrack_tpu_torch/csrc/sa_pair.cu",
         replaces="ratrack_tpu/ops/pallas_sa.py:192 (_sa_pair_kernel)"),
+    "sa_scale": dict(
+        source="ratrack_tpu_torch/csrc/sa_pair.cu",
+        replaces="ratrack_tpu/ops/pallas_sa.py:145 (_sa_kernel)"),
     "three_interpolate": dict(
         source="ratrack_tpu_torch/csrc/fp.cu",
         replaces="ratrack_tpu/ops/pallas_fp.py:54 (_fp_kernel)"),
@@ -121,6 +166,12 @@ KERNELS = {
         source="ratrack_tpu_torch/csrc/sa_pair_train.cu",
         replaces="ratrack_tpu/ops/pallas_sa_train.py:1229 "
                  "(_pair_bwd_kernel_pk)"),
+    "sa_scale_train_fwd": dict(
+        source="ratrack_tpu_torch/csrc/sa_pair_train.cu",
+        replaces="ratrack_tpu/ops/pallas_sa_train.py:246 (_fwd_kernel)"),
+    "sa_scale_train_bwd": dict(
+        source="ratrack_tpu_torch/csrc/sa_pair_train.cu",
+        replaces="ratrack_tpu/ops/pallas_sa_train.py:287 (_bwd_kernel)"),
     "knn_weight_aggregate_train_fwd": dict(
         source="ratrack_tpu_torch/csrc/correlator.cu",
         replaces="ratrack_tpu/ops/pallas_correlator_train.py:184 "
@@ -145,11 +196,12 @@ KERNELS = {
 EVAL_KERNELS = ("sa_pair", "three_interpolate", "knn_weight_aggregate")
 STRETCH_KERNELS = ("knn_tiled", "knn_gather_apply", "furthest_point_sample",
                    "sinkhorn_uv")
-TRAIN_KERNELS = tuple(k for k in KERNELS
-                      if k not in EVAL_KERNELS + STRETCH_KERNELS)
+SCALE_KERNELS = ("sa_scale", "sa_scale_train_fwd", "sa_scale_train_bwd")
+TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
+                      EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS)
 
 
-FAILED: list = []   # failed checks of phases 6-8
+FAILED: list = []   # failed checks of phases 6-8 and 12-15
 
 
 def fail(msg: str) -> None:
@@ -470,6 +522,9 @@ def counters():
             "furthest_point_sample": sampling.furthest_point_sample,
             "sinkhorn_uv": fused_sinkhorn.sinkhorn_uv,
             "sa_pair": fused_sa.sa_pair,
+            "sa_scale": fused_sa.sa_scale,
+            "sa_scale_train_fwd": fused_sa_train.sa_scale_train_fwd,
+            "sa_scale_train_bwd": fused_sa_train.sa_scale_train_bwd,
             "three_interpolate": fused_fp.fused_three_interpolate,
             "knn_weight_aggregate":
                 fused_correlator.fused_knn_weight_aggregate,
@@ -493,7 +548,7 @@ def read_counters():
 def expected_launches(t: int):
     # per frame: pn_head(pc1) + decoder mse = 6 SA pairs and 6 FP; 2
     # correlator stages; plus the pc2 head once at block entry (3 + 3)
-    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS},
+    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS},
             "sa_pair": 6 * t + 3, "three_interpolate": 6 * t + 3,
             "knn_weight_aggregate": 2 * t}
 
@@ -502,7 +557,8 @@ def expected_stretch_launches(t: int):
     # as expected_launches, with the split correlator (a tiled kNN and an
     # apply per stage) in place of B3, a farthest point sampling per SA
     # level and one Sinkhorn launch per frame
-    return {**{k: 0 for k in TRAIN_KERNELS}, "knn_weight_aggregate": 0,
+    return {**{k: 0 for k in TRAIN_KERNELS + SCALE_KERNELS},
+            "knn_weight_aggregate": 0,
             "sa_pair": 6 * t + 3, "three_interpolate": 6 * t + 3,
             "knn_tiled": 2 * t, "knn_gather_apply": 2 * t,
             "furthest_point_sample": 6 * t + 3, "sinkhorn_uv": t}
@@ -511,7 +567,7 @@ def expected_stretch_launches(t: int):
 def expected_train_launches(t: int):
     # per frame step: 3 PNHeads (pc1, pc2, the decoder's mse) x 3 SA
     # levels, forward and backward; 2 correlator stages; no eval kernel
-    return {**{k: 0 for k in EVAL_KERNELS + STRETCH_KERNELS},
+    return {**{k: 0 for k in EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS},
             "sa_pair_train_fwd": 9 * t, "sa_pair_train_bwd": 9 * t,
             "knn_weight_aggregate_train_fwd": 2 * t,
             "knn_weight_aggregate_train_bwd": 2 * t}
@@ -528,18 +584,19 @@ def make_frames(torch, seed: int, t: int, device, n_max: int = N_MAX,
     return to_tensors(stack_frames(clips), device)
 
 
-def stretch_frames(torch, seed: int, t: int, device, n_max: int):
-    """One stream of the stretch scenarios' synthetic clips."""
+def stretch_frames(torch, seed: int, t: int, device, n_max: int,
+                   streams: int = 1):
+    """`streams` streams of the stretch scenarios' synthetic clips."""
     from ratrack_tpu_torch.kernels.cases import stretch_static_points
-    return make_frames(torch, seed, t, device, n_max, 1,
+    return make_frames(torch, seed, t, device, n_max, streams,
                        stretch_static_points(n_max))
 
 
-def stretch_model(torch, seed: int, device):
+def stretch_model(torch, seed: int, device, sinkhorn_kernel: bool = True):
     from ratrack_tpu_torch.models import Track4D
     return Track4D(npoint=STRETCH_NPOINT, k_max=K_MAX,
                    sinkhorn_iters=SINKHORN_ITERS, exact_fps=True,
-                   mov_budget=512, sinkhorn_kernel=True,
+                   mov_budget=512, sinkhorn_kernel=sinkhorn_kernel,
                    generator=torch.Generator().manual_seed(seed),
                    device=device)
 
@@ -780,74 +837,97 @@ def phase_train_kernels(torch, seed: int):
                      cases.to_device(cases.corr_train_case(
                          stage, pc1, m1, pc2, m2, gen), dev), corr))
 
-    summary = new_summary(TRAIN_KERNELS)
-    for kernel, config, kw, (loss_fn, run_fn, fk, fp) in runs:
-        got, want = run_fn(fk, kw), run_fn(fp, kw)
-        want64 = run_fn(fp, cases.to_float64(kw))
-        torch.cuda.synchronize()
-        bad, errs = cases.compare_train(got, want, want64)
-        if bad:
-            record_failure(f"{kernel}[{config}]: " + "; ".join(bad))
-        err = {"fwd": max(v for k, v in errs.items() if k in want[0]),
-               "bwd": max(v for k, v in errs.items() if k in want[1])}
-        ms = {}
-        for side, fn in (("kernel", fk), ("plain", fp)):
-            with torch.no_grad():
-                ms[f"{side}_fwd"] = device_ms(torch, lambda fn=fn: fn(**kw))
-            loss, _, leaves = loss_fn(fn, kw)
-            flat = [x for _, x in cases.flat_leaves(leaves)]
-            ms[f"{side}_bwd"] = device_ms(
-                torch, lambda loss=loss, flat=flat: torch.autograd.grad(
-                    loss, flat, retain_graph=True))
-            del loss, leaves, flat
+    def work(kernel, kw, outs):
         if kernel == "sa_pair_train":
-            work = dict(zip(("fwd", "bwd"), cases.sa_train_work(kw, got[0])))
-        else:
-            work = dict(fwd=cases.corr_work(kw, got[0]["out"]),
-                        bwd=cases.corr_train_bwd_work(kw, got[0]["out"]))
-        bounds = {part: roofline(*work[part]) for part in work}
-        emit(phase="train_kernel", kernel=kernel, config=config,
-             fwd_max_abs_err=err["fwd"], grad_max_abs_err=err["bwd"],
-             indices_equal=True, fwd_ms=ms["kernel_fwd"],
-             fwd_plain_ms=ms["plain_fwd"], bwd_ms=ms["kernel_bwd"],
-             bwd_plain_ms=ms["plain_bwd"], fwd_bound_ms=bounds["fwd"][0],
-             fwd_bound_by=bounds["fwd"][1], bwd_bound_ms=bounds["bwd"][0],
-             bwd_bound_by=bounds["bwd"][1])
+            return dict(zip(("fwd", "bwd"), cases.sa_train_work(kw, outs)))
+        return dict(fwd=cases.corr_work(kw, outs["out"]),
+                    bwd=cases.corr_train_bwd_work(kw, outs["out"]))
+
+    summary = new_summary(TRAIN_KERNELS)
+    for kernel, config, kw, fns in runs:
         # a train frame step runs the pn_head on both clouds, the mse once
-        weight = 2 if config.startswith("pn_head") else 1
-        for part in ("fwd", "bwd"):
-            tally(summary[f"{kernel}_{part}"], weight, err[part],
-                  ms[f"kernel_{part}"], ms[f"plain_{part}"], None,
-                  *work[part])
+        train_kernel_case(torch, cases, summary, "train_kernel", kernel,
+                          config, kw, fns, work,
+                          2 if config.startswith("pn_head") else 1)
     return summary
 
 
-def _train_run(torch, seed: int, device: str, dtype):
-    """Track4D from the seed trained over TRAIN_SLICE_T synthetic frames on
-    `device` in `dtype`, one frame a scan call so that each step's
-    gradients can be read -> per-frame loss items, per-step gradients,
-    launch counts, BN running statistics, parameters (float64 on the
-    CPU except the parameters)."""
+def train_kernel_case(torch, cases, summary, phase, kernel, config, kw, fns,
+                      work, weight):
+    """One train kernel config forward and backward against its plain
+    version (fns = loss fn, run fn, kernel wrapper, plain version; work
+    (kernel, kw, outputs) -> {"fwd": (bytes, ops), "bwd": ...}): checks by
+    cases.compare_train with the float64 yardstick, times, bounds, and
+    `weight` calls added to summary[kernel_fwd / kernel_bwd]."""
+    loss_fn, run_fn, fk, fp = fns
+    got, want = run_fn(fk, kw), run_fn(fp, kw)
+    want64 = run_fn(fp, cases.to_float64(kw))
+    torch.cuda.synchronize()
+    bad, errs = cases.compare_train(got, want, want64)
+    if bad:
+        record_failure(f"{kernel}[{config}]: " + "; ".join(bad))
+    err = {"fwd": max(v for k, v in errs.items() if k in want[0]),
+           "bwd": max(v for k, v in errs.items() if k in want[1])}
+    ms = {}
+    for side, fn in (("kernel", fk), ("plain", fp)):
+        with torch.no_grad():
+            ms[f"{side}_fwd"] = device_ms(torch, lambda fn=fn: fn(**kw))
+        loss, _, leaves = loss_fn(fn, kw)
+        flat = [x for _, x in cases.flat_leaves(leaves)]
+        ms[f"{side}_bwd"] = device_ms(
+            torch, lambda loss=loss, flat=flat: torch.autograd.grad(
+                loss, flat, retain_graph=True))
+        del loss, leaves, flat
+    w = work(kernel, kw, got[0])
+    bounds = {part: roofline(*w[part]) for part in w}
+    emit(phase=phase, kernel=kernel, config=config,
+         fwd_max_abs_err=err["fwd"], grad_max_abs_err=err["bwd"],
+         indices_equal=True, fwd_ms=ms["kernel_fwd"],
+         fwd_plain_ms=ms["plain_fwd"], bwd_ms=ms["kernel_bwd"],
+         bwd_plain_ms=ms["plain_bwd"], fwd_bound_ms=bounds["fwd"][0],
+         fwd_bound_by=bounds["fwd"][1], bwd_bound_ms=bounds["bwd"][0],
+         bwd_bound_by=bounds["bwd"][1])
+    for part in ("fwd", "bwd"):
+        tally(summary[f"{kernel}_{part}"], weight, err[part],
+              ms[f"kernel_{part}"], ms[f"plain_{part}"], None, *w[part])
+
+
+def _train_run(torch, seed: int, device: str, dtype, stretch_n: int = 0):
+    """Track4D from the seed trained on `device` in `dtype`, one frame a
+    scan call so that each step's gradients can be read -> per-frame loss
+    items, per-step gradients, launch counts, BN running statistics,
+    parameters (float64 on the CPU except the parameters). By default the
+    512-point model over N_STREAMS streams x TRAIN_SLICE_T frames; with
+    stretch_n the stretch model (512 centers, true FPS, compact DBSCAN)
+    over one stream x one frame of stretch_n points."""
     from ratrack_tpu_torch.data import FrameBatch
     from ratrack_tpu_torch.models import Track4D
     from ratrack_tpu_torch.tracker import init_state
     from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
                                          make_scan_train_step)
     dev = torch.device(device)
-    model = Track4D(npoint=N_MAX, k_max=K_MAX, sinkhorn_iters=SINKHORN_ITERS,
-                    generator=torch.Generator().manual_seed(seed),
-                    device=dev).to(dtype=dtype)
+    if stretch_n:
+        streams, n_frames = 1, 1
+        model = stretch_model(torch, seed, dev, sinkhorn_kernel=False)
+        frames = stretch_frames(torch, seed + 7, n_frames, dev, stretch_n)
+    else:
+        streams, n_frames = N_STREAMS, TRAIN_SLICE_T
+        model = Track4D(npoint=N_MAX, k_max=K_MAX,
+                        sinkhorn_iters=SINKHORN_ITERS,
+                        generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+        frames = make_frames(torch, seed + 7, n_frames, dev)
+    model = model.to(dtype=dtype)
     scan = make_scan_train_step(
         create_train_state(model, TrainConfig(), steps_per_epoch=100,
                            device=dev))
     frames = FrameBatch(*[x.to(dtype) if x.is_floating_point() else x
-                          for x in make_frames(torch, seed + 7, TRAIN_SLICE_T,
-                                               dev)])
-    state = init_state(N_STREAMS, K_MAX, device=dev, dtype=dtype)
+                          for x in frames])
+    state = init_state(streams, K_MAX, device=dev, dtype=dtype)
     items, grads = [], []
     reset_counters()
     t0 = time.perf_counter()
-    for t in range(TRAIN_SLICE_T):
+    for t in range(n_frames):
         state, it = scan(state, FrameBatch(*[x[:, t:t + 1] for x in frames]),
                          False)
         items.append({k: v[0].double().cpu() for k, v in it.items()})
@@ -874,20 +954,28 @@ def phase_train_slice(torch, seed: int):
     float64 by 1e-3 (each frame's losses over the streams; each gradient
     leaf, of the whole gradient's norm) or 1e-4 (each BN running
     statistic) plus twice what the CPU's float32 run is off by."""
-    ref = _train_run(torch, seed, "cpu", torch.float64)
-    cpu = _train_run(torch, seed, "cpu", torch.float32)
-    gpu = _train_run(torch, seed, "cuda", torch.float32)
-    want = expected_train_launches(TRAIN_SLICE_T)
+    compare_train_runs(torch, seed, "train_slice",
+                       expected_train_launches(TRAIN_SLICE_T),
+                       dict(streams=N_STREAMS, frames=TRAIN_SLICE_T))
+
+
+def compare_train_runs(torch, seed: int, phase: str, want: dict, shape: dict,
+                       stretch_n: int = 0):
+    """_train_run on the CPU in float64 and float32 and on the card, held
+    together by phase_train_slice's gates; `want` the card's launch
+    counts, `shape` what the phase's line says of its size."""
+    ref = _train_run(torch, seed, "cpu", torch.float64, stretch_n)
+    cpu = _train_run(torch, seed, "cpu", torch.float32, stretch_n)
+    gpu = _train_run(torch, seed, "cuda", torch.float32, stretch_n)
     if gpu["launches"] != want:
-        record_failure(f"train slice launch counts {gpu['launches']}, "
+        record_failure(f"{phase} launch counts {gpu['launches']}, "
                        f"expected {want}")
     finite = all(bool(torch.isfinite(x).all()) for x in
                  [v for it in gpu["items"] for v in it.values()]
                  + [g for gr in gpu["grads"] for g in gr.values()]
                  + gpu["params"])
     if not finite:
-        record_failure("train slice: loss, gradients or parameters not "
-                       "finite")
+        record_failure(f"{phase}: loss, gradients or parameters not finite")
 
     worst = {}   # check -> (err / tol, where, gpu err, cpu32 err)
 
@@ -913,7 +1001,7 @@ def phase_train_slice(torch, seed: int):
         ec = (cpu["stats"][n] - y).norm().item()
         note("bn_stats", eg / (1e-4 * y.norm().item() + 2 * ec + 1e-6), n,
              eg, ec)
-    emit(phase="train_slice", streams=N_STREAMS, frames=TRAIN_SLICE_T,
+    emit(phase=phase, **shape,
          worst={k: dict(err_over_tol=v[0], at=v[1], gpu_err=v[2],
                         cpu32_err=v[3]) for k, v in worst.items()},
          losses_gpu=[{k: v.tolist() for k, v in it.items()}
@@ -922,7 +1010,7 @@ def phase_train_slice(torch, seed: int):
          cpu32_seconds=cpu["seconds"], gpu_seconds=gpu["seconds"])
     for check, (ratio, where, g_err, c_err) in worst.items():
         if ratio > 1.0:
-            record_failure(f"train slice {check} at {where}: error {g_err} "
+            record_failure(f"{phase} {check} at {where}: error {g_err} "
                            f"against float64, the CPU's float32 {c_err}")
 
 
@@ -971,6 +1059,345 @@ def phase_train_throughput(torch, seed: int, card: str, profile_dir):
         profile_scan(torch, scan, state0, frames, profile_dir, 4, "train",
                      False)
     return launches
+
+
+def phase_scale_kernels(torch, seed: int):
+    """Phase 12: kernels B1' and B8 against their plain versions, and a
+    pair launch against two one-scale launches."""
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.ops import fused_sa, fused_sa_train
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 3)
+    pc1, m1, _, _ = cases.clouds(seed, N_STREAMS, N_MAX)
+    spc, sm, _, _ = cases.stretch_clouds(seed, STRETCH_N)
+    summary = new_summary(SCALE_KERNELS)
+
+    def eval_run(name, kw, weight):
+        return dict(kernel="sa_scale", config=name, weight=weight,
+                    run_k=lambda: fused_sa.sa_scale(**kw,
+                                                    return_indices=True),
+                    run_p=lambda: fused_sa.sa_scale_reference(**kw),
+                    check=check_out_idx(torch, f"sa_scale[{name}]"),
+                    work=lambda got: cases.sa_scale_work(kw, *got))
+
+    # in eval the two scales of mixed_depth run as one B1 launch on the
+    # model's path: its scales are checked here and count for no launch
+    runs = [eval_run(f"{level}.{i}", cases.to_device(kw, dev),
+                     int(level != "mixed_depth"))
+            for level in cases.GENERAL_LEVELS
+            for i, kw in enumerate(cases.sa_scale_cases(level, pc1, m1, gen))]
+    runs.append(eval_run(
+        f"{STRETCH_N}.one_scale.0", cases.to_device(cases.sa_scale_cases(
+            "one_scale", spc, sm, gen, npoint=STRETCH_NPOINT)[0], dev), 0))
+    run_kernel_cases(torch, "scale_kernel", runs, summary)
+
+    fns = (cases.sa_scale_train_loss, cases.sa_scale_train_run,
+           fused_sa_train.sa_scale_train,
+           fused_sa_train.sa_scale_train_reference)
+    for level in cases.GENERAL_LEVELS:
+        for i, kw in enumerate(cases.sa_scale_train_cases(level, pc1, m1,
+                                                          gen)):
+            train_kernel_case(
+                torch, cases, summary, "scale_kernel", "sa_scale_train",
+                f"{level}.{i}", cases.to_device(kw, dev), fns,
+                lambda _, kw, outs: dict(zip(
+                    ("fwd", "bwd"), cases.sa_scale_train_work(kw, outs))), 1)
+
+    # a pair launch == two one-scale launches
+    worst, bad = 0.0, []
+    for level in cases.SA_LEVELS:
+        kw = cases.to_device(cases.sa_case(level, "pn_head", pc1, m1, gen),
+                             dev)
+        pair = fused_sa.sa_pair(**kw, return_indices=True)
+        for t, single in enumerate(cases.split_sa_case(kw)):
+            out, idx = fused_sa.sa_scale(**single, return_indices=True)
+            worst = max(worst, (out - pair[t]).abs().max().item())
+            if not (torch.equal(out, pair[t])
+                    and torch.equal(idx, pair[t + 2])):
+                bad.append(f"sa_pair[{level}] scale {t}")
+        kw = cases.to_device(cases.sa_train_case(level, "pn_head", pc1, m1,
+                                                 gen), dev)
+        outs, grads = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
+        for t, (tag, single) in enumerate(zip(
+                "ab", cases.split_sa_train_case(kw))):
+            o1, g1 = cases.sa_scale_train_run(fused_sa_train.sa_scale_train,
+                                              single, seed=t)
+            pairs = [(v, outs[cases.pair_key(k, tag)]) for k, v in o1.items()]
+            pairs += [(g, grads[cases.pair_key(k, tag)])
+                      for k, g in g1.items()
+                      if k != "pf"]
+            for a, b in pairs:
+                worst = max(worst, (a.double() - b.double()).abs().max().item())
+                if not torch.equal(a, b):
+                    bad.append(f"sa_pair_train[{level}] scale {t}")
+            # dPF is scattered with float atomics, in another order each run
+            d = (g1["pf"] - grads[f"pf{tag}"]).abs().max().item()
+            if d > 1e-5 * grads[f"pf{tag}"].abs().max().item() + 1e-7:
+                bad.append(f"sa_pair_train[{level}] scale {t}: dPF off {d}")
+    emit(phase="scale_kernel", check="pair_equals_two_singles",
+         max_abs_err=worst, failures=sorted(set(bad)))
+    if bad:
+        record_failure("a pair launch differs from two one-scale launches: "
+                       + "; ".join(sorted(set(bad))))
+    return summary
+
+
+def general_level(torch, level: str, seed: int, dtype, device):
+    """A `SetAbstractionMSG` of cases.GENERAL_LEVELS with seeded weights and
+    batch norm statistics, in eval mode, on `device` in `dtype`."""
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.models import SetAbstractionMSG, init_parameters
+    radii, nsamples, mlps, c_feat = cases.GENERAL_LEVELS[level]
+    gen = torch.Generator().manual_seed(seed)
+    mod = SetAbstractionMSG(N_MAX, radii, nsamples, mlps, 3 + c_feat)
+    init_parameters(mod, gen)
+    with torch.no_grad():
+        for name, buf in mod.named_buffers():
+            noise = torch.rand(buf.shape, generator=gen)
+            buf.copy_(0.2 * noise - 0.1 if name.endswith("running_mean")
+                      else 0.5 + noise)
+        for name, prm in mod.named_parameters():
+            if ".bn_" in name:
+                prm.add_(0.2 * torch.rand(prm.shape, generator=gen) - 0.1)
+    return mod.eval().requires_grad_(False).to(device=device, dtype=dtype)
+
+
+def phase_general_slice(torch, seed: int):
+    """Phase 13: the general SA level, eval and one train step, the card
+    against the CPU. Returns the card's launch counts over all levels."""
+    from ratrack_tpu_torch.kernels import cases
+
+    pc1, m1, _, _ = cases.clouds(seed, N_STREAMS, N_MAX)
+    gen = torch.Generator().manual_seed(seed + 4)
+    c_feat = cases.GENERAL_LEVELS["one_scale"][3]
+    feats = torch.randn((N_STREAMS, N_MAX, c_feat), generator=gen)
+    total = {k: 0 for k in SCALE_KERNELS}
+    zero = {k: 0 for k in counters()}
+
+    def run(level, device, dtype, train):
+        mod = general_level(torch, level, seed + 5, dtype, device)
+        xyz, mask = pc1.to(device=device, dtype=dtype), m1.to(device)
+        f = feats.to(device=device, dtype=dtype).clone()
+        if not train:
+            with torch.no_grad():
+                return {"out": mod(xyz, f, mask)[1]}, {}
+        mod.train().requires_grad_(True)
+        f.requires_grad_(True)
+        out = mod(xyz, f, mask)[1]
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            seed + 6)).to(device=device, dtype=dtype)
+        (out * cot).sum().backward()
+        outs = {"out": out.detach(),
+                **{n: b.detach().clone() for n, b in mod.named_buffers()}}
+        grads = {"features": f.grad,
+                 **{n: p.grad for n, p in mod.named_parameters()}}
+        return outs, grads
+
+    for level, (radii, *_rest) in cases.GENERAL_LEVELS.items():
+        n_scales = len(radii)
+        for train in (False, True):
+            want = run(level, "cpu", torch.float32, train)
+            want64 = run(level, "cpu", torch.float64, train) if train else None
+            reset_counters()
+            got = run(level, "cuda", torch.float32, train)
+            torch.cuda.synchronize()
+            launches = read_counters()
+            names = (("sa_scale_train_fwd", "sa_scale_train_bwd") if train
+                     else ("sa_scale",))
+            expect = {**zero, **{k: n_scales for k in names}}
+            if not train and n_scales == 2:   # eval: two scales -> one B1
+                expect = {**zero, "sa_pair": 1}
+            if launches != expect:
+                record_failure(f"general slice {level} train={train}: "
+                               f"launch counts {launches}, expected {expect}")
+            for k in names:
+                total[k] += launches[k]
+            got = tuple({k: v.cpu() for k, v in part.items()} for part in got)
+            bad, errs = cases.compare_train(got, want, want64)
+            if bad:
+                record_failure(f"general slice {level} train={train}: "
+                               + "; ".join(bad))
+            emit(phase="general_slice", level=level, scales=n_scales,
+                 train=train, streams=N_STREAMS, points=N_MAX,
+                 out_max_abs_err=errs["out"],
+                 worst_max_abs_err=max(errs.values()),
+                 launches={k: v for k, v in launches.items() if v})
+    return total
+
+
+def serve_scans(seed: int, n_scans: int):
+    """A synthetic stream as raw scans [x y z RCS v_r]: scan 0 the first
+    record's pc2 side, scan t + 1 record t's pc1 side."""
+    import numpy as np
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip
+    s = stack_frames(synthetic_clip(seed, n_scans, n_max=N_MAX, g_max=K_MAX,
+                                    n_static=300, n_objects=5))
+    scans = [np.concatenate([s.pc2[0][s.mask2[0]], s.ft2[0][s.mask2[0]]], 1)]
+    for i in range(n_scans):
+        scans.append(np.concatenate([s.pc1[i][s.mask1[i]],
+                                     s.ft1[i][s.mask1[i]]], 1))
+    return scans
+
+
+def phase_serving(torch, seed: int, card: str):
+    """Phase 14: the serving entry point on the card against the CPU, then
+    its per-call wall time."""
+    import numpy as np
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.serve import RadarTracker
+
+    def model(device, sinkhorn_kernel=False):
+        return Track4D(npoint=N_MAX, k_max=K_MAX,
+                       sinkhorn_iters=SINKHORN_ITERS,
+                       sinkhorn_kernel=sinkhorn_kernel,
+                       generator=torch.Generator().manual_seed(seed),
+                       device=device)
+
+    scans = [serve_scans(seed + 400 + s, SERVE_SCANS)
+             for s in range(N_STREAMS)]
+    results = {}
+    for device in ("cpu", "cuda"):
+        svc = RadarTracker(model(device), n_max=N_MAX, max_streams=N_STREAMS)
+        sids = [svc.open_stream() for _ in range(N_STREAMS)]
+        outs = []
+        for t in range(SERVE_SCANS + 1):
+            for sid in sids:
+                svc.submit(sid, scans[sid][t])
+            res = svc.step()
+            if t == 0 and res:
+                record_failure("serving: a first scan gave a result")
+            if t > 0:
+                outs.append([res[sid] for sid in sids])
+        results[device] = outs
+    bad = {"labels": 0, "point_track_id": 0, "track_id": 0}
+    flow_err = conf_err = 0.0
+    clustered = 0
+    for step_c, step_g in zip(results["cpu"], results["cuda"]):
+        for c, g in zip(step_c, step_g):
+            for k in bad:
+                bad[k] += int((getattr(c, k) != getattr(g, k)).sum())
+            flow_err = max(flow_err, float(np.abs(c.flow - g.flow).max()))
+            conf_err = max(conf_err, float(np.abs(c.conf - g.conf).max()))
+            clustered += int((c.labels >= 0).sum())
+            if not (np.isfinite(g.flow).all() and g.flow.shape == (N_MAX, 3)
+                    and g.labels.shape == (N_MAX,)
+                    and g.track_id.shape == (K_MAX,)):
+                record_failure("serving: output shape or finiteness")
+    emit(phase="serving", check="card_vs_cpu", streams=N_STREAMS,
+         scans=SERVE_SCANS, mismatches=bad, clustered_points=clustered,
+         flow_max_abs_err=flow_err, conf_max_abs_err=conf_err)
+    if any(bad.values()) or flow_err > 1e-3 or conf_err > 1e-3:
+        record_failure(f"serving card vs CPU: mismatches {bad}, flow err "
+                       f"{flow_err}, conf err {conf_err}")
+
+    rng = np.random.RandomState(seed)
+
+    def scan():
+        return np.concatenate([rng.randn(360, 3).astype(np.float32) * 10,
+                               rng.randn(360, 2).astype(np.float32)], axis=1)
+
+    step_launches = {"sa_pair": 9, "three_interpolate": 9,
+                     "knn_weight_aggregate": 2}
+    for sinkhorn_kernel in (False, True):
+        net = model("cuda", sinkhorn_kernel)
+        for name, bucket in (("serve_latency_1stream", 1),
+                             ("serve_throughput_8streams", N_STREAMS)):
+            svc = RadarTracker(net, n_max=N_MAX, max_streams=bucket)
+            sids = [svc.open_stream() for _ in range(bucket)]
+
+            def call():
+                if bucket == 1:
+                    return svc.track(sids[0], scan())
+                for sid in sids:
+                    svc.submit(sid, scan())
+                return svc.step()
+
+            call()                                   # first scans: no pair
+            for _ in range(SERVE_WARMUP):
+                call()
+            times = []
+            reset_counters()
+            for _ in range(SERVE_CALLS):
+                t0 = time.perf_counter()
+                out = call()
+                times.append(1000.0 * (time.perf_counter() - t0))
+            launches = read_counters()
+            want = {**{k: 0 for k in counters()},
+                    **{k: v * SERVE_CALLS for k, v in step_launches.items()},
+                    "sinkhorn_uv": SERVE_CALLS * int(sinkhorn_kernel)}
+            if launches != want:
+                record_failure(f"{name} launch counts {launches}, expected "
+                               f"{want}")
+            if svc.last_bucket != bucket or out is None:
+                record_failure(f"{name}: bucket {svc.last_bucket}, expected "
+                               f"{bucket}")
+            emit(phase="serving", scenario=name, bucket=svc.last_bucket,
+                 sinkhorn_kernel=sinkhorn_kernel, calls=SERVE_CALLS,
+                 ms_per_call_median=statistics.median(times),
+                 ms_per_call_worst=max(times), ms_per_call_best=min(times),
+                 scans_per_s=1000.0 * bucket / statistics.median(times),
+                 launches_per_step={k: v // SERVE_CALLS
+                                    for k, v in launches.items() if v},
+                 card=card)
+
+
+def expected_train_stretch_launches(t: int, n_max: int):
+    # as expected_train_launches, plus a farthest point sampling per SA
+    # level (3 heads x 3 levels) and the tiled kNN as the selection of both
+    # correlator stages; at 16384 points the three fp1 levels (16384
+    # unknown x 512 known points) select through it too
+    per_frame = 2 + (3 if n_max * STRETCH_NPOINT > 4 * 1024 * 1024 else 0)
+    return {**expected_train_launches(t), "furthest_point_sample": 9 * t,
+            "knn_tiled": per_frame * t}
+
+
+def phase_train_stretch(torch, seed: int, card: str):
+    """Phase 15: the train stretch path, one frame step against the CPU,
+    then frames/s and peak memory of the two scenarios."""
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_scan_train_step)
+    n = TRAIN_STRETCH_SLICE_N
+    compare_train_runs(torch, seed, "train_stretch_slice",
+                       expected_train_stretch_launches(1, n),
+                       dict(points=n, streams=1, frames=1), stretch_n=n)
+    dev = torch.device("cuda")
+    for n_max, streams, t in TRAIN_STRETCH_SCAN:
+        model = stretch_model(torch, seed, dev, sinkhorn_kernel=False)
+        scan = make_scan_train_step(create_train_state(
+            model, TrainConfig(), steps_per_epoch=100, device=dev))
+        frames = stretch_frames(torch, seed + 500, t, dev, n_max, streams)
+        state0 = init_state(streams, K_MAX, device=dev)
+        scan(state0, frames, False)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, launches = [], None
+        for rep in range(3):
+            if rep == 0:
+                reset_counters()
+            t0 = time.perf_counter()
+            _, items = scan(state0, frames, False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches = read_counters()
+        want = expected_train_stretch_launches(t, n_max)
+        if launches != want:
+            record_failure(f"train stretch {n_max} launch counts {launches}, "
+                           f"expected {want}")
+        if not all(bool(torch.isfinite(v).all()) for v in items.values()):
+            record_failure(f"train stretch {n_max}: losses not finite")
+        dt = statistics.median(times)
+        emit(phase="train_stretch", points=n_max, streams=streams,
+             frames_per_stream=t, sinkhorn_iters=SINKHORN_ITERS,
+             sinkhorn_kernel=False, frames_per_s=streams * t / dt,
+             ms_per_frame=1000.0 * dt / (streams * t), scan_seconds=times,
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             loss_first_last=[items["Loss"][0].mean().item(),
+                              items["Loss"][-1].mean().item()],
+             card=card, launches=launches)
+        del model, scan, frames, items
 
 
 def ptxas_summary(log: str):
@@ -1034,9 +1461,17 @@ def main() -> None:
     model = phase_stretch_slice(torch, SEED)
     stretch_launches = phase_stretch_throughput(torch, model, SEED, card,
                                                 eval_fps, args.profile)
+    del model
+    summary.update(phase_scale_kernels(torch, SEED))
+    scale_launches = phase_general_slice(torch, SEED)
+    phase_serving(torch, SEED, card)
+    phase_train_stretch(torch, SEED, card)
+    if FAILED:
+        fail(f"{len(FAILED)} failed checks in phases 12-15")
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
-                **{k: stretch_launches[k] for k in STRETCH_KERNELS}}
+                **{k: stretch_launches[k] for k in STRETCH_KERNELS},
+                **scale_launches}
     if not all(launches.values()):
         fail(f"a kernel was never launched on its path: {launches}")
 

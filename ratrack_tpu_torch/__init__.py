@@ -6,25 +6,29 @@ it module for module:
 
 ops/       point ops (ball query, kNN, 3-NN interpolation, gathers, farthest
            point sampling, the Morton sort) and the kernel wrappers: eval
-           fused_sa (SA pair), fused_fp (3-NN interpolation),
+           fused_sa (SA pair, SA scale), fused_fp (3-NN interpolation),
            fused_correlator (cost volume, and its split form over given
-           indices); train fused_sa_train, fused_correlator_train (forward
-           + backward); stretch fused_knn (tiled kNN), sampling
-           (farthest point sampling), fused_sinkhorn.
+           indices); train fused_sa_train (pair and scale),
+           fused_correlator_train (forward + backward); stretch fused_knn
+           (tiled kNN), sampling (farthest point sampling),
+           fused_sinkhorn.
 csrc/      the CUDA C++ sources of those kernels (sm_90a).
 kernels/   nvcc build + ctypes loading of csrc/ into one shared library;
            seeded kernel cases for the card checks.
 models/    nn.Modules: PNHead, FeatureCorrelator, FlowDecoder, predictors,
            Affinity, Track4D (eval by default, `train()` for training).
 tracker/   DBSCAN, log-Sinkhorn with dustbin, association, track state.
-train/     the cached-backbone eval scan, losses, Adam + StepLR, the
-           per-frame train steps, train checkpoints.
+train/     the eval steps and scans (cached backbone or not), losses,
+           Adam + StepLR, the per-frame train steps, train checkpoints.
+serve.py   RadarTracker: online multi-stream serving over the eval step.
+config.py  the YAML configuration (the JAX package's keys).
 data/      FrameBatch and the synthetic clip generator (numpy, no JAX).
 utils/     flax-variables -> state_dict converter.
 
 Tensors are points-major with a written-out stream dimension:
 (B, N, C). This package never imports JAX. Its entry points (`Track4D`,
-`init_state`, `to_tensors`, `create_train_state`) run on the CUDA device
+`init_state`, `to_tensors`, `create_train_state`, `model_from_config`,
+`RadarTracker.from_checkpoint`) run on the CUDA device
 unless the caller passes `device="cpu"`; `default_device()` raises where
 there is no card.
 """

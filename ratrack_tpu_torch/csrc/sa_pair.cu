@@ -1,7 +1,11 @@
-// SA pair: one set-abstraction level at both of its radii, fused.
+// SA pair and SA scale: one set-abstraction level at both of its radii, or
+// one scale of a level, fused.
 //
-// Replaces the TPU kernel ratrack_tpu/ops/pallas_sa.py::_sa_pair_kernel
-// (fused_sa_pair). For each center i and each radius r (scales a, b):
+// Replaces the TPU kernels ratrack_tpu/ops/pallas_sa.py::_sa_pair_kernel
+// (fused_sa_pair, entry ratrack_sa_pair) and ::_sa_kernel (fused_sa_scale,
+// entry ratrack_sa_scale: the same kernel instantiated for one scale, for
+// levels that are not a pair). For each center i and each radius r (scales
+// a, b; or a alone):
 //   ball query: the first ns valid points with d^2 < r^2, in index order;
 //   h_s = relu(P1[j_s] - CW[i])     (layer 1, hoisted outside the kernel)
 //   h_s = relu(h_s @ W_l + b_l)     (BN-folded layers 2..L)
@@ -20,6 +24,9 @@
 // activation and one conflict-free read of a weight row per step.
 // Only filled slots are computed; padding slots would repeat the first
 // hit and cannot change the max.
+// The one-scale instance runs the same ball query with an empty second
+// list (radius^2 -1, no slot) and the same per-scale body once, so a pair
+// equals two one-scale launches bit for bit.
 
 #include "common.cuh"
 
@@ -104,17 +111,20 @@ __device__ void pool_scale(const Scale& s, const float* sw, const int* slots,
   }
 }
 
+// kTwo: both scales of a level (B1); otherwise scale a alone (B1'), sb
+// unread.
+template <bool kTwo>
 __global__ void __launch_bounds__(kWarps * 32)
-sa_pair_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
-               const unsigned char* __restrict__ mask, int nb, int n, int m,
-               Scale sa, Scale sb) {
+sa_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
+          const unsigned char* __restrict__ mask, int nb, int n, int m,
+          Scale sa, Scale sb) {
   extern __shared__ float smem[];
   float* swa = smem;
   float* swb = swa + sa.wsize;
-  float* hbuf = swb + sb.wsize;                               // kWarps*2*kMaxC
+  float* hbuf = swb + (kTwo ? sb.wsize : 0);                  // kWarps*2*kMaxC
   int* sidx = reinterpret_cast<int*>(hbuf + kWarps * 2 * kMaxC);  // kWarps*2*kMaxNs
   stage_weights(sa, swa);
-  stage_weights(sb, swb);
+  if (kTwo) stage_weights(sb, swb);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -129,12 +139,13 @@ sa_pair_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
   ratrack::ball_query_pair(
       xyz + (size_t)bi * n * 3,
       mask != nullptr ? mask + (size_t)bi * n : nullptr, n, c[0], c[1], c[2],
-      sa.r2, sa.ns, sb.r2, sb.ns, slots_a, slots_b, lane, &hits_a, &hits_b);
+      sa.r2, sa.ns, kTwo ? sb.r2 : -1.0f, kTwo ? sb.ns : 0, slots_a, slots_b,
+      lane, &hits_a, &hits_b);
 
   float* h0 = hbuf + warp * 2 * kMaxC;
   float* h1 = h0 + kMaxC;
   pool_scale(sa, swa, slots_a, hits_a, bi, ci, n, m, h0, h1, lane);
-  pool_scale(sb, swb, slots_b, hits_b, bi, ci, n, m, h0, h1, lane);
+  if (kTwo) pool_scale(sb, swb, slots_b, hits_b, bi, ci, n, m, h0, h1, lane);
 }
 
 bool make_scale(Scale* s, const float* p1, const float* cw,
@@ -161,6 +172,23 @@ bool make_scale(Scale* s, const float* p1, const float* cw,
   return true;
 }
 
+template <bool kTwo>
+int launch_sa(const float* xyz, const float* centers,
+              const unsigned char* mask, int nb, int n, int m,
+              const Scale& sa, const Scale& sb, void* stream) {
+  const size_t smem =
+      sizeof(float) * (sa.wsize + (kTwo ? sb.wsize : 0) + kWarps * 2 * kMaxC) +
+      sizeof(int) * kWarps * 2 * kMaxNs;
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_kernel<kTwo>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long centers_total = (long long)nb * m;
+  const int grid = (int)((centers_total + kWarps - 1) / kWarps);
+  sa_kernel<kTwo><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+      xyz, centers, mask, nb, n, m, sa, sb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ratrack_sa_pair(
@@ -179,16 +207,20 @@ extern "C" int ratrack_sa_pair(
       !make_scale(&sb, p1b, cwb, wb, bb, dims_b, n_rest_b, r2b, nsb, out_b,
                   idx_b))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (sa.wsize + sb.wsize + kWarps * 2 * kMaxC) +
-                      sizeof(int) * kWarps * 2 * kMaxNs;
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long centers_total = (long long)nb * m;
-  const int grid = (int)((centers_total + kWarps - 1) / kWarps);
-  sa_pair_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      xyz, centers, mask, nb, n, m, sa, sb);
-  return (int)cudaGetLastError();
+  return launch_sa<true>(xyz, centers, mask, nb, n, m, sa, sb, stream);
+}
+
+// Kernel B1': one scale of a level.
+extern "C" int ratrack_sa_scale(
+    const float* xyz, const float* centers, const unsigned char* mask, int nb,
+    int n, int m, const float* p1, const float* cw, const float* const* w,
+    const float* const* b, const int* dims, int n_rest, float r2, int ns,
+    float* out, int* idx, void* stream) {
+  Scale s;
+  if (nb < 1 || n < 1 || m < 1 ||
+      !make_scale(&s, p1, cw, w, b, dims, n_rest, r2, ns, out, idx))
+    return (int)cudaErrorInvalidValue;
+  return launch_sa<false>(xyz, centers, mask, nb, n, m, s, s, stream);
 }
 
 extern "C" const char* ratrack_error_string(int code) {

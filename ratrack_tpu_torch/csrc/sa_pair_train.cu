@@ -1,8 +1,15 @@
-// SA pair, train mode: one set-abstraction level at both of its radii,
-// forward and backward.
+// SA pair and SA scale, train mode: one set-abstraction level at both of
+// its radii, or one scale of a level, forward and backward.
 //
 // Replaces the TPU kernels ratrack_tpu/ops/pallas_sa_train.py::
-// _pair_fwd_kernel_pk and _pair_bwd_kernel_pk (fused_sa_pair_train).
+// _pair_fwd_kernel_pk and _pair_bwd_kernel_pk (fused_sa_pair_train; entries
+// ratrack_sa_train_fwd / _bwd) and ::_fwd_kernel and _bwd_kernel with their
+// _pk twins (fused_sa_scale_train; entries ratrack_sa_scale_train_fwd /
+// _bwd, for levels that are not a pair of equal depth). Each scale runs
+// its own launches, so the one-scale entries run the per-scale sequence
+// once, after the same ball query with an empty second list: a pair equals
+// two one-scale calls bit for bit, except where the float atomics of the
+// dPF scatter add in another order.
 // For each scale (radius r, ns slots, L layers) and stream:
 //   ball query: ns slots per center, CUDA padding (slots past the hit
 //     count repeat the first hit; no hit at all gives point 0);
@@ -98,8 +105,8 @@ __device__ __forceinline__ float xhat_of(float z, float mu, float rs) {
   return __fmul_rn(__fsub_rn(z, mu), rs);
 }
 
-// Ball query of both scales, one warp per center: every slot written,
-// with the CUDA padding rule.
+// Ball query of both scales (or of one: nsb = 0, r2b < 0, idx_b null), one
+// warp per center: every slot written, with the CUDA padding rule.
 __global__ void __launch_bounds__(kSelWarps * 32)
 select_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
               const unsigned char* __restrict__ mask, int nb, int n, int m,
@@ -523,34 +530,25 @@ constexpr size_t kLayerSmem =
     if (err_ != cudaSuccess) return (int)err_;    \
   } while (0)
 
-}  // namespace
-
-// Scratch sizes (the Python wrapper allocates them, see
-// ops/fused_sa_train.py): part >= B * max(tiles) * 2 * 64 float64, where
-// tiles is ceil(M * ns / 64) forward, ceil(M / (64 / ns)) at the top of
-// the backward and ceil(M * ns / 512) per backward layer; ssum B * 2 * 64
-// float64; pdw >= B * max(ceil(M * ns / 512) * 64 * 64,
-// ceil(M / 16) * 3 * 64) float32.
-// sa, sb point to one TrainScale each (a type of this file only, hence
-// void pointers: the C interface must not name it).
-extern "C" int ratrack_sa_train_fwd(const float* xyz, const float* centers,
-                                    const unsigned char* mask, int nb, int n,
-                                    int m, float eps, const void* sa,
-                                    const void* sb, double* part,
-                                    void* stream) {
-  const TrainScale* a = static_cast<const TrainScale*>(sa);
-  const TrainScale* b = static_cast<const TrainScale*>(sb);
-  if (nb < 1 || n < 1 || m < 1 || !valid_scale(*a) || !valid_scale(*b))
+// Forward of scale a and, unless null, scale b: one shared ball query, then
+// per scale a launch and a statistics reduction per layer and the pool.
+int forward_scales(const float* xyz, const float* centers,
+                   const unsigned char* mask, int nb, int n, int m, float eps,
+                   const TrainScale* a, const TrainScale* b, double* part,
+                   cudaStream_t st) {
+  if (nb < 1 || n < 1 || m < 1 || !valid_scale(*a) ||
+      (b != nullptr && !valid_scale(*b)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   const long long centers_total = (long long)nb * m;
   select_kernel<<<(int)((centers_total + kSelWarps - 1) / kSelWarps),
-                  kSelWarps * 32, 0, st>>>(xyz, centers, mask, nb, n, m,
-                                           a->r2, a->ns, a->idx, b->r2, b->ns,
-                                           b->idx);
+                  kSelWarps * 32, 0, st>>>(
+      xyz, centers, mask, nb, n, m, a->r2, a->ns, a->idx,
+      b != nullptr ? b->r2 : -1.0f, b != nullptr ? b->ns : 0,
+      b != nullptr ? b->idx : nullptr);
   RATRACK_CHECK(cudaGetLastError());
   const TrainScale* const scales[2] = {a, b};
   for (const TrainScale* s : scales) {
+    if (s == nullptr) continue;
     const long long rows = (long long)m * s->ns;
     const int tiles = (int)((rows + kRows - 1) / kRows);
     for (int l = 0; l < s->n_layers; ++l) {
@@ -570,21 +568,20 @@ extern "C" int ratrack_sa_train_fwd(const float* xyz, const float* centers,
   return (int)cudaSuccess;
 }
 
-extern "C" int ratrack_sa_train_bwd(const float* xyz, const float* centers,
-                                    int nb, int n, int m, float eps,
-                                    const void* sa, const void* sb,
-                                    double* part, double* ssum, float* pdw,
-                                    void* stream) {
-  const TrainScale* a = static_cast<const TrainScale*>(sa);
-  const TrainScale* b = static_cast<const TrainScale*>(sb);
-  if (nb < 1 || n < 1 || m < 1 || !valid_scale(*a) || !valid_scale(*b))
+// Backward of scale a and, unless null, scale b, each on its own.
+int backward_scales(const float* xyz, const float* centers, int nb, int n,
+                    int m, float eps, const TrainScale* a,
+                    const TrainScale* b, double* part, double* ssum,
+                    float* pdw, cudaStream_t st) {
+  if (nb < 1 || n < 1 || m < 1 || !valid_scale(*a) ||
+      (b != nullptr && !valid_scale(*b)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   RATRACK_CHECK(cudaFuncSetAttribute(
       bwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kLayerSmem));
   const TrainScale* const scales[2] = {a, b};
   for (const TrainScale* s : scales) {
+    if (s == nullptr) continue;
     const int top = s->n_layers - 1;
     const long long rows = (long long)m * s->ns;
     const double count = (double)rows;
@@ -616,4 +613,58 @@ extern "C" int ratrack_sa_train_bwd(const float* xyz, const float* centers,
                                         s->dwxyz, st));
   }
   return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// Scratch sizes (the Python wrapper allocates them, see
+// ops/fused_sa_train.py): part >= B * max(tiles) * 2 * 64 float64, where
+// tiles is ceil(M * ns / 64) forward, ceil(M / (64 / ns)) at the top of
+// the backward and ceil(M * ns / 512) per backward layer; ssum B * 2 * 64
+// float64; pdw >= B * max(ceil(M * ns / 512) * 64 * 64,
+// ceil(M / 16) * 3 * 64) float32.
+// sa, sb point to one TrainScale each (a type of this file only, hence
+// void pointers: the C interface must not name it).
+extern "C" int ratrack_sa_train_fwd(const float* xyz, const float* centers,
+                                    const unsigned char* mask, int nb, int n,
+                                    int m, float eps, const void* sa,
+                                    const void* sb, double* part,
+                                    void* stream) {
+  return forward_scales(xyz, centers, mask, nb, n, m, eps,
+                        static_cast<const TrainScale*>(sa),
+                        static_cast<const TrainScale*>(sb), part,
+                        (cudaStream_t)stream);
+}
+
+extern "C" int ratrack_sa_train_bwd(const float* xyz, const float* centers,
+                                    int nb, int n, int m, float eps,
+                                    const void* sa, const void* sb,
+                                    double* part, double* ssum, float* pdw,
+                                    void* stream) {
+  return backward_scales(xyz, centers, nb, n, m, eps,
+                         static_cast<const TrainScale*>(sa),
+                         static_cast<const TrainScale*>(sb), part, ssum, pdw,
+                         (cudaStream_t)stream);
+}
+
+// Kernel B8: one scale of a level, forward and backward; scratch as above.
+extern "C" int ratrack_sa_scale_train_fwd(const float* xyz,
+                                          const float* centers,
+                                          const unsigned char* mask, int nb,
+                                          int n, int m, float eps,
+                                          const void* scale, double* part,
+                                          void* stream) {
+  return forward_scales(xyz, centers, mask, nb, n, m, eps,
+                        static_cast<const TrainScale*>(scale), nullptr, part,
+                        (cudaStream_t)stream);
+}
+
+extern "C" int ratrack_sa_scale_train_bwd(const float* xyz,
+                                          const float* centers, int nb, int n,
+                                          int m, float eps, const void* scale,
+                                          double* part, double* ssum,
+                                          float* pdw, void* stream) {
+  return backward_scales(xyz, centers, nb, n, m, eps,
+                         static_cast<const TrainScale*>(scale), nullptr, part,
+                         ssum, pdw, (cudaStream_t)stream);
 }

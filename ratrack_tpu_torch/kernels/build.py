@@ -41,6 +41,8 @@ SIGNATURES = {
     "ratrack_sa_pair": [_P, _P, _P, _I, _I, _I,
                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P],
+    "ratrack_sa_scale": [_P, _P, _P, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P],
     "ratrack_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                   _P, _P],
     "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -54,6 +56,9 @@ SIGNATURES = {
     "ratrack_sa_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "ratrack_sa_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                              _P],
+    "ratrack_sa_scale_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "ratrack_sa_scale_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P,
+                                   _P],
     "ratrack_corr_train_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                                _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ratrack_corr_train_bwd": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I,

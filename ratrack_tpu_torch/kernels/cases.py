@@ -16,6 +16,12 @@ norm scales and biases in place of the folded biases) and
 backward against a seeded cotangent, and `compare_train` holds the two
 runs against each other.
 
+One-scale kernels B1' and B8: `GENERAL_LEVELS` (a one-scale level, a
+three-scale level and a pair of unequal depth, at the live widths) with
+`sa_scale_cases` / `sa_scale_train_cases` (one case per scale), and
+`split_sa_case` / `split_sa_train_case`, which cut a pair case into the two
+one-scale cases it must equal.
+
 Stretch kernels (clouds of 8192 / 16384 points, 512 centers):
 `knn_tiled_case` (B5, both clouds Z-sorted as the split correlator sorts
 them), `apply_case` (B4), `fps_case` (B6), `sinkhorn_case` (B7), and
@@ -51,6 +57,14 @@ SA_LEVELS = {
             {"pn_head": 32, "mse": 32}),
     "sa3": ((8.0, 16.0), (16, 32), ((64, 64), (64, 64)),
             {"pn_head": 64, "mse": 64}),
+}
+# levels that are not a same-depth pair, which run one kernel B1' / B8 per
+# scale: name -> (radii, nsamples, per-scale MLP widths, feature channels)
+GENERAL_LEVELS = {
+    "one_scale": ((4.0,), (16,), ((32, 32, 64),), 32),
+    "three_scales": ((2.0, 4.0, 8.0), (4, 8, 16),
+                     ((16, 16, 32), (32, 32), (32, 64)), 32),
+    "mixed_depth": ((4.0, 8.0), (8, 16), ((32, 32), (32, 32, 64)), 32),
 }
 FP_LEVELS = {"fp3": 64, "fp2": 128, "fp1": 128}
 CORR_C = 256
@@ -115,6 +129,34 @@ def sa_case(level: str, head: str, pc, mask, gen: torch.Generator,
     kw.update(radius_a=radii[0], radius_b=radii[1], nsample_a=nsamples[0],
               nsample_b=nsamples[1])
     return kw
+
+
+def split_sa_case(kw: dict):
+    """The two `sa_scale` cases that a `sa_pair` case must equal."""
+    return [dict(xyz=kw["xyz"], centers=kw["centers"], mask=kw["mask"],
+                 p1=kw[f"p1{t}"], cw=kw[f"cw{t}"], rest=kw[f"rest_{t}"],
+                 radius=kw[f"radius_{t}"], nsample=kw[f"nsample_{t}"])
+            for t in "ab"]
+
+
+def sa_scale_cases(level: str, pc, mask, gen: torch.Generator,
+                   npoint: int | None = None):
+    """Keyword arguments of ops.fused_sa.sa_scale / sa_scale_reference, one
+    per scale of a GENERAL_LEVELS level over the masked cloud; centers as
+    `sa_case`."""
+    radii, nsamples, mlps, c_feat = GENERAL_LEVELS[level]
+    b, n, _ = pc.shape
+    centers = (identity_gather(pc, mask) if npoint is None
+               else fps_centers(pc, mask, npoint)).contiguous()
+    feats = torch.randn((b, n, c_feat), generator=gen)
+    out = []
+    for r, ns, widths in zip(radii, nsamples, mlps):
+        ws, bs = _weights(gen, (3 + c_feat,) + tuple(widths))
+        p1, cw = hoist_layer1(pc, centers, feats, ws[0], bs[0])
+        out.append(dict(xyz=pc.contiguous(), centers=centers, mask=mask,
+                        p1=p1, cw=cw, rest=list(zip(ws[1:], bs[1:])),
+                        radius=r, nsample=ns))
+    return out
 
 
 def fp_case(level: str, pc, mask, gen: torch.Generator,
@@ -236,6 +278,49 @@ def sa_train_case(level: str, head: str, pc, mask, gen: torch.Generator,
     return kw
 
 
+def split_sa_train_case(kw: dict):
+    """The two `sa_scale_train` cases that a `sa_pair_train` case must
+    equal."""
+    return [dict(xyz=kw["xyz"], centers=kw["centers"], mask=kw["mask"],
+                 pf=kw[f"pf{t}"], wxyz=kw[f"wxyz_{t}"], ws=kw[f"ws_{t}"],
+                 gammas=kw[f"gammas_{t}"], betas=kw[f"betas_{t}"],
+                 radius=kw[f"radius_{t}"], nsample=kw[f"nsample_{t}"])
+            for t in "ab"]
+
+
+def pair_key(key: str, tag: str) -> str:
+    """The name a one-scale case's tensor (an output or gradient of
+    `sa_scale_train_run`) has in the pair case's run, scale `tag` ("a" or
+    "b"): mu0 -> mu_a0, ws1 -> ws_a1, wxyz -> wxyz_a, pf -> pfa."""
+    stem = key.rstrip("0123456789")
+    return f"pf{tag}" if stem == "pf" else f"{stem}_{tag}{key[len(stem):]}"
+
+
+def sa_scale_train_cases(level: str, pc, mask, gen: torch.Generator,
+                         centers=None):
+    """Keyword arguments of ops.fused_sa_train.sa_scale_train /
+    sa_scale_train_reference, one per scale of a GENERAL_LEVELS level over
+    the masked cloud; centers: by default the identity sample."""
+    radii, nsamples, mlps, c_feat = GENERAL_LEVELS[level]
+    b, n, _ = pc.shape
+    centers = (identity_gather(pc, mask) if centers is None
+               else centers).contiguous()
+    feats = torch.randn((b, n, c_feat), generator=gen)
+    out = []
+    for r, ns, widths in zip(radii, nsamples, mlps):
+        dims = (3 + c_feat,) + tuple(widths)
+        ws = [torch.randn((i, o), generator=gen) / i ** 0.5
+              for i, o in zip(dims[:-1], dims[1:])]
+        pf, wxyz = hoist_layer1_train(feats, ws[0])
+        out.append(dict(
+            xyz=pc.contiguous(), centers=centers, mask=mask, pf=pf,
+            wxyz=wxyz, ws=ws[1:],
+            gammas=[0.5 + torch.rand((c,), generator=gen) for c in widths],
+            betas=[0.1 * torch.randn((c,), generator=gen) for c in widths],
+            radius=r, nsample=ns))
+    return out
+
+
 def corr_train_case(stage: int, pc1, mask1, pc2, mask2,
                     gen: torch.Generator):
     """Keyword arguments of ops.fused_correlator_train.
@@ -295,6 +380,18 @@ def sa_train_loss(fn, kw: dict, seed: int = 0):
     return loss, outs, leaves
 
 
+def sa_scale_train_loss(fn, kw: dict, seed: int = 0):
+    """As sa_train_loss for ops.fused_sa_train.sa_scale_train or
+    sa_scale_train_reference."""
+    kw, leaves = _leaves(kw, ["pf", "wxyz", "ws", "gammas", "betas"])
+    pooled, mus, vrs, idx = fn(**kw)
+    loss = (pooled * _cotangent(pooled.shape, seed, pooled.device)).sum()
+    outs = {"pooled": pooled.detach(), "idx": idx}
+    for li, (mu, var) in enumerate(zip(mus, vrs)):
+        outs[f"mu{li}"], outs[f"var{li}"] = mu.detach(), var.detach()
+    return loss, outs, leaves
+
+
 def corr_train_loss(fn, kw: dict, seed: int = 0):
     """As sa_train_loss for ops.fused_correlator_train.
     fused_knn_weight_aggregate_train (return_indices=True) or
@@ -324,6 +421,11 @@ def sa_train_run(fn, kw: dict, seed: int = 0):
     """sa_train_loss forward and backward -> (outputs, gradients by
     name)."""
     return _run(sa_train_loss, fn, kw, seed)
+
+
+def sa_scale_train_run(fn, kw: dict, seed: int = 0):
+    """sa_scale_train_loss forward and backward -> (outputs, gradients)."""
+    return _run(sa_scale_train_loss, fn, kw, seed)
 
 
 def corr_train_run(fn, kw: dict, seed: int = 0):
@@ -432,6 +534,12 @@ def _filled(idx):
     return (idx != idx[..., :1]).sum(-1) + 1
 
 
+def _slot_ops(c1: int, rest) -> int:
+    """Operations of the folded MLP on one filled slot."""
+    return 2 * c1 + sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
+                        for w, _ in rest)
+
+
 def sa_pair_work(kw: dict, out_a, out_b, idx_a, idx_b):
     """B1 -> (bytes, operations). Operations: the scan of each center up
     to where both slot lists are full (the whole cloud otherwise), and the
@@ -441,16 +549,26 @@ def sa_pair_work(kw: dict, out_a, out_b, idx_a, idx_b):
     for tag, idx, ns in (("a", idx_a, kw["nsample_a"]),
                          ("b", idx_b, kw["nsample_b"])):
         filled = _filled(idx)
-        c1 = kw[f"p1{tag}"].shape[-1]
-        per_slot = 2 * c1 + sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
-                                for w, _ in kw[f"rest_{tag}"])
-        ops += int(filled.sum()) * per_slot
+        ops += int(filled.sum()) * _slot_ops(kw[f"p1{tag}"].shape[-1],
+                                             kw[f"rest_{tag}"])
         full.append(filled >= ns)
         last.append(idx.amax(-1) + 1)
     scanned = torch.where(full[0] & full[1], torch.maximum(*last),
                           torch.full_like(last[0], n))
     ops += DIST_OPS * int(scanned.sum())
     return case_bytes(kw, out_a, out_b), ops
+
+
+def sa_scale_work(kw: dict, out, idx):
+    """B1' -> (bytes, operations), counted as `sa_pair_work` counts one
+    scale."""
+    n = kw["xyz"].shape[1]
+    filled = _filled(idx)
+    scanned = torch.where(filled >= kw["nsample"], idx.amax(-1) + 1,
+                          torch.full_like(filled, n))
+    ops = (int(filled.sum()) * _slot_ops(kw["p1"].shape[-1], kw["rest"])
+           + DIST_OPS * int(scanned.sum()))
+    return case_bytes(kw, out), ops
 
 
 def three_interpolate_work(kw: dict, out):
@@ -498,6 +616,14 @@ def corr_train_bwd_work(kw: dict, out):
             2 * rows * _pair_ops(kw))
 
 
+def _train_slot_ops(widths) -> int:
+    """Operations of the train-mode MLP on one slot: layer 1's coordinate
+    term, the Dense layers, and batch norm, ReLU and max per channel."""
+    return (2 * 3 * widths[0]
+            + sum(2 * i * o for i, o in zip(widths[:-1], widths[1:]))
+            + sum(6 * w for w in widths))
+
+
 def sa_train_work(kw: dict, outs: dict):
     """B9 -> (forward (bytes, operations), backward (bytes, operations)).
     Train-mode batch norm counts every slot, padding included, so the MLP
@@ -509,10 +635,18 @@ def sa_train_work(kw: dict, outs: dict):
     for tag in "ab":
         widths = [kw[f"wxyz_{tag}"].shape[1]] + [w.shape[1]
                                                  for w in kw[f"ws_{tag}"]]
-        per_slot = 2 * 3 * widths[0] + sum(
-            2 * i * o for i, o in zip(widths[:-1], widths[1:])) + sum(
-                6 * w for w in widths)                 # BN, ReLU, max
-        mlp += b * m * kw[f"nsample_{tag}"] * per_slot
+        mlp += b * m * kw[f"nsample_{tag}"] * _train_slot_ops(widths)
+    fwd_bytes = case_bytes(kw, outs)
+    return ((fwd_bytes, mlp + DIST_OPS * b * m * n),
+            (2 * fwd_bytes, 2 * mlp))
+
+
+def sa_scale_train_work(kw: dict, outs: dict):
+    """B8 -> (forward, backward) as `sa_train_work`, for one scale."""
+    b, n, _ = kw["xyz"].shape
+    m = kw["centers"].shape[1]
+    widths = [kw["wxyz"].shape[1]] + [w.shape[1] for w in kw["ws"]]
+    mlp = b * m * kw["nsample"] * _train_slot_ops(widths)
     fwd_bytes = case_bytes(kw, outs)
     return ((fwd_bytes, mlp + DIST_OPS * b * m * n),
             (2 * fwd_bytes, 2 * mlp))

@@ -6,11 +6,16 @@ padding rows taking the first valid point) and FPS does not run. With
 `exact_fps`, or npoint < N (the 8192 / 16384-point stretch clouds with 512
 centers), the centers are farthest point samples (kernel B6).
 
-Eval: SA through kernel B1 (BN folded), FP through kernel B2.
-Train (`self.training`): SA through kernel B9 (`fused_sa_pair_train`,
-train-mode batch statistics computed by the kernel, which feed the running
-averages with count npoint * nsample), FP through the plain three_nn /
-three_interpolate with autograd, as the JAX train path (pnhead.py:197-207).
+Eval: SA through kernel B1 where the level has two scales, else one
+kernel B1' per scale (BN folded); FP through kernel B2.
+Train (`self.training`): SA through kernel B9 (`fused_sa_pair_train`) where
+the level is two scales of equal depth, else one kernel B8
+(`fused_sa_scale_train`) per scale; the kernels compute the train-mode
+batch statistics, which feed the running averages with count
+npoint * nsample. FP through the plain three_nn / three_interpolate with
+autograd, as the JAX train path (pnhead.py:197-207). The routing is the JAX
+module's (pnhead.py:79-97, 126-144, 155-172), without its size gates:
+those are limits of the TPU kernels' fast memory, not of the function.
 """
 
 from __future__ import annotations
@@ -22,27 +27,35 @@ from torch import nn
 
 from ..ops.fused_fp import (fused_three_interpolate,
                             three_interpolate_reference)
-from ..ops.fused_sa import fused_sa_pair
-from ..ops.fused_sa_train import fused_sa_pair_train
+from ..ops.fused_sa import fused_sa_pair, fused_sa_scale
+from ..ops.fused_sa_train import (fused_sa_pair_train,
+                                  fused_sa_scale_train)
 from ..ops.sampling import (furthest_point_sample, gather, identity_gather,
                             identity_sample)
 from .layers import PointwiseMLP
 
 
 class SetAbstractionMSG(nn.Module):
-    """Both scales of one multi-scale-grouping level: ball query at two
-    radii, BN-folded shared MLP, max-pool, concatenated over scales."""
+    """One multi-scale-grouping level of one or more scales: per scale a
+    ball query at its radius, a shared MLP of up to 3 layers with batch
+    norm, and the max over the slots; the scales' outputs concatenated.
+    The scales' MLPs are `mlp_0`, `mlp_1`, ..., the flax tree's names."""
 
     def __init__(self, npoint: int, radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
                  c_in: int, exact_fps: bool = False):
         super().__init__()
-        if len(radii) != 2:
-            raise ValueError("kernel B1 takes exactly two scales per level")
+        if not len(radii) == len(nsamples) == len(mlps) >= 1:
+            raise ValueError(f"one radius, nsample and MLP per scale; got "
+                             f"{len(radii)}, {len(nsamples)}, {len(mlps)}")
         self.npoint, self.exact_fps = npoint, exact_fps
         self.radii, self.nsamples = tuple(radii), tuple(nsamples)
-        self.mlp_0 = PointwiseMLP(c_in, mlps[0], bn=True)
-        self.mlp_1 = PointwiseMLP(c_in, mlps[1], bn=True)
+        for s, mlp in enumerate(mlps):
+            self.add_module(f"mlp_{s}", PointwiseMLP(c_in, mlp, bn=True))
+
+    @property
+    def scale_mlps(self):
+        return [getattr(self, f"mlp_{s}") for s in range(len(self.radii))]
 
     def centers(self, xyz, mask):
         """The level's npoint centers (B, npoint, 3), the three branches of
@@ -66,26 +79,37 @@ class SetAbstractionMSG(nn.Module):
         if self.training:
             return self._forward_train(xyz, features, mask)
         new_xyz = self.centers(xyz, mask).contiguous()
-        ws_a, bs_a = self.mlp_0.folded()
-        ws_b, bs_b = self.mlp_1.folded()
-        out_a, out_b = fused_sa_pair(
-            xyz, new_xyz, features, mask, ws_a, bs_a, ws_b, bs_b,
-            radius_a=self.radii[0], radius_b=self.radii[1],
-            nsample_a=self.nsamples[0], nsample_b=self.nsamples[1])
-        return new_xyz, torch.cat([out_a, out_b], dim=-1)
+        folded = [mlp.folded() for mlp in self.scale_mlps]
+        if len(folded) == 2:
+            outs = fused_sa_pair(
+                xyz, new_xyz, features, mask, *folded[0], *folded[1],
+                radius_a=self.radii[0], radius_b=self.radii[1],
+                nsample_a=self.nsamples[0], nsample_b=self.nsamples[1])
+        else:
+            outs = [fused_sa_scale(xyz, new_xyz, features, mask, ws, bs,
+                                   radius=r, nsample=ns)
+                    for (ws, bs), r, ns in zip(folded, self.radii,
+                                               self.nsamples)]
+        return new_xyz, torch.cat(list(outs), dim=-1)
 
     def _forward_train(self, xyz, features, mask):
-        new_xyz = self.centers(xyz, mask)
-        (pa, mus_a, vars_a), (pb, mus_b, vars_b) = fused_sa_pair_train(
-            xyz.contiguous(), new_xyz.contiguous(), features, mask,
-            *self.mlp_0.train_params(), *self.mlp_1.train_params(),
-            radius_a=self.radii[0], nsample_a=self.nsamples[0],
-            radius_b=self.radii[1], nsample_b=self.nsamples[1])
-        self.mlp_0.update_running_stats(mus_a, vars_a,
-                                        self.npoint * self.nsamples[0])
-        self.mlp_1.update_running_stats(mus_b, vars_b,
-                                        self.npoint * self.nsamples[1])
-        return new_xyz, torch.cat([pa, pb], dim=-1)
+        new_xyz = self.centers(xyz, mask).contiguous()
+        xyz = xyz.contiguous()
+        mlps = self.scale_mlps
+        params = [mlp.train_params() for mlp in mlps]
+        if len(mlps) == 2 and len(mlps[0].features) == len(mlps[1].features):
+            results = fused_sa_pair_train(
+                xyz, new_xyz, features, mask, *params[0], *params[1],
+                radius_a=self.radii[0], nsample_a=self.nsamples[0],
+                radius_b=self.radii[1], nsample_b=self.nsamples[1])
+        else:
+            results = [fused_sa_scale_train(xyz, new_xyz, features, mask,
+                                            *prm, radius=r, nsample=ns)
+                       for prm, r, ns in zip(params, self.radii,
+                                             self.nsamples)]
+        for mlp, (_, mus, vrs), ns in zip(mlps, results, self.nsamples):
+            mlp.update_running_stats(mus, vrs, self.npoint * ns)
+        return new_xyz, torch.cat([r[0] for r in results], dim=-1)
 
 
 class FeaturePropagation(nn.Module):

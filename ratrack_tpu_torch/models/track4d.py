@@ -167,3 +167,28 @@ class Track4D(nn.Module):
             prev_gt_id=state.gt_id, prev_valid=state.valid,
             curr_gt_id=o["curr_gt"], curr_valid=o["curr_valid"])
         return outputs, new_state
+
+
+def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
+                      generator: torch.Generator | None = None,
+                      device=None) -> Track4D:
+    """Track4D from a `config.Config` (JAX `model_from_config`,
+    track4d.py:225-236). `sinkhorn_kernel` is no config key (the JAX
+    package switches it with a module global). Raises on what the port
+    does not implement, rather than ignore it: a Sinkhorn early exit
+    (`sinkhorn_tol` > 0) and a compute dtype other than float32."""
+    if cfg.sinkhorn_tol != 0:
+        raise NotImplementedError(
+            f"sinkhorn_tol={cfg.sinkhorn_tol}: the Sinkhorn early exit is "
+            f"not ported; the port runs all sinkhorn_iters iterations")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the port computes in float32 only")
+    return Track4D(
+        npoint=cfg.npoints, k_max=cfg.k_max, feat_dim=cfg.feat_dim,
+        gru_layers=cfg.gru_layers, min_obj_points=cfg.min_obj_points,
+        dbscan_eps=cfg.dbscan_eps, dbscan_max_iters=cfg.dbscan_max_iters,
+        sinkhorn_iters=cfg.sinkhorn_iters, sinkhorn_alpha=cfg.sinkhorn_alpha,
+        match_conf_thres=cfg.match_conf_thres, mov_thres=cfg.mov_thres,
+        mov_budget=cfg.mov_budget, exact_fps=cfg.exact_fps,
+        sinkhorn_kernel=sinkhorn_kernel, generator=generator, device=device)

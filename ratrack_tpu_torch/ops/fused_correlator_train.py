@@ -20,6 +20,16 @@ then 2 leaky 256x256 layers. Stage 2 (pc1 in pc1): the raw slots. Both
 weigh the slots by WeightNet(dir) and sum them. Gradients reach feats_p,
 add_q, W_dir, every MLP and WeightNet weight and bias, and the query and
 point positions (through the directions); the selection gets none.
+
+Above `ops.neighborhood.KNN_DENSE_LIMIT` pairs a stream (the 8192 /
+16384-point stretch clouds) the selection is the tiled kNN, kernel B5
+(`ops.fused_knn`), in one pass over the candidates where the in-kernel
+selection takes 16; both take the k nearest valid candidates with ties to
+the lowest index, so the stage's result does not depend on the route. This
+is the routing of the JAX train path, which above 1024 points selects
+through `knn_auto` (models/correlator.py:178-195); unlike it the port
+keeps kernel B10 for the stage itself at every size (the JAX gate is the
+fast-memory limit of the TPU kernel).
 """
 
 from __future__ import annotations
@@ -30,8 +40,10 @@ import torch.nn.functional as F
 from ..kernels import build as kb
 from .fused_correlator import (KERNEL_C, KERNEL_K, check_kernel_args,
                                launch_knn)
+from .fused_knn import knn_indices_tiled
 from .grouping import group
-from .neighborhood import knn
+from . import neighborhood
+from .neighborhood import knn_auto
 
 WN_HIDDEN = 8
 # csrc/correlator_train.cu: WeightNet gradient block layout (kWnGrad) and
@@ -58,7 +70,7 @@ def knn_weight_aggregate_train_reference(query, points, feats_p, add_q,
                                          k: int = KERNEL_K):
     """Plain version -> (out (B, N, C_out), idx (B, N, k)); JAX
     `knn_weight_aggregate_reference` (pallas_correlator_train.py:669)."""
-    _, idx = knn(k, query, points, mask_p)
+    _, idx = knn_auto(k, query.detach(), points.detach(), mask_p)
     h = group(feats_p, idx)                               # (B, N, k, C)
     dirs = group(points, idx) - query.unsqueeze(2)        # (B, N, k, 3)
     if add_q is not None:
@@ -95,7 +107,11 @@ class KnnWeightAggregateTrainFunction(torch.autograd.Function):
         out = torch.empty((b, n, c), device=dev)
         lib = kb.load()
         with torch.cuda.device(dev):
-            idx = launch_knn(query, points, mask_p, KERNEL_K)
+            if n * m > neighborhood.KNN_DENSE_LIMIT:
+                idx = knn_indices_tiled(query, points, mask_p,
+                                        k=KERNEL_K).to(torch.int32)
+            else:
+                idx = launch_knn(query, points, mask_p, KERNEL_K)
             code = lib.ratrack_corr_train_fwd(
                 kb.ptr(query), kb.ptr(points), kb.ptr(idx), b, n, m,
                 kb.ptr(feats_p), kb.ptr(add_q), kb.ptr(w_dir),

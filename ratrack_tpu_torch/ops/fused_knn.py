@@ -39,7 +39,8 @@ def knn_indices_tiled_reference(query, points, points_mask=None, *, k: int):
     Ties must go to the lowest index, which `torch.topk` does not promise:
     the float32 distance (>= +0, so its bit pattern orders as the value)
     and the candidate's index are packed into one int64 key, all distinct,
-    and the k smallest keys are taken."""
+    and the k smallest keys are taken. (Float64 clouds, a CPU yardstick's,
+    take a stable sort of the distances instead.)"""
     b, n, m = query.shape[0], query.shape[1], points.shape[1]
     if k > m:
         raise ValueError(f"k={k} exceeds the {m} candidates")
@@ -50,6 +51,11 @@ def knn_indices_tiled_reference(query, points, points_mask=None, *, k: int):
         if points_mask is not None:
             d = torch.where(points_mask.unsqueeze(1), d,
                             torch.full_like(d, BIG))
+        if d.dtype != torch.float32:
+            top_d, top_i = torch.sort(d, dim=-1, stable=True)
+            idx_out.append(top_i[..., :k])
+            d_out.append(top_d[..., :k])
+            continue
         packed = (d.contiguous().view(torch.int32).to(torch.int64) << 32) | ar
         top = torch.topk(packed, k, dim=-1, largest=False, sorted=True).values
         idx_out.append(top & 0xFFFFFFFF)

@@ -1,14 +1,19 @@
-"""Set abstraction at both radii of a level: kernel B1 and its plain twin.
+"""Set abstraction at both radii of a level, or at one: kernels B1 and B1'
+and their plain twins.
 
-Replaces `ratrack_tpu/ops/pallas_sa.py::_sa_pair_kernel` (`fused_sa_pair`).
-The CUDA kernel is `csrc/sa_pair.cu`; its header says what bounds it on
-the H100 and how its design answers that.
+Replaces `ratrack_tpu/ops/pallas_sa.py::_sa_pair_kernel` (`fused_sa_pair`)
+and `::_sa_kernel` (`fused_sa_scale`). The CUDA kernel is `csrc/sa_pair.cu`,
+one template instantiated for two scales and for one; its header says what
+bounds it on the H100 and how its design answers that.
 
   fused_sa_pair   public entry: hoists layer 1 (two torch matmuls, as the
                   JAX package leaves them to XLA), then `sa_pair`.
   sa_pair         the kernel wrapper: CUDA tensors launch the kernel (or
                   raise), CPU tensors take `sa_pair_reference`.
   sa_pair_reference  the plain PyTorch version of the kernel's function.
+  fused_sa_scale, sa_scale, sa_scale_reference   the same three for one
+                  scale (a level that is not a pair). A pair equals two
+                  one-scale calls bit for bit.
 
 Layer 1 of each scale's shared MLP factorises through the pair structure
 (pallas_sa.py:26-30): W1 @ [x_j - c_i, f_j] = P1_j - CW_i with
@@ -48,22 +53,66 @@ def hoist_layer1(xyz, centers, features, w1, b1):
     return p1.contiguous(), (centers @ w_xyz).contiguous()
 
 
+def sa_scale_reference(xyz, centers, mask, p1, cw, rest, *, radius: float,
+                       nsample: int):
+    """Plain version of the one-scale kernel: ball query with CUDA padding,
+    pair layer 1, folded layers, max over slots. Returns (out, idx); idx
+    are the (B, M, ns) slot indices."""
+    idx = ball_query(radius, nsample, xyz, centers, mask)
+    h = torch.relu(group(p1, idx) - cw.unsqueeze(2))
+    for w, b in rest:
+        h = torch.relu(h @ w + b)
+    return h.amax(dim=2), idx
+
+
 def sa_pair_reference(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb,
                       rest_b, *, radius_a: float, radius_b: float,
                       nsample_a: int, nsample_b: int):
-    """Plain version of the kernel: ball query with CUDA padding, pair
-    layer 1, folded layers, max over slots. Returns
-    (out_a, out_b, idx_a, idx_b); idx are the (B, M, ns) slot indices."""
-    res = []
-    for p1, cw, rest, r, ns in ((p1a, cwa, rest_a, radius_a, nsample_a),
-                                (p1b, cwb, rest_b, radius_b, nsample_b)):
-        idx = ball_query(r, ns, xyz, centers, mask)
-        h = torch.relu(group(p1, idx) - cw.unsqueeze(2))
-        for w, b in rest:
-            h = torch.relu(h @ w + b)
-        res.append((h.amax(dim=2), idx))
-    (out_a, idx_a), (out_b, idx_b) = res
+    """Plain version of the pair kernel: `sa_scale_reference` at both
+    radii. Returns (out_a, out_b, idx_a, idx_b)."""
+    out_a, idx_a = sa_scale_reference(xyz, centers, mask, p1a, cwa, rest_a,
+                                      radius=radius_a, nsample=nsample_a)
+    out_b, idx_b = sa_scale_reference(xyz, centers, mask, p1b, cwb, rest_b,
+                                      radius=radius_b, nsample=nsample_b)
     return out_a, out_b, idx_a, idx_b
+
+
+def _check_clouds(xyz, centers, mask):
+    dev = xyz.device
+    b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    kb.require(xyz, "xyz", (b, n, 3), dev)
+    kb.require(centers, "centers", (b, m, 3), dev)
+    if mask is not None:
+        kb.require(mask, "mask", (b, n), dev, torch.bool)
+    return b, n, m
+
+
+def _kernel_scale(tag, xyz, centers, p1, cw, rest, radius, ns,
+                  return_indices):
+    """Check one scale's tensors, allocate its outputs -> (C arguments of
+    the scale, out, idx or None)."""
+    dev = xyz.device
+    b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    c1 = p1.shape[-1]
+    kb.require(p1, f"p1{tag}", (b, n, c1), dev)
+    kb.require(cw, f"cw{tag}", (b, m, c1), dev)
+    dims = [c1]
+    for li, (w, bias) in enumerate(rest):
+        kb.require(w, f"w{tag}{li}", (dims[-1], None), dev)
+        kb.require(bias, f"b{tag}{li}", (w.shape[1],), dev)
+        dims.append(w.shape[1])
+    if len(rest) > 2 or max(dims) > 64 or not 1 <= ns <= 32:
+        raise ValueError(f"scale {tag}: the kernel takes <= 2 layers "
+                         f"after layer 1, widths <= 64 and nsample <= "
+                         f"32; got widths {dims}, nsample {ns}")
+    out = torch.empty((b, m, dims[-1]), device=dev, dtype=torch.float32)
+    idx = (torch.empty((b, m, ns), device=dev, dtype=torch.int32)
+           if return_indices else None)
+    ws, bs = [w for w, _ in rest], [x for _, x in rest]
+    args = [kb.ptr(p1), kb.ptr(cw), kb.ptr_array(ws), kb.ptr_array(bs),
+            kb.int_array(dims), len(ws), float(radius) ** 2, ns,
+            kb.ptr(out), kb.ptr(idx)]
+    return args, out, idx
 
 
 def sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b, *,
@@ -74,60 +123,58 @@ def sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b, *,
     rest_a / rest_b: [(W (C_l, C_{l+1}), b (C_{l+1},)), ...] folded layers
     after layer 1. Returns (out_a, out_b) [+ (idx_a, idx_b) int].
     """
-    kw = dict(radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
-              nsample_b=nsample_b)
     if not xyz.is_cuda:
-        oa, ob, ia, ib = sa_pair_reference(xyz, centers, mask, p1a, cwa,
-                                           rest_a, p1b, cwb, rest_b, **kw)
+        oa, ob, ia, ib = sa_pair_reference(
+            xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b,
+            radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
+            nsample_b=nsample_b)
         return (oa, ob, ia, ib) if return_indices else (oa, ob)
 
-    dev = xyz.device
-    b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
-    kb.require(xyz, "xyz", (b, n, 3), dev)
-    kb.require(centers, "centers", (b, m, 3), dev)
-    if mask is not None:
-        kb.require(mask, "mask", (b, n), dev, torch.bool)
-    scales = []
-    for tag, p1, cw, rest, ns in (("a", p1a, cwa, rest_a, nsample_a),
-                                  ("b", p1b, cwb, rest_b, nsample_b)):
-        c1 = p1.shape[-1]
-        kb.require(p1, f"p1{tag}", (b, n, c1), dev)
-        kb.require(cw, f"cw{tag}", (b, m, c1), dev)
-        dims = [c1]
-        for li, (w, bias) in enumerate(rest):
-            kb.require(w, f"w{tag}{li}", (dims[-1], None), dev)
-            kb.require(bias, f"b{tag}{li}", (w.shape[1],), dev)
-            dims.append(w.shape[1])
-        if len(rest) > 2 or max(dims) > 64 or not 1 <= ns <= 32:
-            raise ValueError(f"scale {tag}: the kernel takes <= 2 layers "
-                             f"after layer 1, widths <= 64 and nsample <= "
-                             f"32; got widths {dims}, nsample {ns}")
-        out = torch.empty((b, m, dims[-1]), device=dev, dtype=torch.float32)
-        idx = (torch.empty((b, m, ns), device=dev, dtype=torch.int32)
-               if return_indices else None)
-        scales.append((p1, cw, [w for w, _ in rest], [x for _, x in rest],
-                       dims, ns, out, idx))
-
+    b, n, m = _check_clouds(xyz, centers, mask)
+    args_a, out_a, idx_a = _kernel_scale(
+        "a", xyz, centers, p1a, cwa, rest_a, radius_a, nsample_a,
+        return_indices)
+    args_b, out_b, idx_b = _kernel_scale(
+        "b", xyz, centers, p1b, cwb, rest_b, radius_b, nsample_b,
+        return_indices)
     lib = kb.load()
-    args = []
-    for (p1, cw, ws, bs, dims, ns, out, idx), r in zip(
-            scales, (radius_a, radius_b)):
-        args += [kb.ptr(p1), kb.ptr(cw), kb.ptr_array(ws), kb.ptr_array(bs),
-                 kb.int_array(dims), len(ws), float(r) ** 2, ns,
-                 kb.ptr(out), kb.ptr(idx)]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(xyz.device):
         code = lib.ratrack_sa_pair(kb.ptr(xyz), kb.ptr(centers),
-                                   kb.ptr(mask), b, n, m, *args,
+                                   kb.ptr(mask), b, n, m, *args_a, *args_b,
                                    kb.stream_of(xyz))
     kb.check(code, "sa_pair")
     sa_pair.launches += 1
-    out_a, out_b = scales[0][6], scales[1][6]
     if return_indices:
-        return out_a, out_b, scales[0][7], scales[1][7]
+        return out_a, out_b, idx_a, idx_b
     return out_a, out_b
 
 
 sa_pair.launches = 0
+
+
+def sa_scale(xyz, centers, mask, p1, cw, rest, *, radius: float,
+             nsample: int, return_indices: bool = False):
+    """Kernel B1' over (B, N, 3) points and (B, M, 3) centers: one scale,
+    arguments as one scale of `sa_pair`. Returns out [, idx int]."""
+    if not xyz.is_cuda:
+        out, idx = sa_scale_reference(xyz, centers, mask, p1, cw, rest,
+                                      radius=radius, nsample=nsample)
+        return (out, idx) if return_indices else out
+
+    b, n, m = _check_clouds(xyz, centers, mask)
+    args, out, idx = _kernel_scale("", xyz, centers, p1, cw, rest, radius,
+                                   nsample, return_indices)
+    lib = kb.load()
+    with torch.cuda.device(xyz.device):
+        code = lib.ratrack_sa_scale(kb.ptr(xyz), kb.ptr(centers),
+                                    kb.ptr(mask), b, n, m, *args,
+                                    kb.stream_of(xyz))
+    kb.check(code, "sa_scale")
+    sa_scale.launches += 1
+    return (out, idx) if return_indices else out
+
+
+sa_scale.launches = 0
 
 
 def fused_sa_pair(xyz, centers, features, mask,
@@ -147,3 +194,13 @@ def fused_sa_pair(xyz, centers, features, mask,
     return sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b,
                    radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
                    nsample_b=nsample_b)
+
+
+def fused_sa_scale(xyz, centers, features, mask,
+                   ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], *,
+                   radius: float, nsample: int):
+    """One radius scale of an MSG level (JAX `fused_sa_scale`): ws / bs as
+    one scale of `fused_sa_pair`. Returns (B, M, C_last)."""
+    p1, cw = hoist_layer1(xyz, centers, features, ws[0], bs[0])
+    return sa_scale(xyz, centers, mask, p1, cw, list(zip(ws[1:], bs[1:])),
+                    radius=radius, nsample=nsample)

@@ -1,18 +1,22 @@
-"""Set abstraction at both radii of a level, train mode: kernel B9 and its
-plain twin.
+"""Set abstraction in train mode at both radii of a level, or at one:
+kernels B9 and B8 and their plain twins.
 
 Replaces `ratrack_tpu/ops/pallas_sa_train.py::_pair_fwd_kernel_pk` and
-`_pair_bwd_kernel_pk` (`fused_sa_pair_train`). The CUDA kernels are in
-`csrc/sa_pair_train.cu`; its header says what bounds them on the H100 and
-how the design answers that.
+`_pair_bwd_kernel_pk` (`fused_sa_pair_train`) and `::_fwd_kernel` and
+`_bwd_kernel` with their `_pk` twins (`fused_sa_scale_train`). The CUDA
+kernels are in `csrc/sa_pair_train.cu`; its header says what bounds them on
+the H100 and how the design answers that.
 
   fused_sa_pair_train   public entry (the JAX signature): hoists the
                         feature term of layer 1 (a torch matmul, as the JAX
                         package leaves it to XLA), then `sa_pair_train`.
   sa_pair_train         the kernel wrapper: CUDA tensors run
-                        `SAPairTrainFunction` (the forward and backward
+                        `SATrainFunction` (the forward and backward
                         kernels, or raise), CPU tensors take
   sa_pair_train_reference  the plain version, differentiated by autograd.
+  fused_sa_scale_train, sa_scale_train, sa_scale_train_reference
+                        the same three for one scale (a level that is not
+                        a pair of equal depth).
 
 Per scale: ball query with CUDA padding (slots past the hit count repeat
 the first hit, no hit gives point 0), layer 1
@@ -21,11 +25,15 @@ bias: batch norm follows), then per layer train-mode batch norm with
 statistics per stream over all M * ns rows, ReLU, the next Dense, and the
 max over slots. The batch statistics are returned for the running
 averages and carry no gradient (the JAX VJP drops their cotangents).
+Gradients reach the features (through PF), every Dense weight and every
+batch norm scale and bias. The coordinates get none: no parameter depends
+on them (the model's clouds are inputs and its centers are samples of
+them), and the kernels compute none.
 
-Unlike the JAX kernel (pallas_sa_train.py:1729-1739) the coordinate part
-of layer 1 is not hoisted as xyz @ W1[:3] - centers @ W1[:3]: that
-difference of absolute terms cancels most of float32's digits at radar
-ranges (csrc/sa_pair_train.cu says how much); the kernel takes the
+Unlike the JAX kernel (pallas_sa_train.py:1041-1049, 1729-1739) the
+coordinate part of layer 1 is not hoisted as xyz @ W1[:3] - centers @
+W1[:3]: that difference of absolute terms cancels most of float32's digits
+at radar ranges (csrc/sa_pair_train.cu says how much); the kernel takes the
 relative coordinates itself, as the JAX correlator train kernel does. The
 batch variance is the JAX max(E[h^2] - mu^2, 0) on both sides (the
 kernel adds its sums in float64).
@@ -56,6 +64,8 @@ _P = ctypes.c_void_p
 # launches of the forward and backward kernels (CPU calls do not count)
 sa_pair_train_fwd = kb.Counter()
 sa_pair_train_bwd = kb.Counter()
+sa_scale_train_fwd = kb.Counter()
+sa_scale_train_bwd = kb.Counter()
 
 
 class _Scale(ctypes.Structure):
@@ -76,8 +86,16 @@ def hoist_layer1_train(features, w1):
     return pf, w1[:3].contiguous()
 
 
-def _scale_reference(xyz, centers, mask, pf, wxyz, ws, gammas, betas,
-                     radius, nsample, eps):
+def sa_scale_train_reference(xyz, centers, mask, pf, wxyz, ws, gammas,
+                             betas, *, radius: float, nsample: int,
+                             eps: float = 1e-5):
+    """Plain version of the one-scale kernels. pf / wxyz: layer 1 as
+    hoist_layer1_train gives it; ws: the layers after layer 1 [W_2 .. W_L]
+    (in, out); gammas / betas: the L batch norms. Returns (pooled, mus,
+    vars, idx), mus / vars lists of (B, C_l) per-stream batch statistics,
+    idx the (B, M, ns) selected points. `torch.amax` splits the max's
+    cotangent evenly over ties, as `jnp.max` does (duplicate padding slots
+    tie)."""
     idx = ball_query(radius, nsample, xyz, centers, mask)
     h = (group(xyz, idx) - centers.unsqueeze(2)) @ wxyz   # (B, M, ns, C1)
     if pf is not None:
@@ -99,17 +117,14 @@ def sa_pair_train_reference(xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a,
                             betas_a, pfb, wxyz_b, ws_b, gammas_b, betas_b, *,
                             radius_a: float, radius_b: float, nsample_a: int,
                             nsample_b: int, eps: float = 1e-5):
-    """Plain version of the kernels. pf / wxyz: layer 1 as
-    hoist_layer1_train gives it; ws_*: the layers after layer 1
-    [W_2 .. W_L] (in, out); gammas / betas: the L batch norms. Returns
-    ((pooled_a, mus_a, vars_a, idx_a), (pooled_b, mus_b, vars_b, idx_b)),
-    mus / vars lists of (B, C_l) per-stream batch statistics, idx the
-    (B, M, ns) selected points. `torch.amax` splits the max's cotangent
-    evenly over ties, as `jnp.max` does (duplicate padding slots tie)."""
-    return (_scale_reference(xyz, centers, mask, pfa, wxyz_a, ws_a,
-                             gammas_a, betas_a, radius_a, nsample_a, eps),
-            _scale_reference(xyz, centers, mask, pfb, wxyz_b, ws_b,
-                             gammas_b, betas_b, radius_b, nsample_b, eps))
+    """Plain version of the pair kernels: `sa_scale_train_reference` at
+    both radii -> ((pooled_a, mus_a, vars_a, idx_a), (pooled_b, ...))."""
+    return (sa_scale_train_reference(
+                xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a,
+                radius=radius_a, nsample=nsample_a, eps=eps),
+            sa_scale_train_reference(
+                xyz, centers, mask, pfb, wxyz_b, ws_b, gammas_b, betas_b,
+                radius=radius_b, nsample=nsample_b, eps=eps))
 
 
 def _ptrs(tensors, n=MAX_LAYERS):
@@ -117,87 +132,82 @@ def _ptrs(tensors, n=MAX_LAYERS):
     return (_P * n)(*(vals + [None] * (n - len(vals))))
 
 
-class SAPairTrainFunction(torch.autograd.Function):
-    """Kernel B9: forward and backward launches of csrc/sa_pair_train.cu.
+class SATrainFunction(torch.autograd.Function):
+    """Kernels B9 (two scales) and B8 (one): the forward and backward
+    launches of csrc/sa_pair_train.cu.
 
-    apply(cfg, xyz, centers, mask, pfa, wxa, pfb, wxb, *params) with cfg
-    (n_layers, radius_a, radius_b, nsample_a, nsample_b, eps) and params =
-    ws_a[1:], gammas_a, betas_a, ws_b[1:], gammas_b, betas_b. Returns
-    pooled_a, pooled_b, idx_a, idx_b, mus_a, vars_a, mus_b, vars_b (the
-    last six carry no gradient)."""
+    apply(cfg, xyz, centers, mask, *flat) with cfg = (eps, ((n_layers,
+    radius, nsample), ...)) of one or two scales and flat = per scale pf,
+    wxyz, *ws[1:], *gammas, *betas. Returns the scales' pooled tensors, then
+    per scale idx, *mus, *vars (these carry no gradient)."""
 
     @staticmethod
-    def forward(ctx, cfg, xyz, centers, mask, pfa, wxa, pfb, wxb, *params):
-        n_layers, ra, rb, nsa, nsb, eps = cfg
+    def forward(ctx, cfg, xyz, centers, mask, *flat):
+        eps, metas = cfg
         b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
         dev = xyz.device
-        per = 3 * n_layers - 1
-        scales = []
-        for pf, wx, prm, r, ns in ((pfa, wxa, params[:per], ra, nsa),
-                                   (pfb, wxb, params[per:], rb, nsb)):
+        scales, at = [], 0
+        for n_layers, r, ns in metas:
+            pf, wx = flat[at:at + 2]
+            prm = flat[at + 2:at + 1 + 3 * n_layers]
+            at += 1 + 3 * n_layers
             ws = list(prm[:n_layers - 1])
-            gam = list(prm[n_layers - 1:2 * n_layers - 1])
-            bet = list(prm[2 * n_layers - 1:])
             dims = [wx.shape[1]] + [w.shape[1] for w in ws]
-            z = [torch.empty((b, m * ns, c), device=dev) for c in dims]
-            mus = [torch.empty((b, c), device=dev) for c in dims]
-            vrs = [torch.empty((b, c), device=dev) for c in dims]
-            sc = dict(ws=ws, gam=gam, bet=bet, dims=dims, ns=ns, r=r, z=z,
-                      mus=mus, vrs=vrs, pf=pf, wx=wx,
-                      idx=torch.empty((b, m, ns), device=dev,
-                                      dtype=torch.int32),
-                      pooled=torch.empty((b, m, dims[-1]), device=dev))
-            scales.append(sc)
+            scales.append(dict(
+                ws=ws, gam=list(prm[n_layers - 1:2 * n_layers - 1]),
+                bet=list(prm[2 * n_layers - 1:]), dims=dims, ns=ns, r=r,
+                pf=pf, wx=wx,
+                z=[torch.empty((b, m * ns, c), device=dev) for c in dims],
+                mus=[torch.empty((b, c), device=dev) for c in dims],
+                vrs=[torch.empty((b, c), device=dev) for c in dims],
+                idx=torch.empty((b, m, ns), device=dev, dtype=torch.int32),
+                pooled=torch.empty((b, m, dims[-1]), device=dev)))
         structs = [_scale_struct(sc) for sc in scales]
-        part = torch.empty(_part_size(b, m, (nsa, nsb)), device=dev,
-                           dtype=torch.float64)
+        part = torch.empty(_part_size(b, m, [sc["ns"] for sc in scales]),
+                           device=dev, dtype=torch.float64)
         lib = kb.load()
+        pair = len(scales) == 2
         with torch.cuda.device(dev):
-            code = lib.ratrack_sa_train_fwd(
-                kb.ptr(xyz), kb.ptr(centers), kb.ptr(mask), b, n, m, eps,
-                ctypes.addressof(structs[0]), ctypes.addressof(structs[1]),
-                kb.ptr(part), kb.stream_of(xyz))
-        kb.check(code, "sa_pair_train_fwd")
-        sa_pair_train_fwd.launches += 1
-        sa_, sb_ = scales
+            entry = (lib.ratrack_sa_train_fwd if pair
+                     else lib.ratrack_sa_scale_train_fwd)
+            code = entry(kb.ptr(xyz), kb.ptr(centers), kb.ptr(mask), b, n, m,
+                         eps, *[ctypes.addressof(st) for st in structs],
+                         kb.ptr(part), kb.stream_of(xyz))
+        kb.check(code, "sa_pair_train_fwd" if pair else "sa_scale_train_fwd")
+        (sa_pair_train_fwd if pair else sa_scale_train_fwd).launches += 1
         ctx.cfg = cfg
-        ctx.meta = [(sc["dims"], sc["ns"], sc["r"]) for sc in scales]
-        ctx.save_for_backward(xyz, centers, pfa, wxa, pfb, wxb, *params,
-                              sa_["idx"], sb_["idx"], sa_["pooled"],
-                              sb_["pooled"], *sa_["z"], *sb_["z"],
-                              *sa_["mus"], *sa_["vrs"], *sb_["mus"],
-                              *sb_["vrs"])
-        outs = (sa_["idx"], sb_["idx"], *sa_["mus"], *sa_["vrs"],
-                *sb_["mus"], *sb_["vrs"])
+        ctx.dims = [sc["dims"] for sc in scales]
+        stash = [t for sc in scales
+                 for t in (sc["idx"], sc["pooled"], *sc["z"], *sc["mus"],
+                           *sc["vrs"])]
+        ctx.save_for_backward(xyz, centers, *flat, *stash)
+        outs = tuple(t for sc in scales
+                     for t in (sc["idx"], *sc["mus"], *sc["vrs"]))
         ctx.mark_non_differentiable(*outs)
-        return (sa_["pooled"], sb_["pooled"]) + outs
+        return tuple(sc["pooled"] for sc in scales) + outs
 
     @staticmethod
-    def backward(ctx, dpa, dpb, *_unused):
-        n_layers, ra, rb, nsa, nsb, eps = ctx.cfg
+    def backward(ctx, *douts):
+        eps, metas = ctx.cfg
         saved = list(ctx.saved_tensors)
-        xyz, centers, pfa, wxa, pfb, wxb = saved[:6]
-        per = 3 * n_layers - 1
-        params = saved[6:6 + 2 * per]
-        rest = saved[6 + 2 * per:]
-        idx_a, idx_b, pooled_a, pooled_b = rest[:4]
-        rest = rest[4:]
-        L = n_layers
-        z_a, z_b = rest[:L], rest[L:2 * L]
-        mu_a, var_a = rest[2 * L:3 * L], rest[3 * L:4 * L]
-        mu_b, var_b = rest[4 * L:5 * L], rest[5 * L:6 * L]
+        xyz, centers = saved[:2]
+        n_flat = sum(1 + 3 * L for L, _, _ in metas)
+        flat, stash = saved[2:2 + n_flat], saved[2 + n_flat:]
         b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
         dev = xyz.device
-        grads, structs = [], []
-        for (dims, ns, r), pf, wx, prm, idx, pooled, z, mus, vrs, dp in (
-                (ctx.meta[0], pfa, wxa, params[:per], idx_a, pooled_a, z_a,
-                 mu_a, var_a, dpa),
-                (ctx.meta[1], pfb, wxb, params[per:], idx_b, pooled_b, z_b,
-                 mu_b, var_b, dpb)):
+        grads, structs, at, st_at = [], [], 0, 0
+        for (L, r, ns), dims, dp in zip(metas, ctx.dims, douts):
+            pf, wx = flat[at:at + 2]
+            prm = flat[at + 2:at + 1 + 3 * L]
+            at += 1 + 3 * L
+            idx, pooled = stash[st_at:st_at + 2]
+            rest = stash[st_at + 2:st_at + 2 + 3 * L]
+            st_at += 2 + 3 * L
             ws = list(prm[:L - 1])
             sc = dict(ws=ws, gam=list(prm[L - 1:2 * L - 1]),
                       bet=list(prm[2 * L - 1:]), dims=dims, ns=ns, r=r,
-                      z=list(z), mus=list(mus), vrs=list(vrs), pf=pf, wx=wx,
+                      z=list(rest[:L]), mus=list(rest[L:2 * L]),
+                      vrs=list(rest[2 * L:]), pf=pf, wx=wx,
                       idx=idx, pooled=pooled,
                       dpooled=(torch.zeros_like(pooled) if dp is None
                                else dp.contiguous()),
@@ -210,27 +220,29 @@ class SAPairTrainFunction(torch.autograd.Function):
                       dbet=[torch.empty(c, device=dev) for c in dims])
             grads.append(sc)
             structs.append(_scale_struct(sc))
-        part = torch.empty(_part_size(b, m, (nsa, nsb)), device=dev,
+        nss = [ns for _, _, ns in metas]
+        part = torch.empty(_part_size(b, m, nss), device=dev,
                            dtype=torch.float64)
         ssum = torch.empty(b * 2 * MAX_WIDTH, device=dev, dtype=torch.float64)
-        chunks = -(-m * max(nsa, nsb) // _CHUNK)
+        chunks = -(-m * max(nss) // _CHUNK)
         pdw = torch.empty(b * max(chunks * MAX_WIDTH * MAX_WIDTH,
                                   -(-m // _CENTERS) * 3 * MAX_WIDTH),
                           device=dev)
         lib = kb.load()
+        pair = len(grads) == 2
         with torch.cuda.device(dev):
-            code = lib.ratrack_sa_train_bwd(
-                kb.ptr(xyz), kb.ptr(centers), b, n, m, eps,
-                ctypes.addressof(structs[0]), ctypes.addressof(structs[1]),
-                kb.ptr(part), kb.ptr(ssum), kb.ptr(pdw), kb.stream_of(xyz))
-        kb.check(code, "sa_pair_train_bwd")
-        sa_pair_train_bwd.launches += 1
-        ga, gb = grads
-        dparams = []
+            entry = (lib.ratrack_sa_train_bwd if pair
+                     else lib.ratrack_sa_scale_train_bwd)
+            code = entry(kb.ptr(xyz), kb.ptr(centers), b, n, m, eps,
+                         *[ctypes.addressof(st) for st in structs],
+                         kb.ptr(part), kb.ptr(ssum), kb.ptr(pdw),
+                         kb.stream_of(xyz))
+        kb.check(code, "sa_pair_train_bwd" if pair else "sa_scale_train_bwd")
+        (sa_pair_train_bwd if pair else sa_scale_train_bwd).launches += 1
+        dflat = []
         for g in grads:
-            dparams += g["dw"][1:] + g["dgam"] + g["dbet"]
-        return (None, None, None, None, ga["dpf"], ga["dwx"], gb["dpf"],
-                gb["dwx"], *dparams)
+            dflat += [g["dpf"], g["dwx"]] + g["dw"][1:] + g["dgam"] + g["dbet"]
+        return (None, None, None, None, *dflat)
 
 
 def _part_size(b, m, nsamples):
@@ -280,41 +292,63 @@ def _check_scale(tag, xyz, pf, wxyz, ws, gammas, betas, ns):
                          f"widths {dims}, {len(gammas)} norms, nsample {ns}")
 
 
-def sa_pair_train(xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a,
-                  pfb, wxyz_b, ws_b, gammas_b, betas_b, *, radius_a: float,
-                  radius_b: float, nsample_a: int, nsample_b: int,
-                  eps: float = 1e-5):
-    """Kernel B9 over (B, N, 3) points and (B, M, 3) centers; arguments and
-    returns as `sa_pair_train_reference`."""
-    kw = dict(radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
-              nsample_b=nsample_b, eps=eps)
-    if not xyz.is_cuda:
-        return sa_pair_train_reference(
-            xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a, pfb,
-            wxyz_b, ws_b, gammas_b, betas_b, **kw)
-
+def _apply(xyz, centers, mask, eps, scales):
+    """Check the clouds and each scale (tag, pf, wxyz, ws, gammas, betas,
+    radius, nsample) and run SATrainFunction -> [(pooled, mus, vars, idx)]
+    per scale."""
     dev = xyz.device
     b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
     kb.require(xyz, "xyz", (b, n, 3), dev)
     kb.require(centers, "centers", (b, m, 3), dev)
     if mask is not None:
         kb.require(mask, "mask", (b, n), dev, torch.bool)
-    _check_scale("a", xyz, pfa, wxyz_a, ws_a, gammas_a, betas_a, nsample_a)
-    _check_scale("b", xyz, pfb, wxyz_b, ws_b, gammas_b, betas_b, nsample_b)
-    n_layers = len(gammas_a)
-    if len(gammas_b) != n_layers:
+    metas, flat = [], []
+    for tag, pf, wxyz, ws, gammas, betas, radius, ns in scales:
+        _check_scale(tag, xyz, pf, wxyz, ws, gammas, betas, ns)
+        metas.append((len(gammas), float(radius), int(ns)))
+        flat += [pf, wxyz, *ws, *gammas, *betas]
+    out = SATrainFunction.apply((float(eps), tuple(metas)), xyz, centers,
+                                mask, *flat)
+    pooled, rest, res = out[:len(scales)], out[len(scales):], []
+    for p, (L, _, _) in zip(pooled, metas):
+        res.append((p, list(rest[1:1 + L]), list(rest[1 + L:1 + 2 * L]),
+                    rest[0]))
+        rest = rest[1 + 2 * L:]
+    return res
+
+
+def sa_pair_train(xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a,
+                  pfb, wxyz_b, ws_b, gammas_b, betas_b, *, radius_a: float,
+                  radius_b: float, nsample_a: int, nsample_b: int,
+                  eps: float = 1e-5):
+    """Kernel B9 over (B, N, 3) points and (B, M, 3) centers; arguments and
+    returns as `sa_pair_train_reference`. The two scales have equal depth
+    (a level whose depths differ runs `sa_scale_train` per scale)."""
+    if not xyz.is_cuda:
+        return sa_pair_train_reference(
+            xyz, centers, mask, pfa, wxyz_a, ws_a, gammas_a, betas_a, pfb,
+            wxyz_b, ws_b, gammas_b, betas_b, radius_a=radius_a,
+            radius_b=radius_b, nsample_a=nsample_a, nsample_b=nsample_b,
+            eps=eps)
+    if len(gammas_a) != len(gammas_b):
         raise ValueError(f"the pair kernel takes scales of equal depth; got "
-                         f"{n_layers} and {len(gammas_b)} layers")
-    cfg = (n_layers, float(radius_a), float(radius_b), int(nsample_a),
-           int(nsample_b), float(eps))
-    out = SAPairTrainFunction.apply(
-        cfg, xyz, centers, mask, pfa, wxyz_a, pfb, wxyz_b, *ws_a, *gammas_a,
-        *betas_a, *ws_b, *gammas_b, *betas_b)
-    pa, pb, ia, ib = out[:4]
-    st = out[4:]
-    L = n_layers
-    return ((pa, list(st[:L]), list(st[L:2 * L]), ia),
-            (pb, list(st[2 * L:3 * L]), list(st[3 * L:]), ib))
+                         f"{len(gammas_a)} and {len(gammas_b)} layers")
+    ra, rb = _apply(xyz, centers, mask, eps, [
+        ("a", pfa, wxyz_a, ws_a, gammas_a, betas_a, radius_a, nsample_a),
+        ("b", pfb, wxyz_b, ws_b, gammas_b, betas_b, radius_b, nsample_b)])
+    return ra, rb
+
+
+def sa_scale_train(xyz, centers, mask, pf, wxyz, ws, gammas, betas, *,
+                   radius: float, nsample: int, eps: float = 1e-5):
+    """Kernel B8 over (B, N, 3) points and (B, M, 3) centers; arguments and
+    returns as `sa_scale_train_reference`."""
+    if not xyz.is_cuda:
+        return sa_scale_train_reference(xyz, centers, mask, pf, wxyz, ws,
+                                        gammas, betas, radius=radius,
+                                        nsample=nsample, eps=eps)
+    return _apply(xyz, centers, mask, eps, [
+        ("", pf, wxyz, ws, gammas, betas, radius, nsample)])[0]
 
 
 def fused_sa_pair_train(xyz, centers, features, mask,
@@ -341,3 +375,17 @@ def fused_sa_pair_train(xyz, centers, features, mask,
         list(biases_b), radius_a=radius_a, radius_b=radius_b,
         nsample_a=nsample_a, nsample_b=nsample_b, eps=eps)
     return ra[:3], rb[:3]
+
+
+def fused_sa_scale_train(xyz, centers, features, mask,
+                         ws: Sequence[torch.Tensor],
+                         scales: Sequence[torch.Tensor],
+                         biases: Sequence[torch.Tensor], *, radius: float,
+                         nsample: int, eps: float = 1e-5):
+    """One scale of a train-mode SA-MSG level (JAX `fused_sa_scale_train`,
+    pallas_sa_train.py:1017); arguments as one scale of
+    `fused_sa_pair_train`. Returns (pooled, mus, vars)."""
+    pf, wxyz = hoist_layer1_train(features, ws[0])
+    return sa_scale_train(xyz, centers, mask, pf, wxyz, list(ws[1:]),
+                          list(scales), list(biases), radius=radius,
+                          nsample=nsample, eps=eps)[:3]

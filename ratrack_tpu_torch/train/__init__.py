@@ -1,15 +1,18 @@
 """Train and eval steps, losses and train checkpoints."""
 
-from .checkpoint import restore_train_state, save_train_state
+from .checkpoint import (restore_model, restore_train_state,
+                         save_train_state)
 from .losses import track4d_loss
 from .step import (TrainConfig, TrainState, chain_contiguous,
-                   create_train_state, make_optimizer,
-                   make_scan_eval_step_cached, make_scan_train_step,
+                   create_train_state, make_eval_step, make_optimizer,
+                   make_scan_eval_step, make_scan_eval_step_cached, make_scan_train_step,
                    make_train_step, optimizer_step)
 
 __all__ = [
     "TrainConfig", "TrainState", "chain_contiguous", "create_train_state",
-    "make_optimizer", "make_scan_eval_step_cached", "make_scan_train_step",
-    "make_train_step", "optimizer_step", "restore_train_state",
+    "make_eval_step", "make_optimizer", "make_scan_eval_step",
+    "make_scan_eval_step_cached", "make_scan_train_step",
+    "make_train_step", "optimizer_step", "restore_model",
+    "restore_train_state",
     "save_train_state", "track4d_loss",
 ]

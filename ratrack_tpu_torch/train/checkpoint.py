@@ -44,3 +44,13 @@ def restore_train_state(root: str, name: str, ts: TrainState) -> TrainState:
     ts.scheduler.load_state_dict(ckpt["scheduler"])
     ts.step = int(ckpt["step"])
     return ts
+
+
+def restore_model(root: str, name: str, model: torch.nn.Module):
+    """Load only the model's weights and batch norm statistics of
+    <root>/<name>.pt into `model` (for serving and evaluation, which need
+    no optimizer) and return it, in the mode it was in."""
+    ckpt = torch.load(_path(root, name), map_location="cpu",
+                      weights_only=True)
+    model.load_state_dict(ckpt["model"])
+    return model

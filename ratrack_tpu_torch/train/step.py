@@ -15,7 +15,9 @@ per optimizer step.
 Eval (`make_scan_eval_step_cached`, :406-462): frame t's pc2 is frame
 t-1's pc1 in a contiguous stream, and in eval the PNHead is a pure
 function of the cloud: the pc2 head is computed once at block entry and
-each frame's f1 is carried as the next frame's f2.
+each frame's f1 is carried as the next frame's f2. `make_eval_step` and
+`make_scan_eval_step` (:206-216, :380-403) are the uncached forms: both
+heads every frame, as serving runs it.
 """
 
 from __future__ import annotations
@@ -46,6 +48,36 @@ def chain_contiguous(frame_numbers, new_seq) -> bool:
 def frame_at(frames: FrameBatch, t: int) -> FrameBatch:
     """Frame t of a (B, T, ...) block as contiguous (B, ...) tensors."""
     return FrameBatch(*[x[:, t].contiguous() for x in frames])
+
+
+def make_eval_step(model):
+    """-> eval_step(track_state, frame (B, ...)) -> (outputs, new_state):
+    one uncached model step over B streams, no gradient."""
+
+    @torch.inference_mode()
+    def eval_step(track_state: TrackState, frame: FrameBatch):
+        return model(frame, track_state)
+
+    return eval_step
+
+
+def make_scan_eval_step(model):
+    """-> scan_eval(track_state, frames (B, T, ...)) -> (new_state,
+    {key: (B, T, ...)} for the keys in KEEP): the uncached step frame by
+    frame. Equal to `make_scan_eval_step_cached` where `chain_contiguous`
+    holds."""
+
+    @torch.inference_mode()
+    def scan_eval(track_state: TrackState, frames: FrameBatch):
+        outs = {k: [] for k in KEEP}
+        for t in range(frames.pc1.shape[1]):
+            out, track_state = model(frame_at(frames, t), track_state)
+            for k in KEEP:
+                outs[k].append(out[k])
+        return track_state, {k: torch.stack(v, dim=1)
+                             for k, v in outs.items()}
+
+    return scan_eval
 
 
 def make_scan_eval_step_cached(model):

@@ -612,3 +612,193 @@ def test_stretch_track4d_gpu_matches_cpu(device):
                                    atol=1e-3)
     labels_bad = (gpu["labels"].cpu() != cpu["labels"]).float().mean().item()
     assert labels_bad <= 0.01, labels_bad
+
+
+# ---- the one-scale kernels B1' and B8, and the general SA level ----------
+
+LEVELS = sorted(cases.GENERAL_LEVELS)
+
+
+def _assert_scale_matches(kw):
+    out, idx = fused_sa.sa_scale(**kw, return_indices=True)
+    ref, ridx = fused_sa.sa_scale_reference(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), ridx)
+    _assert_close(out, ref)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_sa_scale_matches_plain(device, level):
+    """Every scale of a one-scale level, a three-scale level and a pair of
+    unequal depth, over a masked cloud."""
+    pc1, m1, _, _ = cases.clouds(30, 4)
+    for kw in cases.sa_scale_cases(level, pc1, m1, _gen(30)):
+        _assert_scale_matches(cases.to_device(kw, device))
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 5])
+def test_sa_scale_no_hit_and_short_slots(device, n_valid):
+    """No valid point: every center pools the pair (i, point 0); few valid
+    points: most slot lists stay short."""
+    pc1, _, _, _ = cases.clouds(31, 2)
+    mask = (torch.arange(pc1.shape[1]) < n_valid).expand(2, -1).contiguous()
+    for kw in cases.sa_scale_cases("three_scales", pc1, mask, _gen(31)):
+        _assert_scale_matches(cases.to_device(kw, device))
+
+
+def test_sa_scale_fewer_centers_than_points(device):
+    """N != M with ragged sizes: 1100 points (700 valid), 130 centers."""
+    pc, _, _, _ = cases.clouds(32, 2, 1100, n_static=600)
+    mask = (torch.arange(1100) < 700).expand(2, -1).contiguous()
+    for kw in cases.sa_scale_cases("mixed_depth", pc, mask, _gen(32),
+                                   npoint=130):
+        assert kw["centers"].shape == (2, 130, 3)
+        _assert_scale_matches(cases.to_device(kw, device))
+
+
+@pytest.mark.parametrize("level", ["sa1", "sa2", "sa3"])
+def test_sa_pair_equals_two_sa_scales(device, level):
+    """The pair kernel and two one-scale launches agree bit for bit."""
+    pc1, m1, _, _ = cases.clouds(33, 4)
+    kw = cases.to_device(cases.sa_case(level, "pn_head", pc1, m1, _gen(33)),
+                         device)
+    pair = fused_sa.sa_pair(**kw, return_indices=True)
+    for t, single in enumerate(cases.split_sa_case(kw)):
+        out, idx = fused_sa.sa_scale(**single, return_indices=True)
+        assert torch.equal(out, pair[t]) and torch.equal(idx, pair[t + 2])
+
+
+def _assert_scale_train_match(kw, cancelling=None):
+    _assert_train_match(cases.sa_scale_train_run,
+                        fused_sa_train.sa_scale_train,
+                        fused_sa_train.sa_scale_train_reference, kw,
+                        cancelling)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_sa_scale_train_matches_plain(device, level):
+    pc1, m1, _, _ = cases.clouds(34, 4)
+    for kw in cases.sa_scale_train_cases(level, pc1, m1, _gen(34)):
+        _assert_scale_train_match(cases.to_device(kw, device))
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 5])
+def test_sa_scale_train_no_hit_and_short_slots(device, n_valid):
+    """As test_sa_pair_train_no_hit_and_short_slots, per scale of the
+    mixed-depth level."""
+    pc1, _, _, _ = cases.clouds(35, 2)
+    mask = (torch.arange(pc1.shape[1]) < n_valid).expand(2, -1).contiguous()
+    cancelling = {"pf": "wxyz"} if n_valid < 2 else None
+    for kw in cases.sa_scale_train_cases("mixed_depth", pc1, mask, _gen(35),
+                                         centers=pc1):
+        _assert_scale_train_match(cases.to_device(kw, device), cancelling)
+
+
+def test_sa_scale_train_fewer_centers_than_points(device):
+    """N != M with ragged sizes: 1100 points (700 valid), 130 centers."""
+    pc, _, _, _ = cases.clouds(36, 2, 1100, n_static=600)
+    mask = (torch.arange(1100) < 700).expand(2, -1).contiguous()
+    centers = cases.fps_centers(pc, mask, 130)
+    for kw in cases.sa_scale_train_cases("three_scales", pc, mask, _gen(36),
+                                         centers=centers):
+        _assert_scale_train_match(cases.to_device(kw, device))
+
+
+@pytest.mark.parametrize("level", ["sa1", "sa2", "sa3"])
+def test_sa_pair_train_equals_two_sa_scale_trains(device, level):
+    """Kernel B9 over a same-depth pair and two kernel B8 calls: pooled
+    outputs, selections, statistics and every weight, scale and bias
+    gradient equal bit for bit; the feature gradient, scattered with float
+    atomics in an order that changes from run to run, within 1e-5 of its
+    largest element."""
+    pc1, m1, _, _ = cases.clouds(37, 4)
+    kw = cases.to_device(cases.sa_train_case(level, "pn_head", pc1, m1,
+                                             _gen(37)), device)
+    outs, grads = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
+    for t, (tag, single) in enumerate(zip("ab",
+                                          cases.split_sa_train_case(kw))):
+        o1, g1 = cases.sa_scale_train_run(fused_sa_train.sa_scale_train,
+                                          single, seed=t)
+        for key, val in o1.items():
+            assert torch.equal(val, outs[cases.pair_key(key, tag)]), key
+        for key, val in g1.items():
+            want = grads[cases.pair_key(key, tag)]
+            if key == "pf":
+                assert (val - want).abs().max().item() <= \
+                    1e-5 * want.abs().max().item() + 1e-7
+            else:
+                assert torch.equal(val, want), key
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_general_sa_level_gpu_matches_cpu(device, level):
+    """SetAbstractionMSG with 1 scale, 3 scales and 2 scales of unequal
+    depth: eval and one train forward + backward on the card against the
+    CPU within 2e-3 x max + 1e-5 (the gradients pass max-pool near-ties),
+    and the kernels it launches, by the JAX module's routing: in eval a
+    level of two scales takes one B1 whatever their depths, any other one
+    B1' per scale; in train one B8 per scale, B9 only for equal depths."""
+    from ratrack_tpu_torch.models import SetAbstractionMSG, init_parameters
+    radii, nsamples, mlps, c_feat = cases.GENERAL_LEVELS[level]
+    pc1, m1, _, _ = cases.clouds(38, 2)
+    feats = torch.randn((2, pc1.shape[1], c_feat), generator=_gen(38))
+    mods = {}
+    for dev in ("cpu", device):
+        mod = SetAbstractionMSG(pc1.shape[1], radii, nsamples, mlps,
+                                3 + c_feat)
+        init_parameters(mod, _gen(39))
+        mods[dev] = mod.eval().to(dev)
+    count = (fused_sa.sa_scale, fused_sa.sa_pair,
+             fused_sa_train.sa_scale_train_fwd,
+             fused_sa_train.sa_scale_train_bwd,
+             fused_sa_train.sa_pair_train_fwd)
+    before = [c.launches for c in count]
+    res = {}
+    for dev, mod in mods.items():
+        with torch.no_grad():
+            ev = mod(pc1.to(dev), feats.to(dev), m1.to(dev))[1]
+        mod.train()
+        f = feats.to(dev).clone().requires_grad_(True)
+        out = mod(pc1.to(dev), f, m1.to(dev))[1]
+        out.square().sum().backward()
+        res[dev] = [ev, out.detach(), f.grad] + [
+            p.grad for p in mod.parameters()] + [
+            b for b in mod.buffers() if b.is_floating_point()]
+    torch.cuda.synchronize()
+    n = len(radii)
+    want = [0, 1, n, n, 0] if n == 2 else [n, 0, n, n, 0]
+    assert [c.launches - b for c, b in zip(count, before)] == want
+    for got, want in zip(res[device], res["cpu"]):
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 2e-3 * want.abs().max().item() + 1e-5, err
+
+
+def test_scale_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    pc1, m1, _, _ = cases.clouds(40, 2)
+    kw = cases.to_device(cases.sa_scale_cases("one_scale", pc1, m1,
+                                              _gen(40))[0], device)
+    with pytest.raises(ValueError):
+        fused_sa.sa_scale(**{**kw, "nsample": 33})
+    with pytest.raises(TypeError):
+        fused_sa.sa_scale(**{**kw, "p1": kw["p1"].double()})
+    with pytest.raises(ValueError):        # a layer wider than 64
+        wide = [(torch.zeros((32, 128), device=device),
+                 torch.zeros(128, device=device))]
+        fused_sa.sa_scale(**{**kw, "rest": wide})
+    tk = cases.to_device(cases.sa_scale_train_cases("one_scale", pc1, m1,
+                                                    _gen(40))[0], device)
+    with pytest.raises(ValueError):
+        fused_sa_train.sa_scale_train(**{**tk, "nsample": 64})
+    with pytest.raises(ValueError):        # four layers
+        fused_sa_train.sa_scale_train(**{
+            **tk, "ws": tk["ws"] + [torch.zeros((64, 64), device=device)],
+            "gammas": tk["gammas"] + [torch.ones(64, device=device)],
+            "betas": tk["betas"] + [torch.zeros(64, device=device)]})
+    with pytest.raises(ValueError):        # the pair kernel: equal depth
+        a, b = [cases.to_device(c, device) for c in
+                cases.sa_scale_train_cases("mixed_depth", pc1, m1, _gen(40))]
+        fused_sa_train.sa_pair_train(
+            a["xyz"], a["centers"], a["mask"], a["pf"], a["wxyz"], a["ws"],
+            a["gammas"], a["betas"], b["pf"], b["wxyz"], b["ws"],
+            b["gammas"], b["betas"], radius_a=4.0, radius_b=8.0,
+            nsample_a=8, nsample_b=16)

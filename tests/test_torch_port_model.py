@@ -27,6 +27,8 @@ from ratrack_tpu.models.affinity import Affinity as JAffinity
 from ratrack_tpu.models.correlator import FeatureCorrelator as JCorrelator
 from ratrack_tpu.models.decoder import FlowDecoder as JFlowDecoder
 from ratrack_tpu.models.pnhead import PNHead as JPNHead
+from ratrack_tpu.models.pnhead import SetAbstractionMSG as JSetAbstractionMSG
+from ratrack_tpu.ops import pallas_sa
 from ratrack_tpu.tracker import association as jassoc
 from ratrack_tpu.tracker import dbscan as jdbscan
 from ratrack_tpu.tracker import init_state as jinit_state
@@ -35,7 +37,8 @@ from ratrack_tpu.train.step import make_scan_eval_step_cached as jscan
 from ratrack_tpu.utils.convert import (convert_reference_state_dict,
                                        export_reference_state_dict)
 from ratrack_tpu_torch.data import FrameBatch, to_tensors
-from ratrack_tpu_torch.models import Track4D
+from ratrack_tpu_torch.kernels.cases import GENERAL_LEVELS
+from ratrack_tpu_torch.models import SetAbstractionMSG, Track4D
 from ratrack_tpu_torch.tracker import (associate, cluster_descriptors,
                                        dbscan, greedy_gt_match, init_state,
                                        log_optimal_transport_masked,
@@ -60,6 +63,10 @@ def _variables(model, frame, seed=0):
     shapes = jax.eval_shape(
         lambda k: model.init(k, frame, jinit_state(K), train=False),
         jax.random.PRNGKey(seed))
+    return _random_tree(shapes, seed)
+
+
+def _random_tree(shapes, seed):
     rng = np.random.RandomState(seed)
 
     def fill(path, sd):
@@ -339,3 +346,103 @@ def test_reference_checkpoint_loads_through_jax_converter(world):
     for key, val in want.items():
         np.testing.assert_array_equal(sd[key].numpy(), val.numpy(),
                                       err_msg=key)
+
+
+# ---- the general SA level: any number of scales, any depths <= 3 ---------
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("level", sorted(GENERAL_LEVELS))
+def test_general_sa_level_matches_jax(world, level, fused, train,
+                                      monkeypatch):
+    """SetAbstractionMSG with 1 scale, 3 scales and 2 scales of depths 2
+    and 3, module against module on the same flax variables, over a masked
+    cloud of 2 streams. The JAX side runs once unfused (query_and_group +
+    PointwiseMLP) and once through its Pallas kernels in interpret mode
+    (pallas_sa.FORCE_FUSED_ON_CPU; one stream then, the kernels are slow
+    there).
+    Eval: 1e-4, against both. Train against the unfused path: output and
+    the running statistics after the call 1e-5 x max (the mean over streams
+    of the per-stream updates), gradients to the features and every
+    parameter 1e-4 x max|g_jax|; against the fused train kernels, whose
+    bf16 passes set the class tests/test_pallas_sa_train.py pins: output
+    and statistics 3% of max, the whole gradient's cosine >= 0.99, and
+    every gradient leaf no further (in norm) from the fused kernels' than
+    the JAX unfused path's own leaf is, plus 1e-4 of that leaf's norm."""
+    monkeypatch.setattr(pallas_sa, "FORCE_FUSED_ON_CPU", fused)
+    _, _, _, frames = world
+    radii, nsamples, mlps, c = GENERAL_LEVELS[level]
+    nb = 1 if fused else B
+    rng = np.random.RandomState(50)
+    xyz, mask = frames.pc1[:nb, 0], frames.mask1[:nb, 0]
+    feats = rng.randn(nb, N, c).astype(np.float32)
+    cot = rng.randn(nb, N, sum(m[-1] for m in mlps)).astype(np.float32)
+    jmod = JSetAbstractionMSG(N, radii, nsamples, mlps)
+    v = _random_tree(jax.eval_shape(
+        lambda k: jmod.init(k, xyz[0], feats[0], mask[0], False),
+        jax.random.PRNGKey(0)), 51)
+    port = SetAbstractionMSG(N, radii, nsamples, mlps, 3 + c)
+    port.load_state_dict(from_flax_variables(v), strict=True)
+    assert [n for n, _ in port.named_children()] == [
+        f"mlp_{i}" for i in range(len(radii))]
+
+    if not train:
+        want_xyz, want = jax.vmap(lambda x, f, m: jmod.apply(
+            v, x, f, m, False))(xyz, feats, mask)
+        port.eval()
+        with torch.no_grad():
+            got_xyz, got = port(torch.from_numpy(xyz),
+                                torch.from_numpy(feats),
+                                torch.from_numpy(mask))
+        np.testing.assert_array_equal(got_xyz.numpy(), np.asarray(want_xyz))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return
+
+    def loss(params, f):
+        def one(x, fb, mb, cb):
+            (_, out), mut = jmod.apply(
+                {"params": params, "batch_stats": v["batch_stats"]}, x, fb,
+                mb, True, mutable=["batch_stats"])
+            return jnp.sum(out * cb), (out, mut["batch_stats"])
+        each, aux = jax.vmap(one)(xyz, f, mask, cot)
+        return jnp.sum(each), aux
+    grad_fn = jax.grad(loss, argnums=(0, 1), has_aux=True)
+    (jg_params, jg_feats), (want, jstats) = grad_fn(v["params"], feats)
+    if fused:     # the JAX package's own distance between its two paths
+        monkeypatch.setattr(pallas_sa, "FORCE_FUSED_ON_CPU", False)
+        (ug_params, ug_feats), _ = grad_fn(v["params"], feats)
+        unfused = {"features": np.asarray(ug_feats), **{
+            n: w.numpy() for n, w in from_flax_variables(
+                {"params": ug_params}).items()}}
+
+    port.train()
+    f_t = torch.from_numpy(feats).requires_grad_(True)
+    _, got = port(torch.from_numpy(xyz), f_t, torch.from_numpy(mask))
+    (got * torch.from_numpy(cot)).sum().backward()
+    want_stats = from_flax_variables({"batch_stats": jax.tree_util.tree_map(
+        lambda a: np.asarray(a).mean(0), jstats)})
+    want_grads = from_flax_variables({"params": jg_params})
+    got_grads = {n: p.grad for n, p in port.named_parameters()}
+    assert set(got_grads) == set(want_grads)
+    pairs = [("features", f_t.grad.numpy(), np.asarray(jg_feats))] + [
+        (n, got_grads[n].numpy(), w.numpy()) for n, w in want_grads.items()]
+    outs = [("out", got.detach().numpy(), np.asarray(want))] + [
+        (n, port.state_dict()[n].numpy(), w.numpy())
+        for n, w in want_stats.items()]
+    for name, a, b in outs:
+        tol = (0.03 if fused else 1e-5) * np.abs(b).max()
+        assert np.abs(a - b).max() <= tol, (name, np.abs(a - b).max(), tol)
+    if fused:
+        a = np.concatenate([a.ravel() for _, a, _ in pairs])
+        b = np.concatenate([b.ravel() for _, _, b in pairs])
+        cos = float(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert cos >= 0.99, cos
+    for name, a, b in pairs:
+        if fused:
+            u = unfused[name]
+            assert np.linalg.norm(a - b) <= (
+                np.linalg.norm(u - b) + 1e-4 * np.linalg.norm(u)), name
+        else:
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-4 * np.abs(b).max(),
+                                       err_msg=name)

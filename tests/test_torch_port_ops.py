@@ -200,6 +200,78 @@ def test_sa_pair_plain_matches_jax_kernel(level, mask):
                                        **TOL)
 
 
+@pytest.mark.parametrize("mask", ["partial", "few", "zero"])
+@pytest.mark.parametrize("level", sorted(cases.GENERAL_LEVELS))
+def test_sa_scale_plain_matches_jax_kernel(level, mask):
+    """Kernel B1's one-scale form: `fused_sa_scale` of the port (plain
+    version) against the JAX kernel in interpret mode, every scale of a
+    one-scale level, a three-scale level and a pair of unequal depth, over
+    a masked cloud, a nearly empty one (no-hit centers pool the pair
+    (i, point 0)) and an empty one; 1e-4."""
+    radii, nsamples, mlps, c = cases.GENERAL_LEVELS[level]
+    rng = np.random.RandomState(30)
+    xyz, m = _cloud(31, scale=3.0), _mask(mask)
+    feats = rng.randn(B, N, c).astype(np.float32)
+    for r, ns, widths in zip(radii, nsamples, mlps):
+        ws, bs = _folded(rng, (3 + c,) + widths)
+        got = fused_sa.fused_sa_scale(
+            _t(xyz), _t(xyz), _t(feats), _t(m), [_t(w) for w in ws],
+            [_t(x) for x in bs], radius=r, nsample=ns)
+        assert got.shape == (B, N, widths[-1])
+        for b in range(B):
+            want = pallas_sa.fused_sa_scale(
+                _j(xyz, b), _j(xyz, b), _j(feats, b), _j(m, b), ws, bs,
+                radius=r, nsample=ns, compute_dtype=jnp.float32,
+                precision=HI, interpret=True)
+            np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
+                                       **TOL)
+
+
+@pytest.mark.parametrize("level", sorted(cases.GENERAL_LEVELS))
+def test_sa_scale_plain_matches_jax_kernel_fewer_centers(level):
+    """N != M: 256 points (a mask on them), 128 centers drawn from the
+    valid ones, no features on the first scale's twin call; and a pair call
+    equals the two one-scale calls bit for bit."""
+    radii, nsamples, mlps, c = cases.GENERAL_LEVELS[level]
+    n, m_c = 256, 128
+    rng = np.random.RandomState(32)
+    xyz = _cloud(33, n=n, scale=3.0)
+    mask = np.broadcast_to(np.arange(n) < 200, (B, n)).copy()
+    centers = np.stack([xyz[b][rng.permutation(200)[:m_c]] for b in range(B)])
+    feats = rng.randn(B, n, c).astype(np.float32)
+    outs, params = [], []
+    for r, ns, widths in zip(radii, nsamples, mlps):
+        ws, bs = _folded(rng, (3 + c,) + widths)
+        params.append(([_t(w) for w in ws], [_t(x) for x in bs]))
+        got = fused_sa.fused_sa_scale(
+            _t(xyz), _t(centers), _t(feats), _t(mask), *params[-1], radius=r,
+            nsample=ns)
+        outs.append(got)
+        for b in range(B):
+            want = pallas_sa.fused_sa_scale(
+                _j(xyz, b), _j(centers, b), _j(feats, b), _j(mask, b), ws,
+                bs, radius=r, nsample=ns, compute_dtype=jnp.float32,
+                precision=HI, interpret=True)
+            np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
+                                       **TOL)
+    if len(radii) >= 2:
+        oa, ob = fused_sa.fused_sa_pair(
+            _t(xyz), _t(centers), _t(feats), _t(mask), *params[0],
+            *params[1], radius_a=radii[0], radius_b=radii[1],
+            nsample_a=nsamples[0], nsample_b=nsamples[1])
+        assert torch.equal(oa, outs[0]) and torch.equal(ob, outs[1])
+    w0, b0 = params[0]
+    bare = fused_sa.fused_sa_scale(
+        _t(xyz), _t(centers), None, _t(mask), [w0[0][:3]] + w0[1:], b0,
+        radius=radii[0], nsample=nsamples[0])
+    want = pallas_sa.fused_sa_scale(
+        _j(xyz, 0), _j(centers, 0), None, _j(mask, 0),
+        [w0[0][:3].numpy()] + [w.numpy() for w in w0[1:]],
+        [x.numpy() for x in b0], radius=radii[0], nsample=nsamples[0],
+        compute_dtype=jnp.float32, precision=HI, interpret=True)
+    np.testing.assert_allclose(bare[0].numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("mask", MASKS)
 def test_three_interpolate_plain_matches_jax_kernel(mask):
     u, k, m = _cloud(11), _cloud(12), _mask(mask)
@@ -374,7 +446,8 @@ def test_port_imports_no_jax():
         "('jax.', 'jaxlib', 'flax', 'ratrack_tpu.'))]\n"
         "assert not bad, bad\n"
         "for name in ('device', 'ops.morton', 'ops.fused_knn', "
-        "'ops.fused_sinkhorn', 'ops.sampling', 'tracker.dbscan'):\n"
+        "'ops.fused_sinkhorn', 'ops.sampling', 'tracker.dbscan', 'serve', "
+        "'config'):\n"
         "    assert 'ratrack_tpu_torch.' + name in sys.modules, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    env={**os.environ, "PYTHONPATH": root})

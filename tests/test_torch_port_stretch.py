@@ -31,7 +31,12 @@ from ratrack_tpu.tracker import association as jassoc
 from ratrack_tpu.tracker import init_state as jinit_state
 from ratrack_tpu.tracker import sinkhorn as jsinkhorn
 from ratrack_tpu.tracker.dbscan import compact_dbscan as j_compact_dbscan
+from ratrack_tpu.train.step import TrainState as JTrainState
+from ratrack_tpu.train.step import _make_loss_fn
+from ratrack_tpu.train.step import make_optimizer as jmake_optimizer
 from ratrack_tpu.train.step import make_scan_eval_step_cached as jscan
+from ratrack_tpu.train.step import make_scan_train_step as jscan_train
+from ratrack_tpu.train.step import make_train_step as jmake_train_step
 from ratrack_tpu_torch.data import FrameBatch, to_tensors
 from ratrack_tpu_torch.models import FeatureCorrelator, Track4D
 from ratrack_tpu_torch.ops import morton, neighborhood
@@ -42,7 +47,11 @@ from ratrack_tpu_torch.ops.sampling import furthest_point_sample
 from ratrack_tpu_torch.tracker import (associate, init_state,
                                        log_optimal_transport_masked)
 from ratrack_tpu_torch.tracker.dbscan import compact_dbscan
-from ratrack_tpu_torch.train import make_scan_eval_step_cached
+from ratrack_tpu_torch.ops.fused_correlator_train import \
+    knn_weight_aggregate_train_reference
+from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                     make_scan_eval_step_cached,
+                                     make_scan_train_step, make_train_step)
 from ratrack_tpu_torch.utils import from_flax_variables
 
 
@@ -424,6 +433,197 @@ def test_stretch_scan_with_sinkhorn_kernel_switch(stretch_world):
         init_state(1, K, device="cpu"), ft)
     for key in ("labels", "track_id"):
         assert torch.equal(a[key], b[key]), key
+
+
+# ---- the train stretch path in small: 256 points, 128 centers ----------
+
+TB, TT = 2, 2
+
+
+@pytest.fixture(scope="module")
+def train_stretch_world():
+    """(JAX stretch model, numpy variables, numpy frames (2, 2, ...)) at
+    256 points: true FPS of 128 centers, compact DBSCAN over 64 points."""
+    clips = [stack_frames(synthetic_clip(5 + s, TT, n_max=N, g_max=K,
+                                         n_static=150, n_objects=4))
+             for s in range(TB)]
+    frames = JFrameBatch(*[np.stack([np.asarray(getattr(c, f))
+                                     for c in clips])
+                           for f in JFrameBatch._fields])
+    frames = frames._replace(pc1=_snap(frames.pc1), pc2=_snap(frames.pc2),
+                             pc1_comp=_snap(frames.pc1_comp))
+    model = JTrack4D(npoint=NPOINT, k_max=K, sinkhorn_iters=ITERS,
+                     exact_fps=True, mov_budget=BUDGET)
+    f0 = jax.tree_util.tree_map(lambda x: jnp.asarray(x[0, 0]), frames)
+    return model, _variables(model, f0, K, seed=1), frames
+
+
+def _stretch_port(variables):
+    port = Track4D(npoint=NPOINT, k_max=K, sinkhorn_iters=ITERS,
+                   exact_fps=True, mov_budget=BUDGET, device="cpu")
+    port.load_state_dict(from_flax_variables(variables), strict=True)
+    return port
+
+
+def _jstates():
+    return jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (TB,) + x.shape), jinit_state(K))
+
+
+def _f64(tree):
+    """Every float32 leaf of a numpy tree as a float64 jax array (inside
+    jax.enable_x64)."""
+    return jax.tree_util.tree_map(
+        lambda x: jnp.asarray(np.asarray(x), jnp.float64)
+        if np.asarray(x).dtype == np.float32 else jnp.asarray(x), tree)
+
+
+def _jax_model(dtype):
+    return JTrack4D(npoint=NPOINT, k_max=K, sinkhorn_iters=ITERS,
+                    exact_fps=True, mov_budget=BUDGET, dtype=dtype)
+
+
+def test_train_stretch_step_matches_jax(train_stretch_world):
+    """One train step of the stretch model with N != npoint (FPS under no
+    gradient, SA train kernels' plain versions over 128 centers of 256
+    points, FP over 256 x 128, compact DBSCAN and the tracker detached)
+    against the gradient of the JAX unfused train path.
+
+    The yardstick is the JAX package computing in float64 (its modules
+    take a dtype): loss items 1e-5 relative, every gradient leaf
+    |g - g_jax64| <= 1e-4 |G_jax64| + 1e-6 in norm (G the whole gradient)
+    and cosine >= 0.9999 for every leaf above 1e-4 |G|. Against the JAX
+    package's own float32 run the classes of tests/test_torch_port_train.py
+    hold for the loss items (1e-4 relative) and the BN running statistics
+    after the step (1e-5), and the gradient leaves are held to 5e-3 |G|,
+    not the 1e-3 of the 128-point step: on these inputs the JAX float32
+    gradient is itself 3.1e-3 |G| from its float64 run (worst leaf
+    fc_layer.mlp.dense_0.weight; the mse head's layer 1 sees 256 channels
+    that are constant over a stream, so |mean| >> sigma in its batch norm,
+    where JAX's E[x^2] - mean^2 loses digits), while the port's float32
+    gradient is 6e-6 |G| from it."""
+    model, v, frames = train_stretch_world
+    fr = FrameBatch(*[np.ascontiguousarray(x[:, 0]) for x in frames])
+    grad_fn = jax.jit(jax.grad(_make_loss_fn(model), has_aux=True))
+    jgrads, (_, jitems, jstats) = grad_fn(
+        v["params"], v["batch_stats"], _jstates(),
+        jax.tree_util.tree_map(jnp.asarray, fr), False)
+    with jax.enable_x64(True):
+        g64, (_, items64, _) = jax.jit(jax.grad(
+            _make_loss_fn(_jax_model(jnp.float64)), has_aux=True))(
+            _f64(v["params"]), _f64(v["batch_stats"]),
+            _f64(jax.tree_util.tree_map(np.asarray, _jstates())), _f64(fr),
+            False)
+        g64 = jax.tree_util.tree_map(np.asarray, g64)
+        items64 = {k: np.asarray(x) for k, x in items64.items()}
+    port = _stretch_port(v)
+    ts = create_train_state(port, TrainConfig(), steps_per_epoch=10,
+                            device="cpu")
+    _, items = make_train_step(ts)(init_state(TB, K, device="cpu"),
+                                   to_tensors(fr, "cpu"), False)
+    for key, val in jitems.items():
+        np.testing.assert_allclose(items[key].numpy(), np.asarray(val),
+                                   rtol=1e-4, atol=1e-6, err_msg=key)
+        np.testing.assert_allclose(items[key].numpy(), items64[key],
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+    got = {n: p.grad.double() for n, p in port.named_parameters()}
+    norm = torch.linalg.vector_norm
+    for want, leaf_tol, cos_min in (
+            (from_flax_variables({"params": g64}), 1e-4, 0.9999),
+            (from_flax_variables({"params": jgrads}), 5e-3, 0.999)):
+        want = {n: w.double() for n, w in want.items()}
+        assert set(got) == set(want)
+        total = float(norm(torch.cat([w.flatten() for w in want.values()])))
+        assert total > 0
+        for name, w in want.items():
+            err = float(norm(got[name] - w))
+            assert err <= leaf_tol * total + 1e-6, (name, err, total)
+            if float(norm(w)) > 1e-4 * total:
+                cos = float((got[name] * w).sum()) / float(
+                    norm(got[name]) * norm(w))
+                assert cos >= cos_min, (name, cos)
+    stats = from_flax_variables({"batch_stats": jax.tree_util.tree_map(
+        np.asarray, jstats)})
+    sd = port.state_dict()
+    for name, val in stats.items():
+        np.testing.assert_allclose(sd[name].numpy(), val.numpy(), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_train_stretch_scan_matches_jax(train_stretch_world):
+    """make_scan_train_step over 2 streams x 2 frames (2 optimizer steps)
+    against the JAX scan computing in float64 (see the test above: Adam's
+    first update, about lr * sign(g), amplifies the JAX float32 gradient's
+    own rounding to 2.5e-3 of the second frame's loss): per-frame loss
+    items 1e-3 relative; the first frame's also against the JAX float32
+    scan, 1e-4 relative."""
+    model, v, frames = train_stretch_world
+    cfg = TrainConfig()
+    tx = jmake_optimizer(cfg, 10)
+
+    def state0(cast):
+        params = cast(v["params"])
+        return JTrainState(params, cast(v["batch_stats"]), tx.init(params),
+                           jnp.zeros((), jnp.int32))
+    as32 = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    _, _, jitems = jscan_train(model, tx)(state0(as32), _jstates(),
+                                          as32(frames), jnp.asarray(False))
+    items32 = {k: np.asarray(x) for k, x in jitems.items()}
+    with jax.enable_x64(True):
+        # frame by frame: the scan's carry would have to keep one dtype,
+        # and the tracker state mixes float32 descriptors into it
+        step = jmake_train_step(_jax_model(jnp.float64), tx)
+        jts, states, per_frame = state0(_f64), _f64(
+            jax.tree_util.tree_map(np.asarray, _jstates())), []
+        for t in range(TT):
+            jts, states, it = step(jts, states, _f64(
+                JFrameBatch(*[x[:, t] for x in frames])), False)
+            per_frame.append({k: np.asarray(x) for k, x in it.items()})
+        items64 = {k: np.stack([it[k] for it in per_frame])
+                   for k in per_frame[0]}
+    ts = create_train_state(_stretch_port(v), cfg, steps_per_epoch=10,
+                            device="cpu")
+    _, items = make_scan_train_step(ts)(
+        init_state(TB, K, device="cpu"),
+        to_tensors(FrameBatch(*frames), "cpu"), False)
+    for key, val in items64.items():
+        assert items[key].shape == (TT, TB)
+        np.testing.assert_allclose(items[key].numpy(), val, rtol=1e-3,
+                                   atol=1e-6, err_msg=key)
+        np.testing.assert_allclose(items[key][0].numpy(), items32[key][0],
+                                   rtol=1e-4, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_train_correlator_selects_through_the_tiled_knn(monkeypatch, dtype):
+    """Above KNN_DENSE_LIMIT pairs the train correlator stage selects with
+    the tiled kNN (on the card kernel B5, here its plain version, also for
+    the float64 clouds of a CPU yardstick): the same indices, hence the
+    same output and gradients bit for bit, as the dense selection."""
+    rng = np.random.RandomState(60)
+    b, n, c = 2, 96, 256
+    q = torch.from_numpy(_snap(rng.randn(b, n, 3) * 4)).to(dtype)
+    p = torch.from_numpy(_snap(rng.randn(b, n, 3) * 4)).to(dtype)
+    mask = torch.from_numpy(rng.rand(b, n) < 0.8)
+
+    def run():
+        g = torch.Generator().manual_seed(0)
+        leaves = [torch.randn(s, generator=g, dtype=dtype).requires_grad_(True)
+                  for s in ((b, n, c), (b, n, c), (3, c), (c, c), (c,),
+                            (3, 8), (8, 8), (8, c), (8,), (8,), (c,))]
+        fp, aq, wd, w, bias, w0, w1, w2, b0, b1, b2 = leaves
+        out, idx = knn_weight_aggregate_train_reference(
+            q, p, fp, aq, mask, [w], [bias], [w0, w1, w2], [b0, b1, b2],
+            w_dir=wd)
+        out.square().sum().backward()
+        return out.detach(), idx, [x.grad for x in leaves]
+    dense = run()
+    monkeypatch.setattr(neighborhood, "KNN_DENSE_LIMIT", 1000)
+    tiled = run()
+    assert torch.equal(dense[1], tiled[1])
+    assert torch.equal(dense[0], tiled[0])
+    for a, t in zip(dense[2], tiled[2]):
+        assert torch.equal(a, t)
 
 
 def test_entry_points_default_to_the_card():
