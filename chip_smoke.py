@@ -29,7 +29,8 @@ Phases, each printing one line:
                 of its norm plus twice the float32 plain version's
                 distance (max-pool near-ties, see kernels/cases.py::
                 compare_train); median CUDA-event ms of forward and
-                backward;
+                backward; and how many of the backward's thread-block
+                clusters the card holds at once;
   7. train_slice make_scan_train_step over 8 synthetic streams x 2 frames
                 from the same seeded weights on the GPU (float32) and on
                 the CPU (plain versions) in float64 and float32: against
@@ -69,7 +70,8 @@ Phases, each printing one line:
                 and a pair launch (B1, B9) against two one-scale launches:
                 outputs, indices, statistics and weight gradients equal
                 bit for bit, the feature gradient (float atomics) within
-                1e-5 of its largest element;
+                1e-5 of its largest element; B9 twice on the same inputs:
+                everything but the feature gradient identical;
   13. general_slice those three `SetAbstractionMSG` levels in eval and in
                 one train forward + backward on the card against the CPU:
                 eval outputs within 1e-4 x max + 1e-5; train outputs and
@@ -142,6 +144,9 @@ SERVE_CALLS = 50
 SERVE_WARMUP = 5
 REPS = 20
 SEED = 0
+# B6's launch shapes timed against each other: (threads a block, blocks a
+# stream) of one block and of a thread-block cluster, per cloud size
+FPS_SHAPES = ((1024, 1), (128, 1), (128, 2), (128, 8))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 
@@ -441,6 +446,7 @@ def phase_stretch_kernels(torch, seed: int):
             return 0.0, 0.0
         return check
 
+    fps_kws = {}
     centers = cases.fps_centers(pc1, m1, STRETCH_NPOINT)
     # per 8192-point frame step: sa1 of both heads on the cloud, sa2 and
     # sa3 of both heads on the 512 centers with no mask
@@ -450,6 +456,7 @@ def phase_stretch_kernels(torch, seed: int):
             (f"{STRETCH_BIG_N}.masked", clouds[STRETCH_BIG_N][0],
              clouds[STRETCH_BIG_N][1], 0)):
         kw = cases.to_device(cases.fps_case(xyz, mask, STRETCH_NPOINT), dev)
+        fps_kws[name] = kw
         runs.append(dict(
             kernel="furthest_point_sample", config=name, weight=weight,
             run_k=lambda kw=kw: sampling.furthest_point_sample(**kw),
@@ -509,6 +516,25 @@ def phase_stretch_kernels(torch, seed: int):
 
     summary = new_summary(STRETCH_KERNELS + ("sa_pair", "three_interpolate"))
     run_kernel_cases(torch, "stretch_kernel", runs, summary)
+
+    # B6 again with its launch shape forced: one block against a cluster,
+    # each equal to the kernel's own choice (held to the plain loop above)
+    for name, kw in fps_kws.items():
+        want = sampling.furthest_point_sample(**kw)
+        n = kw["xyz"].shape[1]
+        for shape in FPS_SHAPES:
+            if n > 16 * shape[0] * shape[1]:      # over 16 points a thread
+                continue
+            got = sampling.furthest_point_sample(**kw, shape=shape)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"furthest_point_sample[{name}] with {shape[0]} threads "
+                     f"x {shape[1]} blocks a stream differs from its default")
+            emit(phase="stretch_kernel", kernel="furthest_point_sample",
+                 config=name, threads=shape[0], blocks_per_stream=shape[1],
+                 indices_equal=True,
+                 ms=device_ms(torch, lambda: sampling.furthest_point_sample(
+                     **kw, shape=shape)))
     return {k: summary[k] for k in STRETCH_KERNELS}
 
 
@@ -843,6 +869,12 @@ def phase_train_kernels(torch, seed: int):
         return dict(fwd=cases.corr_work(kw, outs["out"]),
                     bwd=cases.corr_train_bwd_work(kw, outs["out"]))
 
+    from ratrack_tpu_torch.kernels import build
+    emit(phase="train_kernel", check="sa_train_bwd_clusters",
+         launches_per_backward=2, blocks_per_cluster=8,
+         clusters_of_a_pair_launch=2 * N_STREAMS,
+         clusters_held_at_once=build.load().ratrack_sa_train_bwd_clusters(
+             N_STREAMS, 2))
     summary = new_summary(TRAIN_KERNELS)
     for kernel, config, kw, fns in runs:
         # a train frame step runs the pn_head on both clouds, the mse once
@@ -1119,6 +1151,12 @@ def phase_scale_kernels(torch, seed: int):
         kw = cases.to_device(cases.sa_train_case(level, "pn_head", pc1, m1,
                                                  gen), dev)
         outs, grads = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
+        # the same launch again: everything but dPF (float atomics) repeats
+        outs2, grads2 = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
+        if not all(torch.equal(v, outs2[k]) for k, v in outs.items()) or \
+                not all(torch.equal(g, grads2[k]) for k, g in grads.items()
+                        if not k.startswith("pf")):
+            bad.append(f"sa_pair_train[{level}] differs from run to run")
         for t, (tag, single) in enumerate(zip(
                 "ab", cases.split_sa_train_case(kw))):
             o1, g1 = cases.sa_scale_train_run(fused_sa_train.sa_scale_train,

@@ -6,10 +6,11 @@
 // ratrack_sa_train_fwd / _bwd) and ::_fwd_kernel and _bwd_kernel with their
 // _pk twins (fused_sa_scale_train; entries ratrack_sa_scale_train_fwd /
 // _bwd, for levels that are not a pair of equal depth). Each scale runs
-// its own launches, so the one-scale entries run the per-scale sequence
-// once, after the same ball query with an empty second list: a pair equals
-// two one-scale calls bit for bit, except where the float atomics of the
-// dPF scatter add in another order.
+// its own launches (forward) or its own blocks of the one launch
+// (backward), so the one-scale entries run the same code once, after the
+// same ball query with an empty second list: a pair equals two one-scale
+// calls bit for bit, except where the float atomics of the dPF scatter add
+// in another order.
 // For each scale (radius r, ns slots, L layers) and stream:
 //   ball query: ns slots per center, CUDA padding (slots past the hit
 //     count repeat the first hit; no hit at all gives point 0);
@@ -36,19 +37,24 @@
 // What bounds it on the H100: not FLOPs (at most 8 streams x 16,384 rows
 // x a 64x64 layer, ~1 GFLOP a level) but the stream-wide BN reduction
 // between every pair of layers, which one TPU program held in VMEM and
-// which here spans many blocks. Design: one launch per layer; every block
-// applies the previous layer's BN + ReLU on load, multiplies, stores the
-// pre-BN activations (the stash the backward reads) and writes per-channel
-// partial sums in float64, so E[z^2] - mu^2 keeps its digits where
-// |mu| >> sigma. A one-block launch adds the partials in a fixed order: no
-// float atomics, so the statistics are identical run to run. The backward
-// is again one launch per layer plus fixed-order reductions of per-chunk
-// partial sums and per-chunk dW partials; only the final dPF scatter uses
-// float atomicAdd. Each scale runs its own launches.
+// which here spans many blocks, and the chain of dependent launches it
+// forces. Forward: one launch per layer; every block applies the previous
+// layer's BN + ReLU on load, multiplies, stores the pre-BN activations (the
+// stash the backward reads) and writes per-channel partial sums in float64,
+// so E[z^2] - mu^2 keeps its digits where |mu| >> sigma. A one-block launch
+// adds the partials in a fixed order: no float atomics, so the statistics
+// are identical run to run. Backward: one launch for all layers of both
+// scales, a thread-block cluster per (stream, scale) that meets after each
+// layer through distributed shared memory, and one finishing reduction (see
+// bwd_cluster_kernel); only the dPF scatter uses float atomicAdd.
 
 #include "common.cuh"
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <math_constants.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,10 +65,8 @@ constexpr int kSelWarps = 8;
 constexpr int kThreads = 256;
 constexpr int kRows = 64;           // rows (center x slot) per tile
 constexpr int kPer = kRows * kMaxC / kThreads;
-constexpr int kChunkTiles = 8;      // backward layer: tiles per block
 constexpr int kRedThreads = 1024;   // statistics reduction, one block
 constexpr int kRedGroups = kRedThreads / kMaxC;
-constexpr int kCenters = 16;        // layer-1 backward: centers per block
 
 // One scale of a level. Mirrored field for field by
 // ops/fused_sa_train.py::_Scale (ctypes); w[0] and dw[0] are unused.
@@ -230,17 +234,14 @@ fwd_layer_kernel(TrainScale s, const float* __restrict__ xyz,
 }
 
 // Adds the partial sums part (B, nblk, 2, kMaxC) of layer l over blocks in
-// a fixed order, stream by stream. Forward: mu and var of every stream
-// (count rows each). Backward: the per-stream sums of dy and dy * xhat into
-// ssum (B, 2, kMaxC), and dbeta / dgamma of layer l summed over streams.
+// a fixed order, stream by stream: mu and var of every stream (count rows
+// each).
 __global__ void __launch_bounds__(kRedThreads)
 reduce_stats_kernel(TrainScale s, int l, int nb, int nblk, double count,
-                    int backward, const double* __restrict__ part,
-                    double* __restrict__ ssum) {
+                    const double* __restrict__ part) {
   __shared__ double red[kRedGroups][2][kMaxC];
   const int c = threadIdx.x % kMaxC, grp = threadIdx.x / kMaxC;
   const int C = s.dims[l];
-  double tot1 = 0.0, tot2 = 0.0;
   for (int bi = 0; bi < nb; ++bi) {
     double s1 = 0.0, s2 = 0.0;
     if (c < C)
@@ -258,23 +259,12 @@ reduce_stats_kernel(TrainScale s, int l, int nb, int nblk, double count,
         a += red[g][0][c];
         q += red[g][1][c];
       }
-      if (backward) {
-        ssum[(size_t)bi * 2 * kMaxC + c] = a;
-        ssum[(size_t)bi * 2 * kMaxC + kMaxC + c] = q;
-        tot1 += a;
-        tot2 += q;
-      } else {
-        const double mu = a / count;
-        const double v = q / count - mu * mu;
-        s.mu[l][bi * C + c] = (float)mu;
-        s.var[l][bi * C + c] = (float)(v > 0.0 ? v : 0.0);
-      }
+      const double mu = a / count;
+      const double v = q / count - mu * mu;
+      s.mu[l][bi * C + c] = (float)mu;
+      s.var[l][bi * C + c] = (float)(v > 0.0 ? v : 0.0);
     }
     __syncthreads();
-  }
-  if (backward && grp == 0 && c < C) {
-    s.dbeta[l][c] = (float)tot1;
-    s.dgamma[l][c] = (float)tot2;
   }
 }
 
@@ -297,217 +287,644 @@ pool_kernel(TrainScale s, int nb, int m, float eps) {
   s.pooled[e] = best;
 }
 
-// Backward of the max-pool and the last ReLU over cpb centers per block:
-// the pooled cotangent goes to every slot whose activation equals the max,
-// split evenly, then through relu' (0 at 0). Stores dy_{L-1} and the
-// block's per-channel sums of dy and dy * xhat.
-__global__ void __launch_bounds__(kThreads)
-bwd_top_kernel(TrainScale s, int m, int cpb, float eps,
-               double* __restrict__ part) {
-  extern __shared__ float smem[];
-  float* dyt = smem;                  // (cpb * ns, C)
-  float* dxt = dyt + kRows * kMaxC;   // dy * xhat
-  const int L = s.n_layers - 1, C = s.dims[L], ns = s.ns;
-  const int bi = blockIdx.y;
-  const int c0 = blockIdx.x * cpb;
-  const int ncen = min(cpb, m - c0);
-  for (int e = threadIdx.x; e < ncen * C; e += kThreads) {
-    const int cl = e / C, c = e % C;
-    const long long g = (long long)bi * m + c0 + cl;
-    const float mu = s.mu[L][bi * C + c];
-    const float rs = rstd_of(s.var[L][bi * C + c], eps);
-    const float ga = s.gamma[L][c], be = s.beta[L][c];
-    const float* z = s.z[L] + (size_t)g * ns * C + c;
-    const float best = s.pooled[g * C + c];
-    int ties = 0;
-    for (int t = 0; t < ns; ++t)
-      ties += fmaxf(bn_apply(z[(size_t)t * C], mu, rs, ga, be), 0.0f) == best;
-    const float share = ties > 0 ? s.dpooled[g * C + c] / (float)ties : 0.0f;
-    float* dy = s.dy[L & 1] + (size_t)g * ns * C + c;
-    for (int t = 0; t < ns; ++t) {
-      const float zv = z[(size_t)t * C];
-      const float y = bn_apply(zv, mu, rs, ga, be);
-      const float d = (fmaxf(y, 0.0f) == best && y > 0.0f) ? share : 0.0f;
-      dy[(size_t)t * C] = d;
-      dyt[(cl * ns + t) * C + c] = d;
-      dxt[(cl * ns + t) * C + c] = d * xhat_of(zv, mu, rs);
-    }
+// ---- backward: one launch, a thread-block cluster per (stream, scale) ----
+//
+// The statistics of a batch norm span one stream, so one cluster of
+// kCluster blocks owns a stream of one scale (the scale on blockIdx.z: a
+// pair is one launch, and a scale runs the same code whichever launch it is
+// in). Block r owns the r-th share of the centers, a contiguous run of
+// rows, through every layer: it reads back only the dy rows it wrote
+// itself. After each layer a block leaves its float64 sums of dy and
+// dy * xhat in its own shared memory, the cluster synchronises, and every
+// block adds the kCluster partials in rank order through distributed
+// shared memory: the same totals everywhere, in a fixed order, no atomics,
+// no further launch. The per-block dW / dW_xyz partials and the per-stream
+// sums go to scratch, and finish_kernel adds them over blocks and streams
+// in a fixed order for every layer of both scales: two launches a backward.
+//
+// Every phase walks the block's rows in tiles (64 rows at 64 channels, more
+// where the layer is narrower) that cp.async brings into shared memory one
+// tile ahead. A layer's products: dz_l and a_{l-1} are staged once a tile
+// (a thread keeps four columns, so the per-channel values are float4 loads
+// without bank conflicts), W_l^T once a block; half of the block's threads
+// keep 4 x 4 tiles of dW (over the whole run of rows) in registers, the
+// other half 4 x 4 tiles of dy_{l-1} (per tile), both fed by float4 loads;
+// the column sums are taken from those registers in float64 and meet across
+// the block once a layer.
+
+constexpr int kCluster = 8;         // blocks per (stream, scale)
+constexpr int kBwd = 512;           // threads per block
+constexpr int kTeam = kBwd / 2;     // threads per product of a layer
+constexpr int kLd = kMaxC + 4;      // row stride of the staged W_l^T
+constexpr int kTile = kRows * kMaxC;   // floats of a raw tile
+constexpr int kStaged = 256 * 20;      // floats of dz / act: 256 rows of 16
+constexpr int kGradLen = (kMaxL - 1) * kMaxC * kMaxC + 3 * kMaxC;
+
+struct ScalePair {
+  TrainScale s[2];
+};
+
+// Offset of dW_l (l >= 1) in a block's flat run of weight-gradient
+// partials; l = n_layers gives dW_xyz's.
+__host__ __device__ inline int grad_offset(const TrainScale& s, int l) {
+  int off = 0;
+  for (int j = 1; j < l; ++j) off += s.dims[j - 1] * s.dims[j];
+  return off;
+}
+
+// Shared memory of bwd_cluster_kernel.
+struct BwdSmem {
+  double red[kBwd * 3];                // block-wide sums, by group
+  double cpart[2][2][kMaxC];           // this block's sums of dy, dy * xhat
+  float raw[2][3][kTile];              // stages of three raw tiles
+  float dz[kStaged];
+  float act[kStaged];
+  float wt[kMaxC * kLd];               // W_l^T: (C_l, C_{l-1})
+  float prm[9][kMaxC];                 // per-channel values, 0 past the width
+  float mean[2][kMaxC];                // mean dy, mean dy * xhat of a layer
+};
+
+// Whether rows of c floats from p can go by 16-byte accesses.
+__device__ __forceinline__ bool vec16(const void* p, int c) {
+  return (c & 3) == 0 && (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Columns c .. c + 3 of a staged row of C floats, zeros past C.
+__device__ __forceinline__ float4 row4(const float* row, int c, int C,
+                                       bool vec) {
+  if (vec) return ld4(row + c);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = c + i < C ? row[c + i] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// count floats (a multiple of 4 where vec) from src to shared memory.
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int count, bool vec) {
+  if (vec) {
+    for (int e = 4 * threadIdx.x; e < count; e += 4 * kBwd)
+      __pipeline_memcpy_async(dst + e, src + e, 16);
+  } else {
+    for (int e = threadIdx.x; e < count; e += kBwd)
+      __pipeline_memcpy_async(dst + e, src + e, 4);
+  }
+}
+
+// A phase's tile by its widest layer: a stage holds kTile floats a tile, so
+// narrow layers take more rows a tile (64 rows of 64 channels, 128 of 32,
+// 256 of 16 or fewer), which keeps every thread busy and the tiles few.
+// ld: the row stride of dz and act.
+struct Tiling {
+  int rows, ld;
+};
+
+__device__ __forceinline__ Tiling tiling_of(int width) {
+  int cm = 16;
+  while (cm < width) cm <<= 1;
+  Tiling t;
+  t.rows = kTile / cm;
+  t.ld = cm + 4;
+  return t;
+}
+
+// The layout of the per-channel phases: thread = (group g, channel c), the
+// channels padded to a power of two cp, G groups.
+struct Lanes {
+  int cp, c, g, G;
+};
+
+__device__ __forceinline__ Lanes lanes_of(int C) {
+  Lanes t;
+  t.cp = 1;
+  while (t.cp < C) t.cp <<= 1;
+  t.c = threadIdx.x & (t.cp - 1);
+  t.g = threadIdx.x / t.cp;
+  t.G = kBwd / t.cp;
+  return t;
+}
+
+// Every block's cpart[par] summed in rank order -> sm.mean (divided by
+// count) in every block; block 0 keeps the sums in ssum (2, kMaxC).
+__device__ __forceinline__ void cluster_totals(BwdSmem& sm, int par, int C,
+                                               double count,
+                                               double* __restrict__ ssum) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (threadIdx.x < 2 * C) {
+    const int which = threadIdx.x / C, c = threadIdx.x % C;
+    double tot = 0.0;
+    for (int r = 0; r < kCluster; ++r)
+      tot += *cluster.map_shared_rank(&sm.cpart[par][which][c], r);
+    sm.mean[which][c] = (float)(tot / count);
+    if (cluster.block_rank() == 0) ssum[which * kMaxC + c] = tot;
   }
   __syncthreads();
-  if (threadIdx.x < C) {
+}
+
+// One value pair per (group, channel) thread summed over the groups, in
+// group order, into cpart[par].
+__device__ __forceinline__ void block_sums(BwdSmem& sm, int par, double s1,
+                                           double s2, const Lanes& t, int C) {
+  if (t.c < C) {
+    sm.red[(t.g * 2 + 0) * t.cp + t.c] = s1;
+    sm.red[(t.g * 2 + 1) * t.cp + t.c] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * C) {
+    const int which = threadIdx.x / C, ch = threadIdx.x % C;
+    double tot = 0.0;
+    for (int q = 0; q < t.G; ++q) tot += sm.red[(q * 2 + which) * t.cp + ch];
+    sm.cpart[par][which][ch] = tot;
+  }
+}
+
+// acc += act^T dz over rows first, first + step, ... < rows of a staged
+// tile: act and dz point at the thread's four columns of each, ld apart a
+// row.
+__device__ __forceinline__ void dw_tile(float (&acc)[4][4], const float* act,
+                                        const float* dz, int first, int step,
+                                        int rows, int ld) {
+#pragma unroll 4
+  for (int r = first; r < rows; r += step) {
+    const float4 a4 = ld4(act + r * ld);
+    const float4 d4 = ld4(dz + r * ld);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
+  }
+}
+
+// acc += dz W^T for the thread's rows (dz points at the first, the others
+// rq rows apart, ld floats a row) and four columns (wt points at them, kLd
+// apart a row of W^T), over cout4 columns of dz.
+__device__ __forceinline__ void dy_tile(float (&acc)[4][4], const float* dz,
+                                        const float* wt, int cout4, int rq,
+                                        int ld) {
+  for (int c = 0; c < cout4; c += 4) {
+    float dv[4][4], wv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 d4 = ld4(dz + i * rq * ld + c);
+      dv[i][0] = d4.x; dv[i][1] = d4.y; dv[i][2] = d4.z; dv[i][3] = d4.w;
+      const float4 w4 = ld4(wt + (c + i) * kLd);
+      wv[i][0] = w4.x; wv[i][1] = w4.y; wv[i][2] = w4.z; wv[i][3] = w4.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(dv[i][q], wv[q][j], acc[i][j]);
+  }
+}
+
+__global__ void __launch_bounds__(kBwd, 1)
+bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
+                   const float* __restrict__ centers, int n, int m, float eps,
+                   double* __restrict__ ssum_all, float* __restrict__ pdw_all) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
+  const TrainScale& s = pair.s[blockIdx.z];
+  const int tid = threadIdx.x, bi = blockIdx.y, nb = gridDim.y;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int ns = s.ns, top = s.n_layers - 1;
+  const double count = (double)m * ns;
+  // this block's centers and rows
+  const int cpc = (m + kCluster - 1) / kCluster;
+  const int c_lo = min(rank * cpc, m);
+  const int ncen = min(cpc, m - c_lo);
+  const long long row0 = (long long)bi * m * ns + (long long)c_lo * ns;
+  const int nrows = ncen * ns;
+  // scratch of this scale: ssum (kMaxL, B, 2, kMaxC), pdw (B * kCluster,
+  // kGradLen)
+  double* ssum = ssum_all + (size_t)blockIdx.z * kMaxL * nb * 2 * kMaxC;
+  float* pdw = pdw_all +
+      ((size_t)blockIdx.z * nb * kCluster + (size_t)bi * kCluster + rank) *
+          kGradLen;
+  int par = 0;
+
+  // -- max-pool and the last ReLU: the pooled cotangent goes to every slot
+  // whose activation equals the max, split evenly, then through relu' (0
+  // at 0). Tiles of whole centers. Pass 1, a thread per (center, channel):
+  // the slots' activations, the count of ties, the share. Pass 2, a thread
+  // per (row, channel): dy and the sums. (Counting the ties with a thread
+  // per row and atomics in shared memory instead measured 10% slower.)
+  {
+    const int C = s.dims[top];
+    const Lanes t = lanes_of(C);
+    const Tiling tl = tiling_of(C);
+    const int c = t.c, ld = tl.ld;
+    const int cpb = max(1, tl.rows / ns);
+    const int ntiles = (ncen + cpb - 1) / cpb;
+    const float* zt = s.z[top] + (size_t)row0 * C;
+    const float* po = s.pooled + ((size_t)bi * m + c_lo) * C;
+    const float* dp = s.dpooled + ((size_t)bi * m + c_lo) * C;
+    float* dy = s.dy[top & 1] + (size_t)row0 * C;
+    const bool vz = vec16(zt, C), vp = vec16(po, C), vd = vec16(dp, C);
+    auto fetch = [&](int tile) {
+      const int cl0 = tile * cpb, nc = min(cpb, ncen - cl0);
+      float(*buf)[kTile] = sm.raw[tile & 1];
+      copy_async(buf[0], zt + (size_t)cl0 * ns * C, nc * ns * C, vz);
+      copy_async(buf[1], po + (size_t)cl0 * C, nc * C, vp);
+      copy_async(buf[2], dp + (size_t)cl0 * C, nc * C, vd);
+      __pipeline_commit();
+    };
+    if (ntiles > 0) fetch(0);
+    float mu = 0.0f, rs = 0.0f, ga = 0.0f, be = 0.0f;
+    if (c < C) {
+      mu = s.mu[top][bi * C + c];
+      rs = rstd_of(s.var[top][bi * C + c], eps);
+      ga = s.gamma[top][c];
+      be = s.beta[top][c];
+    }
     double s1 = 0.0, s2 = 0.0;
-    for (int r = 0; r < ncen * ns; ++r) {
-      s1 += dyt[r * C + threadIdx.x];
-      s2 += dxt[r * C + threadIdx.x];
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int cl0 = tile * cpb, nc = min(cpb, ncen - cl0);
+      const float(*buf)[kTile] = sm.raw[tile & 1];
+      __pipeline_wait_prior(0);
+      __syncthreads();   // the tile has landed; the last one is consumed
+      if (tile + 1 < ntiles) fetch(tile + 1);
+      if (c < C)
+        for (int cl = t.g; cl < nc; cl += t.G) {
+          const float* z = buf[0] + cl * ns * C + c;
+          const float best = buf[1][cl * C + c];
+          int ties = 0;
+          for (int k = 0; k < ns; ++k) {
+            const float y = bn_apply(z[k * C], mu, rs, ga, be);
+            sm.dz[(cl * ns + k) * ld + c] = y;
+            ties += fmaxf(y, 0.0f) == best;
+          }
+          sm.act[cl * ld + c] =
+              ties > 0 ? buf[2][cl * C + c] / (float)ties : 0.0f;
+        }
+      __syncthreads();
+      if (c < C)
+        for (int r = t.g; r < nc * ns; r += t.G) {
+          const int cl = r / ns;
+          const float y = sm.dz[r * ld + c];
+          const float d = (fmaxf(y, 0.0f) == buf[1][cl * C + c] && y > 0.0f)
+                              ? sm.act[cl * ld + c] : 0.0f;
+          dy[((size_t)cl0 * ns + r) * C + c] = d;
+          s1 += (double)d;
+          s2 += (double)(d * xhat_of(buf[0][r * C + c], mu, rs));
+        }
     }
-    double* p = part + ((size_t)bi * gridDim.x + blockIdx.x) * 2 * kMaxC;
-    p[threadIdx.x] = s1;
-    p[kMaxC + threadIdx.x] = s2;
+    block_sums(sm, par, s1, s2, t, C);
+    cluster_totals(sm, par, C, count, ssum + ((size_t)top * nb + bi) * 2 * kMaxC);
+    par ^= 1;
   }
+
+  // -- layers top .. 1:
+  //   dz_l = k (dy_l - mean dy_l - xhat_l mean(dy_l xhat_l))   (BN backward)
+  //   dW_l partial = a_{l-1}^T dz_l                 (threads 0 .. kTeam - 1)
+  //   dy_{l-1} = (dz_l @ W_l^T) * relu'(y_{l-1})    (the other kTeam)
+  const int team = tid / kTeam, tt = tid % kTeam;
+  for (int l = top; l >= 1; --l) {
+    const int cout = s.dims[l], cin = s.dims[l - 1];
+    const int cout4 = (cout + 3) & ~3, cin4 = (cin + 3) & ~3;
+    const Tiling tl = tiling_of(max(cin, cout));
+    const int R = tl.rows, ld = tl.ld;
+    for (int c = tid; c < kMaxC; c += kBwd) {
+      const bool on = c < cout, pon = c < cin;
+      const float rs = on ? rstd_of(s.var[l][bi * cout + c], eps) : 0.0f;
+      sm.prm[0][c] = on ? s.gamma[l][c] * rs : 0.0f;
+      sm.prm[1][c] = on ? s.mu[l][bi * cout + c] : 0.0f;
+      sm.prm[2][c] = rs;
+      sm.prm[3][c] = on ? sm.mean[0][c] : 0.0f;
+      sm.prm[4][c] = on ? sm.mean[1][c] : 0.0f;
+      sm.prm[5][c] = pon ? s.mu[l - 1][bi * cin + c] : 0.0f;
+      sm.prm[6][c] = pon ? rstd_of(s.var[l - 1][bi * cin + c], eps) : 0.0f;
+      sm.prm[7][c] = pon ? s.gamma[l - 1][c] : 0.0f;
+      sm.prm[8][c] = pon ? s.beta[l - 1][c] : 0.0f;
+    }
+    for (int e = tid; e < kMaxC * kLd; e += kBwd) sm.wt[e] = 0.0f;
+    __syncthreads();
+    for (int e = tid; e < cin * cout; e += kBwd)
+      sm.wt[(e % cout) * kLd + e / cout] = s.w[l][e];
+
+    const float* dyin = s.dy[l & 1] + (size_t)row0 * cout;
+    const float* zl = s.z[l] + (size_t)row0 * cout;
+    const float* zp = s.z[l - 1] + (size_t)row0 * cin;
+    float* dyout = s.dy[(l - 1) & 1] + (size_t)row0 * cin;
+    const bool vec_out = vec16(dyin, cout) && vec16(zl, cout);
+    const bool vec_in = vec16(zp, cin) && vec16(dyout, cin);
+    const int ntiles = (nrows + R - 1) / R;
+    auto fetch = [&](int tile) {
+      const int r0 = tile * R, nr = min(R, nrows - r0);
+      float(*buf)[kTile] = sm.raw[tile & 1];
+      copy_async(buf[0], dyin + (size_t)r0 * cout, nr * cout, vec_out);
+      copy_async(buf[1], zl + (size_t)r0 * cout, nr * cout, vec_out);
+      copy_async(buf[2], zp + (size_t)r0 * cin, nr * cin, vec_in);
+      __pipeline_commit();
+    };
+    if (ntiles > 0) fetch(0);
+
+    // team 0, dW: the (C_{l-1} / 4) x (C_l / 4) tiles of 4 x 4 outputs go
+    // round the team's threads; where they are fewer than the threads, wg
+    // threads share a tile and each takes every wg-th row.
+    // team 1, dy_{l-1}: 4 rows of the tile (a quarter of the tile apart: a
+    // warp's threads then read neighbouring rows, which spread over the
+    // banks) x 4 columns of C_{l-1} a thread.
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    double s1[4] = {0.0, 0.0, 0.0, 0.0}, s2[4] = {0.0, 0.0, 0.0, 0.0};
+    const int wcols = cout4 >> 2, wtiles = (cin4 >> 2) * wcols;
+    const int wg = kTeam / wtiles, wtile = tt % wtiles, wrow = tt / wtiles;
+    const bool dw_on = team == 0 && wrow < wg;
+    const int ycols = cin4 >> 2;
+    const int rq = R >> 2, yrow = tt / ycols;
+    const bool da_on = team == 1 && yrow < rq;
+    const int k0 = 4 * (wtile / wcols);
+    const int c0 = team == 0 ? 4 * (wtile % wcols) : 4 * (tt % ycols);
+    // staging: a thread keeps one group of four columns and walks the rows
+    const int qo = cout4 >> 2, so = kBwd / qo;
+    const int tco = (tid % qo) * 4, tro = tid / qo;
+    const int qi = cin4 >> 2, si = kBwd / qi;
+    const int tci = (tid % qi) * 4, tri = tid / qi;
+
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int nr = min(R, nrows - tile * R);
+      const float(*buf)[kTile] = sm.raw[tile & 1];
+      __pipeline_wait_prior(0);
+      __syncthreads();   // the tile has landed; the last one is consumed
+      if (tile + 1 < ntiles) fetch(tile + 1);
+      if (tro < so) {
+        const float4 pk = ld4(&sm.prm[0][tco]), pm = ld4(&sm.prm[1][tco]);
+        const float4 pr = ld4(&sm.prm[2][tco]), py = ld4(&sm.prm[3][tco]);
+        const float4 px = ld4(&sm.prm[4][tco]);
+        for (int r = tro; r < R; r += so) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (r < nr) {
+            const float4 d = row4(buf[0] + r * cout, tco, cout, vec_out);
+            const float4 z = row4(buf[1] + r * cout, tco, cout, vec_out);
+            v.x = pk.x * (d.x - py.x - xhat_of(z.x, pm.x, pr.x) * px.x);
+            v.y = pk.y * (d.y - py.y - xhat_of(z.y, pm.y, pr.y) * px.y);
+            v.z = pk.z * (d.z - py.z - xhat_of(z.z, pm.z, pr.z) * px.z);
+            v.w = pk.w * (d.w - py.w - xhat_of(z.w, pm.w, pr.w) * px.w);
+          }
+          *reinterpret_cast<float4*>(&sm.dz[r * ld + tco]) = v;
+        }
+      }
+      if (tri < si) {
+        const float4 pm = ld4(&sm.prm[5][tci]), pr = ld4(&sm.prm[6][tci]);
+        const float4 pg = ld4(&sm.prm[7][tci]), pb = ld4(&sm.prm[8][tci]);
+        for (int r = tri; r < R; r += si) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (r < nr) {
+            const float4 z = row4(buf[2] + r * cin, tci, cin, vec_in);
+            v.x = fmaxf(bn_apply(z.x, pm.x, pr.x, pg.x, pb.x), 0.0f);
+            v.y = fmaxf(bn_apply(z.y, pm.y, pr.y, pg.y, pb.y), 0.0f);
+            v.z = fmaxf(bn_apply(z.z, pm.z, pr.z, pg.z, pb.z), 0.0f);
+            v.w = fmaxf(bn_apply(z.w, pm.w, pr.w, pg.w, pb.w), 0.0f);
+          }
+          *reinterpret_cast<float4*>(&sm.act[r * ld + tci]) = v;
+        }
+      }
+      __syncthreads();
+      if (dw_on) dw_tile(acc, sm.act + k0, sm.dz + c0, wrow, wg, R, ld);
+      if (da_on) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+        dy_tile(acc, sm.dz + yrow * ld, sm.wt + c0, cout4, rq, ld);
+        // relu', the store, and the column sums for the next batch norm
+        // (columns past C_{l-1} hold zeros: their act is 0)
+        const float4 pm = ld4(&sm.prm[5][c0]), pr = ld4(&sm.prm[6][c0]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = yrow + i * rq;
+          if (r >= nr) continue;
+          const float4 a4 = ld4(&sm.act[r * ld + c0]);
+          const float4 z4 = row4(buf[2] + r * cin, c0, cin, vec_in);
+          float4 d;
+          d.x = a4.x > 0.0f ? acc[i][0] : 0.0f;
+          d.y = a4.y > 0.0f ? acc[i][1] : 0.0f;
+          d.z = a4.z > 0.0f ? acc[i][2] : 0.0f;
+          d.w = a4.w > 0.0f ? acc[i][3] : 0.0f;
+          s1[0] += (double)d.x;
+          s1[1] += (double)d.y;
+          s1[2] += (double)d.z;
+          s1[3] += (double)d.w;
+          s2[0] += (double)(d.x * xhat_of(z4.x, pm.x, pr.x));
+          s2[1] += (double)(d.y * xhat_of(z4.y, pm.y, pr.y));
+          s2[2] += (double)(d.z * xhat_of(z4.z, pm.z, pr.z));
+          s2[3] += (double)(d.w * xhat_of(z4.w, pm.w, pr.w));
+          float* o = dyout + ((size_t)tile * R + r) * cin + c0;
+          if (vec_in) {
+            *reinterpret_cast<float4*>(o) = d;
+          } else {
+            const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c0 + j < cin) o[j] = dv[j];
+          }
+        }
+      }
+    }
+    __syncthreads();   // every read of the staged tiles is done
+    // Both teams leave their registers in the (now free) raw stages: team 0
+    // its dW tiles, by sharing thread; team 1 its column sums, by row group.
+    float* wpart = sm.raw[0][0];                              // (wg, wtiles, 16)
+    double* spart = reinterpret_cast<double*>(sm.raw[1][0]);  // (R/4, 2, C4)
+    if (dw_on) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(&wpart[(wrow * wtiles + wtile) * 16 + 4 * i]) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    if (da_on) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        spart[(yrow * 2 + 0) * cin4 + c0 + j] = s1[j];
+        spart[(yrow * 2 + 1) * cin4 + c0 + j] = s2[j];
+      }
+    }
+    __syncthreads();
+    // this block's dW_l partial (zeros where it owns no row), the sharing
+    // threads added in order
+    for (int e = tid; e < cin * cout; e += kBwd) {
+      const int k = e / cout, c = e - k * cout;
+      const int at = ((k >> 2) * wcols + (c >> 2)) * 16 + (k & 3) * 4 + (c & 3);
+      float tot = 0.0f;
+      for (int g = 0; g < wg; ++g) tot += wpart[g * wtiles * 16 + at];
+      pdw[grad_offset(s, l) + e] = tot;
+    }
+    if (tid < 2 * cin) {
+      const int which = tid / cin, ch = tid % cin;
+      double tot = 0.0;
+      for (int g = 0; g < rq; ++g)
+        tot += spart[(g * 2 + which) * cin4 + ch];
+      sm.cpart[par][which][ch] = tot;
+    }
+    cluster_totals(sm, par, cin, count,
+                   ssum + ((size_t)(l - 1) * nb + bi) * 2 * kMaxC);
+    par ^= 1;
+  }
+
+  // -- layer 1: dz_0 from dy_0 (BN backward), dPF[j] += dz_0 (float
+  // atomics, four channels at once: slots of many centers hit the same
+  // point), and this block's sums of (x_j - c_i)^T dz_0. Tiles of rows of
+  // dy_0, z_0 and idx; a row's relative coordinates are loaded while the
+  // tile's dz_0 is computed and scattered.
+  {
+    const int C = s.dims[0], C4 = (C + 3) & ~3;
+    const Lanes t = lanes_of(C);
+    const Tiling tl = tiling_of(C);
+    const int c = t.c, R = tl.rows, ld = tl.ld;
+    const float* xb = xyz + (size_t)bi * n * 3;
+    const float* cb = centers + (size_t)bi * m * 3;
+    const float* dy0 = s.dy[0] + (size_t)row0 * C;
+    const float* z0 = s.z[0] + (size_t)row0 * C;
+    const float* idxf = reinterpret_cast<const float*>(s.idx) + row0;
+    float* dpf = s.dpf != nullptr ? s.dpf + (size_t)bi * n * C : nullptr;
+    const bool vy = vec16(dy0, C), vz = vec16(z0, C), va = vec16(dpf, C);
+    // whole tiles of idx are 16-byte runs where nsample is a multiple of 4
+    const bool vi = vec16(idxf, ns);
+    const int ntiles = (nrows + R - 1) / R;
+    auto fetch = [&](int tile) {
+      const int r0 = tile * R, nr = min(R, nrows - r0);
+      float(*buf)[kTile] = sm.raw[tile & 1];
+      copy_async(buf[0], dy0 + (size_t)r0 * C, nr * C, vy);
+      copy_async(buf[1], z0 + (size_t)r0 * C, nr * C, vz);
+      copy_async(buf[2], idxf + r0, nr, vi);
+      __pipeline_commit();
+    };
+    if (ntiles > 0) fetch(0);
+    for (int ch = tid; ch < kMaxC; ch += kBwd) {
+      const bool on = ch < C;
+      const float rs = on ? rstd_of(s.var[0][bi * C + ch], eps) : 0.0f;
+      sm.prm[0][ch] = on ? s.gamma[0][ch] * rs : 0.0f;
+      sm.prm[1][ch] = on ? s.mu[0][bi * C + ch] : 0.0f;
+      sm.prm[2][ch] = rs;
+      sm.prm[3][ch] = on ? sm.mean[0][ch] : 0.0f;
+      sm.prm[4][ch] = on ? sm.mean[1][ch] : 0.0f;
+    }
+    const int q = C4 >> 2, so = kBwd / q;
+    const int tco = (tid % q) * 4, tro = tid / q;
+    float* rel = sm.act;   // (rows, 4) relative coordinates of a tile
+    double gw[3] = {0.0, 0.0, 0.0};
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int r0 = tile * R, nr = min(R, nrows - r0);
+      const float(*buf)[kTile] = sm.raw[tile & 1];
+      const int* idx = reinterpret_cast<const int*>(buf[2]);
+      __pipeline_wait_prior(0);
+      __syncthreads();   // the tile has landed; the last one is consumed
+      if (tile + 1 < ntiles) fetch(tile + 1);
+      float d[3] = {0.0f, 0.0f, 0.0f};
+      if (tid < nr) rel_coords(xb, cb, idx[tid], c_lo + (r0 + tid) / ns, d);
+      if (tro < so) {
+        const float4 pk = ld4(&sm.prm[0][tco]), pm = ld4(&sm.prm[1][tco]);
+        const float4 pr = ld4(&sm.prm[2][tco]), py = ld4(&sm.prm[3][tco]);
+        const float4 px = ld4(&sm.prm[4][tco]);
+        for (int r = tro; r < nr; r += so) {
+          const float4 dy4 = row4(buf[0] + r * C, tco, C, vy);
+          const float4 z4 = row4(buf[1] + r * C, tco, C, vz);
+          float4 v;
+          v.x = pk.x * (dy4.x - py.x - xhat_of(z4.x, pm.x, pr.x) * px.x);
+          v.y = pk.y * (dy4.y - py.y - xhat_of(z4.y, pm.y, pr.y) * px.y);
+          v.z = pk.z * (dy4.z - py.z - xhat_of(z4.z, pm.z, pr.z) * px.z);
+          v.w = pk.w * (dy4.w - py.w - xhat_of(z4.w, pm.w, pr.w) * px.w);
+          *reinterpret_cast<float4*>(&sm.dz[r * ld + tco]) = v;
+          if (dpf != nullptr) {
+            float* o = dpf + (size_t)idx[r] * C + tco;
+            if (va) {
+              atomicAdd(reinterpret_cast<float4*>(o), v);
+            } else {
+              const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                if (tco + i < C) atomicAdd(o + i, vv[i]);
+            }
+          }
+        }
+      }
+      if (tid < nr) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) rel[4 * tid + i] = d[i];
+      }
+      __syncthreads();
+      if (c < C) {
+        float f[3] = {0.0f, 0.0f, 0.0f};
+        for (int r = t.g; r < nr; r += t.G) {
+          const float dz = sm.dz[r * ld + c];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) f[i] = fmaf(rel[4 * r + i], dz, f[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) gw[i] += (double)f[i];
+      }
+    }
+    __syncthreads();
+    if (c < C) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) sm.red[(t.g * 3 + i) * t.cp + c] = gw[i];
+    }
+    __syncthreads();
+    if (tid < 3 * C) {
+      const int i = tid / C, ch = tid % C;
+      double tot = 0.0;
+      for (int g = 0; g < t.G; ++g) tot += sm.red[(g * 3 + i) * t.cp + ch];
+      pdw[grad_offset(s, s.n_layers) + tid] = (float)tot;
+    }
+  }
+  // no block leaves while another may still read its sums
+  cg::this_cluster().sync();
 }
 
-// Layer l >= 1 backward over a chunk of kChunkTiles * kRows rows:
-//   dz_l = k (dy_l - mean dy_l - xhat_l mean(dy_l xhat_l))   (BN backward)
-//   dW_l partial = a_{l-1}^T dz_l                (into pdw, one per chunk)
-//   dy_{l-1} = (dz_l @ W_l^T) * relu'(y_{l-1})
-// and the chunk's per-channel sums of dy_{l-1} and dy_{l-1} * xhat_{l-1}.
-__global__ void __launch_bounds__(kThreads)
-bwd_layer_kernel(TrainScale s, int l, int m, float eps,
-                 const double* __restrict__ ssum, double count,
-                 float* __restrict__ pdw, double* __restrict__ part) {
-  extern __shared__ float smem[];
-  float* dzs = smem;                    // (kRows, C_l) dz_l, then dy_{l-1}
-  float* as = dzs + kRows * kMaxC;      // (kRows, C_{l-1}) a, then dy * xhat
-  float* wt = as + kRows * kMaxC;       // (C_l, C_{l-1}) = W_l^T
-  float* prm = wt + kMaxC * kMaxC;      // 9 x kMaxC per-channel values
-  const int tid = threadIdx.x, bi = blockIdx.y;
-  const int cout = s.dims[l], cin = s.dims[l - 1];
-  const long long rows = (long long)m * s.ns;
-  for (int c = tid; c < cout; c += kThreads) {
-    const float rs = rstd_of(s.var[l][bi * cout + c], eps);
-    prm[c] = s.gamma[l][c] * rs;
-    prm[kMaxC + c] = s.mu[l][bi * cout + c];
-    prm[2 * kMaxC + c] = rs;
-    prm[3 * kMaxC + c] = (float)(ssum[(size_t)bi * 2 * kMaxC + c] / count);
-    prm[4 * kMaxC + c] =
-        (float)(ssum[(size_t)bi * 2 * kMaxC + kMaxC + c] / count);
+// The gradients that sum over blocks and streams, for every layer of the
+// scale on blockIdx.y, each added in a fixed order in float64: dW_l and
+// dW_xyz over the B * kCluster per-block partials, dbeta_l / dgamma_l over
+// the B per-stream sums. blockDim (32, 8) as reduce_parts_kernel.
+__global__ void __launch_bounds__(256)
+finish_kernel(ScalePair pair, int nb, const double* __restrict__ ssum_all,
+              const float* __restrict__ pdw_all) {
+  __shared__ double red[8][32];
+  const TrainScale& s = pair.s[blockIdx.y];
+  const int L = s.n_layers;
+  const int wlen = grad_offset(s, L) + 3 * s.dims[0];
+  int blen = 0;
+  for (int l = 0; l < L; ++l) blen += 2 * s.dims[l];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  if (blockIdx.x * 32 >= wlen + blen) return;
+  float* out = nullptr;
+  double acc = 0.0;
+  if (e < wlen) {
+    const float* part = pdw_all + (size_t)blockIdx.y * nb * kCluster * kGradLen;
+    for (int p = threadIdx.y; p < nb * kCluster; p += 8)
+      acc += (double)part[(size_t)p * kGradLen + e];
+    int l = 1;
+    while (l < L && e >= grad_offset(s, l + 1)) ++l;
+    out = l < L ? s.dw[l] + (e - grad_offset(s, l))
+                : s.dwxyz + (e - grad_offset(s, L));
+  } else if (e < wlen + blen) {
+    int l = 0, off = e - wlen;
+    while (off >= 2 * s.dims[l]) off -= 2 * s.dims[l++];
+    const int which = off / s.dims[l], c = off % s.dims[l];
+    const double* ss = ssum_all +
+        ((size_t)blockIdx.y * kMaxL + l) * nb * 2 * kMaxC + which * kMaxC + c;
+    for (int bi = threadIdx.y; bi < nb; bi += 8)
+      acc += ss[(size_t)bi * 2 * kMaxC];
+    out = (which == 0 ? s.dbeta[l] : s.dgamma[l]) + c;
   }
-  for (int c = tid; c < cin; c += kThreads) {
-    prm[5 * kMaxC + c] = s.mu[l - 1][bi * cin + c];
-    prm[6 * kMaxC + c] = rstd_of(s.var[l - 1][bi * cin + c], eps);
-    prm[7 * kMaxC + c] = s.gamma[l - 1][c];
-    prm[8 * kMaxC + c] = s.beta[l - 1][c];
-  }
-  for (int t = tid; t < cin * cout; t += kThreads)
-    wt[(t % cout) * cin + t / cout] = s.w[l][t];
+  red[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
-
-  float dwacc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) dwacc[i] = 0.0f;
-  double s1 = 0.0, s2 = 0.0;
-  const long long chunk0 = (long long)blockIdx.x * kChunkTiles * kRows;
-  for (int tile = 0; tile < kChunkTiles; ++tile) {
-    const long long r0 = chunk0 + (long long)tile * kRows;
-    if (r0 >= rows) break;
-    const int nrow = (int)min((long long)kRows, rows - r0);
-    const size_t base = (size_t)bi * rows + r0;
-    const float* dyin = s.dy[l & 1] + base * cout;
-    const float* zl = s.z[l] + base * cout;
-    const float* zp = s.z[l - 1] + base * cin;
-    for (int e = tid; e < nrow * cout; e += kThreads) {
-      const int c = e % cout;
-      const float xh = xhat_of(zl[e], prm[kMaxC + c], prm[2 * kMaxC + c]);
-      dzs[e] = prm[c] * (dyin[e] - prm[3 * kMaxC + c] - xh * prm[4 * kMaxC + c]);
-    }
-    for (int e = tid; e < nrow * cin; e += kThreads) {
-      const int c = e % cin;
-      as[e] = fmaxf(bn_apply(zp[e], prm[5 * kMaxC + c], prm[6 * kMaxC + c],
-                             prm[7 * kMaxC + c], prm[8 * kMaxC + c]), 0.0f);
-    }
-    __syncthreads();
-    float da[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int p = tid + i * kThreads;
-      if (p < cin * cout) {
-        const int k = p / cout, c = p % cout;
-        float acc = 0.0f;
-        for (int r = 0; r < nrow; ++r)
-          acc = fmaf(as[r * cin + k], dzs[r * cout + c], acc);
-        dwacc[i] += acc;
-      }
-      da[i] = 0.0f;
-      if (p < nrow * cin) {
-        const int r = p / cin, k = p % cin;
-        float acc = 0.0f;
-        for (int c = 0; c < cout; ++c)
-          acc = fmaf(dzs[r * cout + c], wt[c * cin + k], acc);
-        da[i] = acc;
-      }
-    }
-    __syncthreads();
-    float* dyout = s.dy[(l - 1) & 1] + base * cin;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < nrow * cin) {
-        const int k = e % cin;
-        const float d = as[e] > 0.0f ? da[i] : 0.0f;
-        dyout[e] = d;
-        dzs[e] = d;
-        as[e] = d * xhat_of(zp[e], prm[5 * kMaxC + k], prm[6 * kMaxC + k]);
-      }
-    }
-    __syncthreads();
-    if (tid < cin)
-      for (int r = 0; r < nrow; ++r) {
-        s1 += dzs[r * cin + tid];
-        s2 += as[r * cin + tid];
-      }
-    __syncthreads();
-  }
-  float* pw = pdw + ((size_t)bi * gridDim.x + blockIdx.x) * cin * cout;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int p = tid + i * kThreads;
-    if (p < cin * cout) pw[p] = dwacc[i];
-  }
-  if (tid < cin) {
-    double* pp = part + ((size_t)bi * gridDim.x + blockIdx.x) * 2 * kMaxC;
-    pp[tid] = s1;
-    pp[kMaxC + tid] = s2;
-  }
-}
-
-// Layer-1 backward over kCenters centers of stream blockIdx.y: dz_0 from
-// dy_0 (BN backward), dPF[j] += dz_0 (float atomics: slots of many
-// centers hit the same point), and this block's sums of
-// (x_j - c_i)^T dz_0 into pwx (B, blocks, 3, C_0).
-__global__ void __launch_bounds__(kThreads)
-bwd_layer0_kernel(TrainScale s, const float* __restrict__ xyz,
-                  const float* __restrict__ centers, int n, int m,
-                  float eps, const double* __restrict__ ssum, double count,
-                  float* __restrict__ pwx) {
-  __shared__ float contrib[kCenters][3][kMaxC];
-  const int C = s.dims[0], ns = s.ns, bi = blockIdx.y;
-  const int c0 = blockIdx.x * kCenters;
-  const int ncen = min(kCenters, m - c0);
-  const float* xb = xyz + (size_t)bi * n * 3;
-  const float* cb = centers + (size_t)bi * m * 3;
-  for (int e = threadIdx.x; e < kCenters * C; e += kThreads) {
-    const int cl = e / C, c = e % C;
-    float gw[3] = {0.0f, 0.0f, 0.0f};
-    if (cl < ncen) {
-      const long long g = (long long)bi * m + c0 + cl;
-      const float mu = s.mu[0][bi * C + c];
-      const float rs = rstd_of(s.var[0][bi * C + c], eps);
-      const float k = s.gamma[0][c] * rs;
-      const float mdy = (float)(ssum[(size_t)bi * 2 * kMaxC + c] / count);
-      const float mdx =
-          (float)(ssum[(size_t)bi * 2 * kMaxC + kMaxC + c] / count);
-      for (int t = 0; t < ns; ++t) {
-        const size_t row = (size_t)g * ns + t;
-        const int j = s.idx[row];
-        const float xh = xhat_of(s.z[0][row * C + c], mu, rs);
-        const float dz = k * (s.dy[0][row * C + c] - mdy - xh * mdx);
-        if (s.dpf != nullptr)
-          atomicAdd(s.dpf + ((size_t)bi * n + j) * C + c, dz);
-        float d[3];
-        rel_coords(xb, cb, j, c0 + cl, d);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) gw[i] = fmaf(d[i], dz, gw[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) contrib[cl][i][c] = gw[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < 3 * C) {
-    const int i = threadIdx.x / C, c = threadIdx.x % C;
-    float a = 0.0f;
-    for (int cl = 0; cl < kCenters; ++cl) a += contrib[cl][i][c];
-    pwx[((size_t)bi * gridDim.x + blockIdx.x) * 3 * C + threadIdx.x] = a;
+  if (threadIdx.y == 0 && out != nullptr) {
+    double t = 0.0;
+    for (int g = 0; g < 8; ++g) t += red[g][threadIdx.x];
+    *out = (float)t;
   }
 }
 
@@ -520,9 +937,6 @@ bool valid_scale(const TrainScale& s) {
 }
 
 constexpr size_t kFwdSmem = sizeof(float) * (kRows * kMaxC + kMaxC * kMaxC + 4 * kMaxC);
-constexpr size_t kTopSmem = sizeof(float) * 2 * kRows * kMaxC;
-constexpr size_t kLayerSmem =
-    sizeof(float) * (2 * kRows * kMaxC + kMaxC * kMaxC + 9 * kMaxC);
 
 #define RATRACK_CHECK(call)                       \
   do {                                            \
@@ -556,8 +970,7 @@ int forward_scales(const float* xyz, const float* centers,
           *s, xyz, centers, l, n, m, eps, part);
       RATRACK_CHECK(cudaGetLastError());
       reduce_stats_kernel<<<1, kRedThreads, 0, st>>>(*s, l, nb, tiles,
-                                                     (double)rows, 0, part,
-                                                     nullptr);
+                                                     (double)rows, part);
       RATRACK_CHECK(cudaGetLastError());
     }
     const long long outs = centers_total * s->dims[s->n_layers - 1];
@@ -568,61 +981,69 @@ int forward_scales(const float* xyz, const float* centers,
   return (int)cudaSuccess;
 }
 
-// Backward of scale a and, unless null, scale b, each on its own.
+// The launch shape of bwd_cluster_kernel: a cluster of kCluster blocks along
+// x per stream (y) and scale (z); attr is the caller's, for the cluster
+// attribute.
+void bwd_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int nb,
+                int nscales, cudaStream_t st) {
+  *cfg = {};
+  cfg->gridDim = dim3(kCluster, nb, nscales);
+  cfg->blockDim = dim3(kBwd);
+  cfg->dynamicSmemBytes = sizeof(BwdSmem);
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Backward of scale a and, unless null, scale b: the cluster launch and the
+// finishing reduction. A card that cannot place the cluster is an error.
 int backward_scales(const float* xyz, const float* centers, int nb, int n,
                     int m, float eps, const TrainScale* a,
-                    const TrainScale* b, double* part, double* ssum,
-                    float* pdw, cudaStream_t st) {
-  if (nb < 1 || n < 1 || m < 1 || !valid_scale(*a) ||
+                    const TrainScale* b, double* ssum, float* pdw,
+                    cudaStream_t st) {
+  if (nb < 1 || nb > 65535 || n < 1 || m < 1 || !valid_scale(*a) ||
       (b != nullptr && !valid_scale(*b)))
     return (int)cudaErrorInvalidValue;
+  // the scale with more rows on blockIdx.z = 0: its blocks start first
+  // where the card cannot hold every cluster at once
+  ScalePair pair = {};
+  const bool swap = b != nullptr && b->ns > a->ns;
+  pair.s[0] = swap ? *b : *a;
+  if (b != nullptr) pair.s[1] = swap ? *a : *b;
+  const int nscales = b != nullptr ? 2 : 1;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  bwd_config(&cfg, &attr, nb, nscales, st);
   RATRACK_CHECK(cudaFuncSetAttribute(
-      bwd_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kLayerSmem));
-  const TrainScale* const scales[2] = {a, b};
-  for (const TrainScale* s : scales) {
-    if (s == nullptr) continue;
-    const int top = s->n_layers - 1;
-    const long long rows = (long long)m * s->ns;
-    const double count = (double)rows;
-    const int cpb = kRows / s->ns;
-    const int top_blocks = (m + cpb - 1) / cpb;
-    bwd_top_kernel<<<dim3(top_blocks, nb), kThreads, kTopSmem, st>>>(
-        *s, m, cpb, eps, part);
-    RATRACK_CHECK(cudaGetLastError());
-    reduce_stats_kernel<<<1, kRedThreads, 0, st>>>(*s, top, nb, top_blocks,
-                                                   count, 1, part, ssum);
-    RATRACK_CHECK(cudaGetLastError());
-    const int chunks =
-        (int)((rows + kChunkTiles * kRows - 1) / (kChunkTiles * kRows));
-    for (int l = top; l >= 1; --l) {
-      bwd_layer_kernel<<<dim3(chunks, nb), kThreads, kLayerSmem, st>>>(
-          *s, l, m, eps, ssum, count, pdw, part);
-      RATRACK_CHECK(cudaGetLastError());
-      RATRACK_CHECK(ratrack::reduce_parts(
-          pdw, nb * chunks, s->dims[l - 1] * s->dims[l], s->dw[l], st));
-      reduce_stats_kernel<<<1, kRedThreads, 0, st>>>(*s, l - 1, nb, chunks,
-                                                     count, 1, part, ssum);
-      RATRACK_CHECK(cudaGetLastError());
-    }
-    const int cblocks = (m + kCenters - 1) / kCenters;
-    bwd_layer0_kernel<<<dim3(cblocks, nb), kThreads, 0, st>>>(
-        *s, xyz, centers, n, m, eps, ssum, count, pdw);
-    RATRACK_CHECK(cudaGetLastError());
-    RATRACK_CHECK(ratrack::reduce_parts(pdw, nb * cblocks, 3 * s->dims[0],
-                                        s->dwxyz, st));
+      bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(BwdSmem)));
+  static bool placed = false;   // asked once: a card that holds no cluster
+  if (!placed) {                // is an error here, not a launch that waits
+    int clusters = 0;
+    RATRACK_CHECK(
+        cudaOccupancyMaxActiveClusters(&clusters, bwd_cluster_kernel, &cfg));
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    placed = true;
   }
-  return (int)cudaSuccess;
+  RATRACK_CHECK(cudaLaunchKernelEx(&cfg, bwd_cluster_kernel, pair, xyz,
+                                   centers, n, m, eps, ssum, pdw));
+  const int len = kGradLen + 2 * kMaxL * kMaxC;
+  finish_kernel<<<dim3((len + 31) / 32, nscales), dim3(32, 8), 0, st>>>(
+      pair, nb, ssum, pdw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Scratch sizes (the Python wrapper allocates them, see
-// ops/fused_sa_train.py): part >= B * max(tiles) * 2 * 64 float64, where
-// tiles is ceil(M * ns / 64) forward, ceil(M / (64 / ns)) at the top of
-// the backward and ceil(M * ns / 512) per backward layer; ssum B * 2 * 64
-// float64; pdw >= B * max(ceil(M * ns / 512) * 64 * 64,
-// ceil(M / 16) * 3 * 64) float32.
+// Scratch (the Python wrapper allocates it, see ops/fused_sa_train.py).
+// Forward: part >= B * ceil(M * ns / 64) * 2 * 64 float64. Backward: ssum
+// (scales, 3, B, 2, 64) float64 and pdw (scales, B * 8, 2 * 64 * 64 + 3 *
+// 64) float32, and in every TrainScale dy[2] of (B, M * ns, 64) float32
+// each, 16-byte aligned like z.
 // sa, sb point to one TrainScale each (a type of this file only, hence
 // void pointers: the C interface must not name it).
 extern "C" int ratrack_sa_train_fwd(const float* xyz, const float* centers,
@@ -639,12 +1060,26 @@ extern "C" int ratrack_sa_train_fwd(const float* xyz, const float* centers,
 extern "C" int ratrack_sa_train_bwd(const float* xyz, const float* centers,
                                     int nb, int n, int m, float eps,
                                     const void* sa, const void* sb,
-                                    double* part, double* ssum, float* pdw,
-                                    void* stream) {
+                                    double* ssum, float* pdw, void* stream) {
   return backward_scales(xyz, centers, nb, n, m, eps,
                          static_cast<const TrainScale*>(sa),
-                         static_cast<const TrainScale*>(sb), part, ssum, pdw,
+                         static_cast<const TrainScale*>(sb), ssum, pdw,
                          (cudaStream_t)stream);
+}
+
+// How many of the backward's clusters the card holds at once (a negative
+// CUDA error code if it cannot say).
+extern "C" int ratrack_sa_train_bwd_clusters(int nb, int nscales) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  bwd_config(&cfg, &attr, nb, nscales, nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(BwdSmem));
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, bwd_cluster_kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 // Kernel B8: one scale of a level, forward and backward; scratch as above.
@@ -662,9 +1097,9 @@ extern "C" int ratrack_sa_scale_train_fwd(const float* xyz,
 extern "C" int ratrack_sa_scale_train_bwd(const float* xyz,
                                           const float* centers, int nb, int n,
                                           int m, float eps, const void* scale,
-                                          double* part, double* ssum,
-                                          float* pdw, void* stream) {
+                                          double* ssum, float* pdw,
+                                          void* stream) {
   return backward_scales(xyz, centers, nb, n, m, eps,
-                         static_cast<const TrainScale*>(scale), nullptr, part,
-                         ssum, pdw, (cudaStream_t)stream);
+                         static_cast<const TrainScale*>(scale), nullptr, ssum,
+                         pdw, (cudaStream_t)stream);
 }

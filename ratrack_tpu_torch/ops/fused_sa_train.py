@@ -42,6 +42,7 @@ kernel adds its sums in float64).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
@@ -53,11 +54,12 @@ from .neighborhood import ball_query
 MAX_LAYERS = 3
 MAX_WIDTH = 64
 MAX_NSAMPLE = 32
-# tile shapes of csrc/sa_pair_train.cu (kRows, kRows * kChunkTiles,
-# kCenters), for sizing the scratch the kernels take
+# shapes of csrc/sa_pair_train.cu (kRows, kCluster, kGradLen), for sizing
+# the scratch the kernels take
 _ROWS = 64
-_CHUNK = 512
-_CENTERS = 16
+_CLUSTER = 8
+_GRAD_LEN = (MAX_LAYERS - 1) * MAX_WIDTH * MAX_WIDTH + 3 * MAX_WIDTH
+_ALIGN = 256     # bytes: every carved view starts on a 256-byte boundary
 
 _P = ctypes.c_void_p
 
@@ -195,39 +197,45 @@ class SATrainFunction(torch.autograd.Function):
         flat, stash = saved[2:2 + n_flat], saved[2 + n_flat:]
         b, n, m = xyz.shape[0], xyz.shape[1], centers.shape[1]
         dev = xyz.device
+        # one allocation for the scratch (dy of both parities per scale,
+        # the per-stream sums, the per-block weight-gradient partials) and
+        # one for the small gradient leaves, carved into views
+        n_sc = len(metas)
+        dy_shapes = [(b, m * ns, MAX_WIDTH) for _, _, ns in metas
+                     for _ in range(2)]
+        scratch = _carve(dev, [(sh, torch.float32) for sh in dy_shapes] + [
+            ((n_sc, MAX_LAYERS, b, 2, MAX_WIDTH), torch.float64),
+            ((n_sc, b * _CLUSTER, _GRAD_LEN), torch.float32)])
+        ssum, pdw = scratch[-2:]
+        leaf_shapes = []
+        for (L, _, _), dims in zip(metas, ctx.dims):
+            leaf_shapes += ([(3, dims[0])]
+                            + [(i, o) for i, o in zip(dims[:-1], dims[1:])]
+                            + [(c,) for c in dims] * 2)
+        leaves = _carve(dev, [(sh, torch.float32) for sh in leaf_shapes])
         grads, structs, at, st_at = [], [], 0, 0
-        for (L, r, ns), dims, dp in zip(metas, ctx.dims, douts):
+        for k, ((L, r, ns), dims, dp) in enumerate(zip(metas, ctx.dims,
+                                                       douts)):
             pf, wx = flat[at:at + 2]
             prm = flat[at + 2:at + 1 + 3 * L]
             at += 1 + 3 * L
             idx, pooled = stash[st_at:st_at + 2]
             rest = stash[st_at + 2:st_at + 2 + 3 * L]
             st_at += 2 + 3 * L
-            ws = list(prm[:L - 1])
-            sc = dict(ws=ws, gam=list(prm[L - 1:2 * L - 1]),
+            mine, leaves = leaves[:3 * L], leaves[3 * L:]
+            sc = dict(ws=list(prm[:L - 1]), gam=list(prm[L - 1:2 * L - 1]),
                       bet=list(prm[2 * L - 1:]), dims=dims, ns=ns, r=r,
                       z=list(rest[:L]), mus=list(rest[L:2 * L]),
                       vrs=list(rest[2 * L:]), pf=pf, wx=wx,
                       idx=idx, pooled=pooled,
                       dpooled=(torch.zeros_like(pooled) if dp is None
                                else dp.contiguous()),
-                      dy=[torch.empty((b, m * ns, MAX_WIDTH), device=dev)
-                          for _ in range(2)],
+                      dy=scratch[2 * k:2 * k + 2],
                       dpf=None if pf is None else torch.zeros_like(pf),
-                      dwx=torch.empty_like(wx),
-                      dw=[None] + [torch.empty_like(w) for w in ws],
-                      dgam=[torch.empty(c, device=dev) for c in dims],
-                      dbet=[torch.empty(c, device=dev) for c in dims])
+                      dwx=mine[0], dw=[None] + mine[1:L],
+                      dgam=mine[L:2 * L], dbet=mine[2 * L:])
             grads.append(sc)
             structs.append(_scale_struct(sc))
-        nss = [ns for _, _, ns in metas]
-        part = torch.empty(_part_size(b, m, nss), device=dev,
-                           dtype=torch.float64)
-        ssum = torch.empty(b * 2 * MAX_WIDTH, device=dev, dtype=torch.float64)
-        chunks = -(-m * max(nss) // _CHUNK)
-        pdw = torch.empty(b * max(chunks * MAX_WIDTH * MAX_WIDTH,
-                                  -(-m // _CENTERS) * 3 * MAX_WIDTH),
-                          device=dev)
         lib = kb.load()
         pair = len(grads) == 2
         with torch.cuda.device(dev):
@@ -235,8 +243,7 @@ class SATrainFunction(torch.autograd.Function):
                      else lib.ratrack_sa_scale_train_bwd)
             code = entry(kb.ptr(xyz), kb.ptr(centers), b, n, m, eps,
                          *[ctypes.addressof(st) for st in structs],
-                         kb.ptr(part), kb.ptr(ssum), kb.ptr(pdw),
-                         kb.stream_of(xyz))
+                         kb.ptr(ssum), kb.ptr(pdw), kb.stream_of(xyz))
         kb.check(code, "sa_pair_train_bwd" if pair else "sa_scale_train_bwd")
         (sa_pair_train_bwd if pair else sa_scale_train_bwd).launches += 1
         dflat = []
@@ -245,10 +252,20 @@ class SATrainFunction(torch.autograd.Function):
         return (None, None, None, None, *dflat)
 
 
+def _carve(device, specs):
+    """One uninitialised allocation cut into a tensor per (shape, dtype) of
+    `specs`, each on an _ALIGN-byte boundary."""
+    nbytes = [math.prod(shape) * dtype.itemsize for shape, dtype in specs]
+    starts = [0]
+    for size in nbytes:
+        starts.append(starts[-1] + -(-size // _ALIGN) * _ALIGN)
+    buf = torch.empty(starts[-1], device=device, dtype=torch.uint8)
+    return [buf[at:at + size].view(dtype).view(shape)
+            for (shape, dtype), at, size in zip(specs, starts, nbytes)]
+
+
 def _part_size(b, m, nsamples):
-    tiles = max(max(-(-m * ns // _ROWS), -(-m // (_ROWS // ns)))
-                for ns in nsamples)
-    return b * tiles * 2 * MAX_WIDTH
+    return b * max(-(-m * ns // _ROWS) for ns in nsamples) * 2 * MAX_WIDTH
 
 
 def _scale_struct(sc) -> _Scale:

@@ -22,7 +22,7 @@ import torch
 
 from ..kernels import build as kb
 
-FPS_MAX_POINTS = 16384   # csrc/fps.cu: 1024 threads x 16 points each
+FPS_MAX_POINTS = 16384   # csrc/fps.cu: kMaxPoints
 
 
 def first_valid(mask: torch.Tensor) -> torch.Tensor:
@@ -94,9 +94,14 @@ def furthest_point_sample_reference(xyz: torch.Tensor, npoint: int,
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int,
-                          mask: torch.Tensor | None = None) -> torch.Tensor:
+                          mask: torch.Tensor | None = None,
+                          shape: tuple[int, int] | None = None
+                          ) -> torch.Tensor:
     """Kernel B6: xyz (B, N, 3), mask (B, N) or None -> (B, npoint) int64
-    sample indices, all streams in one launch."""
+    sample indices, all streams in one launch. shape: by default the kernel
+    picks its launch shape by N; (threads a block, blocks a stream) forces
+    one (1 block: no cluster), for measuring the shapes against each other.
+    """
     if not xyz.is_cuda:
         return furthest_point_sample_reference(xyz, npoint, mask)
     dev = xyz.device
@@ -108,9 +113,11 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int,
         raise ValueError(f"the kernel takes 1 <= N <= {FPS_MAX_POINTS} and "
                          f"npoint >= 1; got N={n}, npoint={npoint}")
     out = torch.empty((b, npoint), device=dev, dtype=torch.int32)
+    threads, blocks = (0, 0) if shape is None else shape
     with torch.cuda.device(dev):
         code = kb.load().ratrack_fps(kb.ptr(xyz), kb.ptr(mask), b, n, npoint,
-                                     kb.ptr(out), kb.stream_of(xyz))
+                                     kb.ptr(out), int(threads), int(blocks),
+                                     kb.stream_of(xyz))
     kb.check(code, "fps")
     furthest_point_sample.launches += 1
     return out.long()

@@ -536,6 +536,35 @@ def test_fps_first_maximum_on_exact_ties(device, n, npoint):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("n", [33, 500, 4096, 8192, 16384])
+def test_fps_launch_shapes_match_plain(device, n):
+    """The kernel's own launch shape and every forced one that fits n (one
+    block of few or many threads, clusters of 2, 4 and 8 blocks; at most 16
+    points a thread) against the plain loop, masked and not: 33 and 500
+    leave a warp ragged, 8192 and 16384 are the stretch clouds' sizes."""
+    gen = _gen(n)
+    xyz = (20 * torch.randn((3, n, 3), generator=gen)).to(device)
+    mask = (torch.rand((3, n), generator=gen) > 0.4).to(device)
+    npoint = min(n, 96)
+    shapes = [None] + [sh for sh in ((32, 1), (128, 1), (1024, 1), (256, 2),
+                                     (64, 4), (128, 8), (256, 8))
+                       if n <= 16 * sh[0] * sh[1]]
+    for m in (mask, None):
+        want = sampling.furthest_point_sample_reference(xyz, npoint, m)
+        for shape in shapes:
+            got = sampling.furthest_point_sample(xyz, npoint, m, shape=shape)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), shape
+
+
+def test_fps_refuses_a_shape_the_kernel_does_not_take(device):
+    xyz = torch.randn((1, 4096, 3), device=device)
+    for shape in ((100, 1), (128, 16), (1024, 4), (64, 1)):
+        with pytest.raises(RuntimeError):   # threads % 32, blocks > 8, over
+            sampling.furthest_point_sample(  # 64 warps, over 16 points
+                xyz, 8, shape=shape)
+
+
 @pytest.mark.parametrize("k,iters", [(32, 500), (8, 20), (100, 50)])
 def test_sinkhorn_matches_plain(device, k, iters):
     kw, meta = cases.sinkhorn_case(14, 8, k, iters)
@@ -717,6 +746,46 @@ def test_sa_pair_train_equals_two_sa_scale_trains(device, level):
     outs, grads = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
     for t, (tag, single) in enumerate(zip("ab",
                                           cases.split_sa_train_case(kw))):
+        o1, g1 = cases.sa_scale_train_run(fused_sa_train.sa_scale_train,
+                                          single, seed=t)
+        for key, val in o1.items():
+            assert torch.equal(val, outs[cases.pair_key(key, tag)]), key
+        for key, val in g1.items():
+            want = grads[cases.pair_key(key, tag)]
+            if key == "pf":
+                assert (val - want).abs().max().item() <= \
+                    1e-5 * want.abs().max().item() + 1e-7
+            else:
+                assert torch.equal(val, want), key
+
+
+@pytest.mark.parametrize("b,m", [(1, 100), (2, 37), (2, 12)])
+@pytest.mark.parametrize("level", ["sa1", "sa2", "sa3"])
+def test_sa_train_backward_cluster_shares(device, level, b, m):
+    """The backward's partition: a cluster of 8 blocks shares a stream's m
+    centers (100: rows that fill no whole number of 64-row tiles; 37:
+    ragged shares; 12: two blocks own nothing), one stream and two. B9 and
+    both B8 launches against the plain version by the float64 yardstick;
+    B9 twice on the same inputs: every output and gradient identical but
+    the feature gradient (float atomics); B9 == two B8 launches bit for
+    bit, the feature gradient within 1e-5 of its largest element."""
+    pc, mask, _, _ = cases.clouds(40 + m, b, 256, n_static=150)
+    kw = cases.to_device(cases.sa_train_case(
+        level, "pn_head", pc, mask, _gen(40 + m),
+        centers=cases.fps_centers(pc, mask, m)), device)
+    assert kw["centers"].shape == (b, m, 3)
+    _assert_train_match(cases.sa_train_run, fused_sa_train.sa_pair_train,
+                        fused_sa_train.sa_pair_train_reference, kw)
+    outs, grads = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
+    outs2, grads2 = cases.sa_train_run(fused_sa_train.sa_pair_train, kw)
+    for key, val in outs.items():
+        assert torch.equal(val, outs2[key]), key
+    for key, val in grads.items():
+        if not key.startswith("pf"):
+            assert torch.equal(val, grads2[key]), key
+    for t, (tag, single) in enumerate(zip("ab",
+                                          cases.split_sa_train_case(kw))):
+        _assert_scale_train_match(single)
         o1, g1 = cases.sa_scale_train_run(fused_sa_train.sa_scale_train,
                                           single, seed=t)
         for key, val in o1.items():
