@@ -28,9 +28,13 @@ Phases, each printing one line:
                 further from the plain version run in float64 than 1e-3
                 of its norm plus twice the float32 plain version's
                 distance (max-pool near-ties, see kernels/cases.py::
-                compare_train); median CUDA-event ms of forward and
-                backward; and how many of the backward's thread-block
-                clusters the card holds at once;
+                compare_train); median CUDA-event ms of a forward and of
+                a backward call (each one launch of the wrapper); for
+                B10's stage 1 products_torch_ms, its backward's four
+                pair-layer products as torch.matmul (float32, TF32 off; a
+                yardstick, used nowhere in the port); and how many of the
+                forward's and the backward's thread-block clusters the
+                card holds at once;
   7. train_slice make_scan_train_step over 8 synthetic streams x 2 frames
                 from the same seeded weights on the GPU (float32) and on
                 the CPU (plain versions) in float64 and float32: against
@@ -103,13 +107,15 @@ from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's), error, times
 summed over the calls one frame step of that path makes (6 B1, 6 B2, 2 B3;
 9 B9, 2 B10; 2 B5, 2 B4, 6 B6, 1 B7; for B1' the 4 and for B8 the 6
-scales that phase 13's three levels launch one by one), the roofline bound of the same work (the larger of bytes / 3.35
-TB/s and float32 operations / 67 TFLOP/s, counted by
-kernels/cases.py::*_work) and, where one PyTorch call computes the same
-function, that call's time; and last the result line. Any failed check
-exits non-zero before the result line (phases 6-8 and 12-15 record their
-failed checks and go on, so that one run reports all of them; the script
-then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
+scales that phase 13's three levels launch one by one), the roofline
+bound of the same work (the largest of bytes / 3.35 TB/s, matrix-product
+operations / 165 TFLOP/s, the card's fastest float32-accurate product:
+3xTF32, a third of the 495 TF32 rate, and the other float32 operations /
+67 TFLOP/s, counted by kernels/cases.py::*_work) and, where one PyTorch
+call computes the same function, that call's time; and last the result
+line. Any failed check exits non-zero before the result line (phases 6-8
+and 12-15 record their failed checks and go on, so that one run reports
+all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
 
@@ -149,6 +155,7 @@ SEED = 0
 FPS_SHAPES = ((1024, 1), (128, 1), (128, 2), (128, 8))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
+PRODUCT_OPS_PER_S = 495e12 / 3  # float32-accurate products: 3xTF32
 
 KERNELS = {
     "sa_pair": dict(
@@ -256,18 +263,21 @@ def compare(torch, name, got, want, got_idx, want_idx):
 
 def new_summary(names):
     return {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
-                    bytes=0, ops=0) for k in names}
+                    bytes=0, mm_ops=0, ops=0) for k in names}
 
 
-def roofline(nbytes, ops):
+def roofline(nbytes, mm_ops, ops):
     """(bound_ms, bound_by): the least time the card could take to move
-    nbytes or to do ops float32 operations, whichever is longer."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    nbytes, to do mm_ops matrix-product operations at the 3xTF32 rate or
+    to do ops other float32 operations, whichever is longest."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(mm_ops / PRODUCT_OPS_PER_S, ops / FP32_OPS_PER_S)
     return (1000.0 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tally(entry, weight, err, ms, plain_ms, library_ms, nbytes, ops):
+def tally(entry, weight, err, ms, plain_ms, library_ms, nbytes, mm_ops,
+          ops):
     """Add `weight` calls of one config to a kernel's per-frame-step sums."""
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry["ms"] += weight * ms
@@ -275,6 +285,7 @@ def tally(entry, weight, err, ms, plain_ms, library_ms, nbytes, ops):
     if library_ms is not None:
         entry["library_ms"] = (entry["library_ms"] or 0.0) + weight * library_ms
     entry["bytes"] += weight * nbytes
+    entry["mm_ops"] += weight * mm_ops
     entry["ops"] += weight * ops
 
 
@@ -287,8 +298,8 @@ def run_kernel_cases(torch, phase, runs, summary):
             got, want = r["run_k"](), r["run_p"]()
             torch.cuda.synchronize()
             err, tol = r["check"](got, want)
-            nbytes, ops = r["work"](got)
-            bound_ms, bound_by = roofline(nbytes, ops)
+            work = r["work"](got)
+            bound_ms, bound_by = roofline(*work)
             ms = device_ms(torch, r["run_k"])
             plain_ms = device_ms(torch, r["run_p"])
             library_ms = (device_ms(torch, r["library"])
@@ -298,7 +309,7 @@ def run_kernel_cases(torch, phase, runs, summary):
                  plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=bound_ms, bound_by=bound_by)
             tally(summary[r["kernel"]], r.get("weight", 1), err, ms,
-                  plain_ms, library_ms, nbytes, ops)
+                  plain_ms, library_ms, *work)
             del got, want
 
 
@@ -870,10 +881,14 @@ def phase_train_kernels(torch, seed: int):
                     bwd=cases.corr_train_bwd_work(kw, outs["out"]))
 
     from ratrack_tpu_torch.kernels import build
-    emit(phase="train_kernel", check="sa_train_bwd_clusters",
+    lib = build.load()
+    emit(phase="train_kernel", check="sa_train_clusters",
+         launches_per_forward=2,
          launches_per_backward=2, blocks_per_cluster=8,
          clusters_of_a_pair_launch=2 * N_STREAMS,
-         clusters_held_at_once=build.load().ratrack_sa_train_bwd_clusters(
+         forward_clusters_held_at_once=lib.ratrack_sa_train_fwd_clusters(
+             N_STREAMS, 2),
+         backward_clusters_held_at_once=lib.ratrack_sa_train_bwd_clusters(
              N_STREAMS, 2))
     summary = new_summary(TRAIN_KERNELS)
     for kernel, config, kw, fns in runs:
@@ -910,15 +925,18 @@ def train_kernel_case(torch, cases, summary, phase, kernel, config, kw, fns,
             torch, lambda loss=loss, flat=flat: torch.autograd.grad(
                 loss, flat, retain_graph=True))
         del loss, leaves, flat
+    products_ms = None
+    if kernel == "knn_weight_aggregate_train" and kw["mlp_ws"]:
+        products_ms = device_ms(torch, cases.corr_train_products(fk, kw))
     w = work(kernel, kw, got[0])
     bounds = {part: roofline(*w[part]) for part in w}
     emit(phase=phase, kernel=kernel, config=config,
          fwd_max_abs_err=err["fwd"], grad_max_abs_err=err["bwd"],
          indices_equal=True, fwd_ms=ms["kernel_fwd"],
          fwd_plain_ms=ms["plain_fwd"], bwd_ms=ms["kernel_bwd"],
-         bwd_plain_ms=ms["plain_bwd"], fwd_bound_ms=bounds["fwd"][0],
-         fwd_bound_by=bounds["fwd"][1], bwd_bound_ms=bounds["bwd"][0],
-         bwd_bound_by=bounds["bwd"][1])
+         bwd_plain_ms=ms["plain_bwd"], products_torch_ms=products_ms,
+         fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+         bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1])
     for part in ("fwd", "bwd"):
         tally(summary[f"{kernel}_{part}"], weight, err[part],
               ms[f"kernel_{part}"], ms[f"plain_{part}"], None, *w[part])
@@ -1516,7 +1534,8 @@ def main() -> None:
     kernels = []
     for name, meta in KERNELS.items():
         entry = summary[name]
-        bound_ms, bound_by = roofline(entry["bytes"], entry["ops"])
+        bound_ms, bound_by = roofline(entry["bytes"], entry["mm_ops"],
+                                      entry["ops"])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],

@@ -84,35 +84,4 @@ __device__ __forceinline__ void ball_query_pair(
   *hits_b = min(cnt_b, nsb);
 }
 
-// out[e] = sum over p < nparts of part[p * len + e], e < len, added in a
-// fixed order in float64: blockDim (32, 8), thread (x, y) sums parts
-// y, y + 8, ... of element blockIdx.x * 32 + x, then row y = 0 adds the
-// eight group sums in order. Deterministic, no atomics.
-template <typename T>
-__global__ void __launch_bounds__(256)
-reduce_parts_kernel(const T* __restrict__ part, int nparts, int len,
-                    float* __restrict__ out) {
-  __shared__ double red[8][32];
-  const int e = blockIdx.x * 32 + threadIdx.x;
-  double acc = 0.0;
-  if (e < len)
-    for (int p = threadIdx.y; p < nparts; p += 8)
-      acc += (double)part[(size_t)p * len + e];
-  red[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < len) {
-    double t = 0.0;
-    for (int g = 0; g < 8; ++g) t += red[g][threadIdx.x];
-    out[e] = (float)t;
-  }
-}
-
-template <typename T>
-inline cudaError_t reduce_parts(const T* part, int nparts, int len,
-                                float* out, cudaStream_t stream) {
-  reduce_parts_kernel<T><<<(len + 31) / 32, dim3(32, 8), 0, stream>>>(
-      part, nparts, len, out);
-  return cudaGetLastError();
-}
-
 }  // namespace ratrack

@@ -19,16 +19,24 @@
 //   d_query = -sum_s ddir. Selection gets no gradient.
 //
 // What bounds it on the H100: the two 256x256 pair layers. Their weight
-// gradients are (B*N*16 x 256)^T (B*N*16 x 256) products, 8.6 GFLOP each
-// at B = 8, N = 512, and their input gradients as many again, in float32
-// on the CUDA cores. Design: launches over 64-row blocks. atb_kernel
-// computes dW as a split-K product (64x64 output tiles, 4x4 per thread,
-// 1,024-row chunks) into per-chunk partials that a fixed-order float64
-// reduction adds; rows_matmul_kernel is the forward's register-tiled layer
-// (corr_common.cuh) over W^T with the leaky' epilogue. The WeightNet
-// backward and the product rule run in one head launch, the scatters in
-// one tail launch. Only the scatters to d_feats_p and d_points use float
-// atomics; every weight gradient is deterministic.
+// gradients dW_l = h_{l-1}^T dz_l are (B*N*16 x 256)^T (B*N*16 x 256)
+// products, 8.6 GFLOP each at B = 8, N = 512, and their input gradients
+// dh_{l-1} = dz_l W_l^T as many again; every operand is a (B*N*16, 256)
+// array of 67 MB at that size. Design: the four products run on the tensor
+// cores as 3xTF32 (each float32 operand split into a TF32 high part and a
+// TF32 remainder, three mma.sync m16n8k8 products, hi*lo + lo*hi + hi*hi,
+// accumulated in float32: float32's accuracy, not TF32's three digits).
+// One launch a layer holds both products (pair_layer_kernel): its first
+// blocks take dW as a split-K product (128x128 output tiles over chunks of
+// kDwChunk rows, db from the same staged dz), the others dh over 128-row
+// tiles with W_l read in its own layout (no transpose) and the leaky'
+// epilogue from the stashed sign. Operand tiles come through a 3-stage
+// cp.async ring. The WeightNet backward and the product rule run in one
+// head launch, the scatters in one tail launch, and one finishing launch
+// adds every per-block and per-chunk weight-gradient partial in a fixed
+// order in float64: five launches for stage 1, three for stage 2. Only
+// the scatters to d_feats_p and d_points use float atomics; every weight
+// gradient is identical run to run.
 
 #include "corr_common.cuh"
 
@@ -41,9 +49,6 @@ using namespace ratrack::corr;
 constexpr int kWnGrad = 3 * kWnHidden + kWnHidden + kWnHidden * kWnHidden +
                         kWnHidden + kWnHidden * kC + kC;
 constexpr int kPad = kC + 1;        // shared row stride of a (kRows, kC) tile
-constexpr int kAtbTile = 64;        // dW output tile
-constexpr int kAtbRows = 32;        // rows per shared sub-tile
-constexpr int kAtbChunk = 1024;     // rows per split-K chunk
 
 struct WnParams {
   const float* w0;
@@ -73,7 +78,8 @@ bwd_head_kernel(const float* __restrict__ query,
   float* dg2 = ds + kRows * 4;               // (kRows, 8)
   float* dz1 = dg2 + kRows * kWnHidden;      // (kRows, 8)
   float* dz0 = dz1 + kRows * kWnHidden;      // (kRows, 8)
-  int* sj = reinterpret_cast<int*>(dz0 + kRows * kWnHidden);
+  float* w2t = dz0 + kRows * kWnHidden;      // (kC, 8) WeightNet W2^T
+  int* sj = reinterpret_cast<int*>(w2t + kC * kWnHidden);
   const int tid = threadIdx.x;
   const long long q0 = (long long)blockIdx.x * kQ;
   const long long total = (long long)nb * n;
@@ -113,46 +119,81 @@ bwd_head_kernel(const float* __restrict__ query,
 #pragma unroll
   for (int t = 0; t < kWnHidden; ++t) {
     w2c[t] = wn.w2[t * kC + c];
+    w2t[c * kWnHidden + t] = w2c[t];
     gw2[t] = 0.0f;
   }
   const float b2c = wn.b2[c];
   float gb2 = 0.0f;
-  for (int r = 0; r < kRows; ++r) {
-    const long long g = q0 + r / kK;
-    float dzw = 0.0f;
-    if (g < total) {
-      float a = 0.0f;
+  // a query at a time: its 16 slot rows are loaded first, so that their
+  // loads are in flight together
+  for (int qi = 0; qi < kQ; ++qi) {
+    const long long g = q0 + qi;
+    const bool live = g < total;
+    float hv[kK];
+    float d = 0.0f;
+    if (live) {
+      d = dout[(size_t)g * kC + c];
 #pragma unroll
-      for (int t = 0; t < kWnHidden; ++t) a = fmaf(g2s[r * kWnHidden + t], w2c[t], a);
-      const float w = fmaxf(a + b2c, 0.0f);
-      const size_t row = (size_t)g * kK + r % kK;
-      const float h = h_top != nullptr
-                          ? h_top[row * kC + c]
-                          : feats_p[((size_t)(g / n) * m + sj[r]) * kC + c];
-      const float d = dout[(size_t)g * kC + c];
-      const float dh = d * w;
-      dz_top[row * kC + c] = top_act ? (h > 0.0f ? dh : 0.1f * dh) : dh;
-      dzw = w > 0.0f ? d * h : 0.0f;
-#pragma unroll
-      for (int t = 0; t < kWnHidden; ++t)
-        gw2[t] = fmaf(g2s[r * kWnHidden + t], dzw, gw2[t]);
-      gb2 += dzw;
+      for (int s = 0; s < kK; ++s)
+        hv[s] = h_top != nullptr
+                    ? h_top[((size_t)g * kK + s) * kC + c]
+                    : feats_p[((size_t)(g / n) * m + sj[qi * kK + s]) * kC + c];
     }
-    dzs[r * kPad + c] = dzw;
+#pragma unroll
+    for (int s = 0; s < kK; ++s) {
+      const int r = qi * kK + s;
+      float dzw = 0.0f;
+      if (live) {
+        float a = 0.0f;
+#pragma unroll
+        for (int t = 0; t < kWnHidden; ++t) a = fmaf(g2s[r * kWnHidden + t], w2c[t], a);
+        const float w = fmaxf(a + b2c, 0.0f);
+        const float h = hv[s];
+        const float dh = d * w;
+        dz_top[((size_t)g * kK + s) * kC + c] =
+            top_act ? (h > 0.0f ? dh : 0.1f * dh) : dh;
+        dzw = w > 0.0f ? d * h : 0.0f;
+#pragma unroll
+        for (int t = 0; t < kWnHidden; ++t)
+          gw2[t] = fmaf(g2s[r * kWnHidden + t], dzw, gw2[t]);
+        gb2 += dzw;
+      }
+      dzs[r * kPad + c] = dzw;
+    }
   }
   __syncthreads();
 
-  // dL/d(hidden 2) = dzw @ W2^T: four threads a row, two outputs each
+  // dL/d(hidden 2) = dzw @ W2^T: four threads a row (neighbouring lanes),
+  // each over a quarter of the channels (started 8q apart, so that the
+  // warp's 32 reads of dzs fall on 32 banks) for all eight outputs, then
+  // added by shuffles
   {
-    const int r = tid / 4, t0 = (tid % 4) * 2;
-    float a0 = 0.0f, a1 = 0.0f;
-    for (int k = 0; k < kC; ++k) {
+    const int r = tid / 4, q = tid % 4;
+    float a[kWnHidden];
+#pragma unroll
+    for (int t = 0; t < kWnHidden; ++t) a[t] = 0.0f;
+    for (int j = 0; j < kC / 4; ++j) {
+      const int k = q * (kC / 4) + ((j + 8 * q) & (kC / 4 - 1));
       const float v = dzs[r * kPad + k];
-      a0 = fmaf(v, wn.w2[t0 * kC + k], a0);
-      a1 = fmaf(v, wn.w2[(t0 + 1) * kC + k], a1);
+      const float4 lo = *reinterpret_cast<const float4*>(w2t + k * kWnHidden);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(w2t + k * kWnHidden + 4);
+      a[0] = fmaf(v, lo.x, a[0]);
+      a[1] = fmaf(v, lo.y, a[1]);
+      a[2] = fmaf(v, lo.z, a[2]);
+      a[3] = fmaf(v, lo.w, a[3]);
+      a[4] = fmaf(v, hi.x, a[4]);
+      a[5] = fmaf(v, hi.y, a[5]);
+      a[6] = fmaf(v, hi.z, a[6]);
+      a[7] = fmaf(v, hi.w, a[7]);
     }
-    dg2[r * kWnHidden + t0] = a0;
-    dg2[r * kWnHidden + t0 + 1] = a1;
+#pragma unroll
+    for (int t = 0; t < kWnHidden; ++t) {
+      a[t] += __shfl_xor_sync(ratrack::kFullMask, a[t], 1);
+      a[t] += __shfl_xor_sync(ratrack::kFullMask, a[t], 2);
+    }
+    dg2[r * kWnHidden + 2 * q] = a[2 * q];
+    dg2[r * kWnHidden + 2 * q + 1] = a[2 * q + 1];
   }
   __syncthreads();
 
@@ -217,121 +258,241 @@ bwd_head_kernel(const float* __restrict__ query,
   part[104 + kWnHidden * kC + c] = gb2;
 }
 
-// wt = w^T for a (kC, kC) matrix, 32x32 tiles through shared memory.
-__global__ void __launch_bounds__(kThreads)
-transpose_kernel(const float* __restrict__ w, float* __restrict__ wt) {
-  __shared__ float tile[32][33];
-  const int bx = blockIdx.x * 32, by = blockIdx.y * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;   // 32 x 8
-  for (int k = ty; k < 32; k += 8) tile[k][tx] = w[(size_t)(by + k) * kC + bx + tx];
-  __syncthreads();
-  for (int k = ty; k < 32; k += 8) wt[(size_t)(bx + k) * kC + by + tx] = tile[tx][k];
+// ---- the pair layers on the tensor cores: 3xTF32 mma.sync ----
+
+constexpr int kMmaThreads = 256;    // 8 warps: 2 (rows) x 4 (columns)
+constexpr int kBM = 128;            // output tile rows
+constexpr int kBN = 128;            // output tile columns
+constexpr int kBK = 32;             // depth of a staged operand tile
+constexpr int kStages = 3;          // cp.async ring
+constexpr int kDwChunk = 1024;      // pair rows of a split-K dW chunk
+constexpr int kLdK = kBM + 8;       // stride of a depth-major staged row
+constexpr int kLdM = kBK + 4;       // stride of a depth-minor staged row
+constexpr int kStageFloats = 2 * kBM * kLdM;   // both operands, >= 2 * kBK * kLdK
+constexpr size_t kMmaSmem = sizeof(float) * kStages * kStageFloats;
+static_assert(kBM == kBN && kBK * kLdK <= kBM * kLdM, "stage layout");
+
+__device__ __forceinline__ unsigned tf32_of(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// out[r] = (in[r] @ wt) * leaky'(ref[r]) for kRows rows a block; with
-// wt = W^T this is dh_{l-1} = dz_l @ W^T and, through the sign of the
-// stashed activation ref (null: no activation), dz_{l-1}.
-__global__ void __launch_bounds__(kThreads)
-rows_matmul_kernel(const float* __restrict__ in, const float* __restrict__ wt_g,
-                   const float* __restrict__ ref, long long rows,
-                   float* __restrict__ out) {
+// x = hi + lo, both TF32 (lo: the rounding remainder, exact in float32).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_of(x);
+  lo = tf32_of(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid.
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// What one launch of pair_layer_kernel computes for pair layer l.
+struct LayerArgs {
+  const float* h;        // (rows, kC) h_{l-1}: dW's left operand
+  const float* dz;       // (rows, kC) dz_l
+  const float* w;        // (kC, kC) W_l, x @ W layout
+  const float* ref;      // (rows, kC) h_{l-1} for leaky', or null
+  float* dz_prev;        // (rows, kC) dz_{l-1} = (dz_l W_l^T) * leaky'(ref)
+  float* part_w;         // (chunks, kC, kC) dW_l partials
+  float* part_b;         // (chunks, kC) db_l partials
+  long long rows;
+  int chunks;
+};
+
+// acc (a warp's 64 x 32 of a 128 x 128 output tile) += A B over one
+// staged depth tile of kBK. kDw: A = h^T and B = dz, both staged
+// depth-major ([k][m], stride kLdK); else A = dz and B = W^T, both staged
+// depth-minor ([m][k], stride kLdM: W's own rows). Lane (g, t) = (lane /
+// 4, lane % 4) reads element (g, t) of every fragment: the strides put the
+// 32 lanes on 32 banks.
+template <bool kDw>
+__device__ __forceinline__ void mma_stage(float (&acc)[4][4][4],
+                                          const float* as, const float* bs,
+                                          int wm, int wn, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    unsigned ah[4][4], al[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = wm + mt * 16 + g + (q & 1) * 8;
+        const int k = kk + t + (q >> 1) * 4;
+        split_tf32(kDw ? as[k * kLdK + m] : as[m * kLdM + k], ah[mt][q],
+                   al[mt][q]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      unsigned bh[2], bl[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = wn + nt * 8 + g, k = kk + t + q * 4;
+        split_tf32(kDw ? bs[k * kLdK + n] : bs[n * kLdM + k], bh[q], bl[q]);
+      }
+      // the small terms first; an accumulator's three products four apart
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma_tf32(acc[mt][nt], al[mt], bh);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma_tf32(acc[mt][nt], ah[mt], bl);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma_tf32(acc[mt][nt], ah[mt], bh);
+    }
+  }
+}
+
+// One pair layer's backward products. Blocks [0, chunks * 4): dW, output
+// tile blockIdx % 4 (128 x 128) over the rows of chunk blockIdx / 4, into
+// part_w; the tiles of output rows 0..127 also sum the staged dz columns
+// (db) into part_b. The rest: dh over 128 rows x 128 columns, times
+// leaky'(ref), into dz_prev. Two blocks share an SM. Every partial is a
+// fixed function of its block's rows: deterministic.
+__global__ void __launch_bounds__(kMmaThreads, 2)
+pair_layer_kernel(LayerArgs a) {
   extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);   // (kRows, kC)
-  float* wt = hs + kRows * kC;                   // (kKT, kC)
-  const int tid = threadIdx.x;
-  const long long r0 = (long long)blockIdx.x * kRows;
-  for (int e = tid; e < kRows * (kC / 4); e += kThreads) {
-    const long long row = r0 + e / (kC / 4);
-    reinterpret_cast<float4*>(hs)[e] =
-        row < rows ? reinterpret_cast<const float4*>(in)[row * (kC / 4) + e % (kC / 4)]
-                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int ndw = a.chunks * 4;
+  const bool dw = (int)blockIdx.x < ndw;
+  long long k0 = 0, kend = 0, bm0 = 0;
+  int bn0 = 0;
+  if (dw) {
+    const int tile = blockIdx.x % 4;
+    k0 = (long long)(blockIdx.x / 4) * kDwChunk;
+    kend = min(k0 + kDwChunk, a.rows);
+    bm0 = (tile >> 1) * kBM;
+    bn0 = (tile & 1) * kBN;
+  } else {
+    const int b = blockIdx.x - ndw;
+    bm0 = (long long)(b >> 1) * kBM;
+    bn0 = (b & 1) * kBN;
+    kend = kC;
   }
-  const int qq = tid / (kC / 4), col4 = tid % (kC / 4);
-  float acc[kK][4];
-  tile_layer(wt_g, reinterpret_cast<const float4*>(hs), wt, acc, tid, qq, col4);
-#pragma unroll
-  for (int s = 0; s < kK; ++s) {
-    const long long row = r0 + qq * kK + s;
-    if (row >= rows) continue;
-    float4 v = make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
-    if (ref != nullptr) {
-      const float4 h = reinterpret_cast<const float4*>(ref)[row * (kC / 4) + col4];
-      v.x *= h.x > 0.0f ? 1.0f : 0.1f;
-      v.y *= h.y > 0.0f ? 1.0f : 0.1f;
-      v.z *= h.z > 0.0f ? 1.0f : 0.1f;
-      v.w *= h.w > 0.0f ? 1.0f : 0.1f;
-    }
-    reinterpret_cast<float4*>(out)[row * (kC / 4) + col4] = v;
-  }
-}
+  const int nk = (int)((kend - k0 + kBK - 1) / kBK);
+  const bool col_sums = dw && bm0 == 0;
 
-// Split-K dW: part_w[chunk] = A[chunk rows]^T B[chunk rows] (kC x kC), one
-// 64x64 output tile a block (blockIdx.x = i-tile * 4 + o-tile), 4x4 outputs
-// a thread; the blocks of i-tile 0 also sum the columns of B (db) into
-// part_b[chunk].
-__global__ void __launch_bounds__(kThreads)
-atb_kernel(const float* __restrict__ A, const float* __restrict__ B,
-           long long rows, float* __restrict__ part_w,
-           float* __restrict__ part_b) {
-  __shared__ float4 as4[kAtbRows * kAtbTile / 4];
-  __shared__ float4 bs4[kAtbRows * kAtbTile / 4];
-  constexpr int kTiles = kC / kAtbTile;
-  constexpr int kT4 = kAtbTile / 4;
-  const int ti = blockIdx.x / kTiles, to = blockIdx.x % kTiles;
-  const int tid = threadIdx.x, ty = tid / kT4, tx = tid % kT4;
-  const long long rbeg = (long long)blockIdx.y * kAtbChunk;
-  const long long rend = min(rbeg + kAtbChunk, rows);
-  const float4* A4 = reinterpret_cast<const float4*>(A);
-  const float4* B4 = reinterpret_cast<const float4*>(B);
-  float acc[4][4];
+  // stage s of depth tile kt: dW: kBK rows of h (columns bm0..) and of dz
+  // (columns bn0..); dh: kBM rows of dz (columns kt * kBK..) and kBN rows
+  // of W (the same columns). 1,024 float4 an operand: 4 a thread.
+  auto load = [&](int kt) {
+    float* as = smem + (kt % kStages) * kStageFloats;
+    float* bs = as + kStageFloats / 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + i * kMmaThreads;
+      if (dw) {
+        const int r = e >> 5, c4 = (e & 31) * 4;
+        const long long row = k0 + (long long)kt * kBK + r;
+        const bool ok = row < kend;
+        const long long src = (ok ? row : 0) * kC;
+        cp16(as + r * kLdK + c4, a.h + src + bm0 + c4, ok);
+        cp16(bs + r * kLdK + c4, a.dz + src + bn0 + c4, ok);
+      } else {
+        const int r = e >> 3, c4 = (e & 7) * 4;
+        const long long row = bm0 + r;
+        const bool ok = row < a.rows;
+        const int col = kt * kBK + c4;
+        cp16(as + r * kLdM + c4, a.dz + (ok ? row : 0) * kC + col, ok);
+        cp16(bs + r * kLdM + c4, a.w + (size_t)(bn0 + r) * kC + col, true);
+      }
+    }
+  };
+
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int o = 0; o < 4; ++o) acc[i][o] = 0.0f;
-  float4 colb = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (long long r0 = rbeg; r0 < rend; r0 += kAtbRows) {
-    __syncthreads();
-    for (int e = tid; e < kAtbRows * kT4; e += kThreads) {
-      const long long row = r0 + e / kT4;
-      const int c4 = e % kT4;
-      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      as4[e] = row < rend ? A4[row * (kC / 4) + ti * kT4 + c4] : z;
-      bs4[e] = row < rend ? B4[row * (kC / 4) + to * kT4 + c4] : z;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kAtbRows; ++rr) {
-      const float4 a = as4[rr * kT4 + ty];
-      const float4 b = bs4[rr * kT4 + tx];
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
-      }
-      if (ti == 0 && ty == 0) {
-        colb.x += b.x;
-        colb.y += b.y;
-        colb.z += b.z;
-        colb.w += b.w;
-      }
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+  double colb = 0.0;
+
+#pragma unroll
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < nk) load(kt);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait_ring();
+    __syncthreads();   // stage kt has landed; stage kt - 1 is consumed
+    if (kt + kStages - 1 < nk) load(kt + kStages - 1);
+    cp_commit();
+    const float* as = smem + (kt % kStages) * kStageFloats;
+    const float* bs = as + kStageFloats / 2;
+    if (dw) {
+      mma_stage<true>(acc, as, bs, wm, wn, g, t);
+      if (col_sums && tid < kBN)
+        for (int r = 0; r < kBK; ++r) colb += (double)bs[r * kLdK + tid];
+    } else {
+      mma_stage<false>(acc, as, bs, wm, wn, g, t);
     }
   }
-  float* pw = part_w + (size_t)blockIdx.y * kC * kC;
+
+  // accumulator (mt, nt): rows g and g + 8, columns 2t and 2t + 1
+  if (dw) {
+    float* pw = a.part_w + (size_t)(blockIdx.x / 4) * kC * kC;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    reinterpret_cast<float4*>(pw + (size_t)(ti * kAtbTile + ty * 4 + i) * kC)[to * kT4 + tx] =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  if (ti == 0 && ty == 0)
-    reinterpret_cast<float4*>(part_b + (size_t)blockIdx.y * kC)[to * kT4 + tx] = colb;
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long m = bm0 + wm + mt * 16 + g + h * 8;
+          const int n = bn0 + wn + nt * 8 + 2 * t;
+          *reinterpret_cast<float2*>(pw + m * kC + n) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+    if (col_sums && tid < kBN)
+      a.part_b[(size_t)(blockIdx.x / 4) * kC + bn0 + tid] = (float)colb;
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = bm0 + wm + mt * 16 + g + h * 8;
+        if (row >= a.rows) continue;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const size_t at = (size_t)row * kC + bn0 + wn + nt * 8 + 2 * t;
+          float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          if (a.ref != nullptr) {
+            const float2 r = *reinterpret_cast<const float2*>(a.ref + at);
+            v.x *= r.x > 0.0f ? 1.0f : 0.1f;
+            v.y *= r.y > 0.0f ? 1.0f : 0.1f;
+          }
+          *reinterpret_cast<float2*>(a.dz_prev + at) = v;
+        }
+      }
+  }
 }
 
-// Slot backward over kQ queries (kRows pair rows), one channel a thread:
-// dz0 -> d_feats_p[j] (atomics), d_add_q = sum_s dz0 (if given), dW_dir
-// partials dir^T dz0 (if w_dir), ddir = ddir_wn + dz0 @ W_dir^T ->
-// d_points[j] (atomics), d_query = -sum_s ddir.
+// Slot backward over kQ queries (kRows pair rows): dz0 -> d_feats_p[j]
+// (float4 atomics), d_add_q = sum_s dz0 (if given), dW_dir partials
+// dir^T dz0 (if w_dir), ddir = ddir_wn + dz0 @ W_dir^T -> d_points[j]
+// (atomics), d_query = -sum_s ddir.
 __global__ void __launch_bounds__(kThreads)
 bwd_tail_kernel(const float* __restrict__ query,
                 const float* __restrict__ points, const int* __restrict__ idx,
@@ -344,7 +505,9 @@ bwd_tail_kernel(const float* __restrict__ query,
   float* dzs = smem;                  // (kRows, kPad)
   float* ds = dzs + kRows * kPad;     // (kRows, 4) directions
   float* dd = ds + kRows * 4;         // (kRows, 4) ddir
-  int* sj = reinterpret_cast<int*>(dd + kRows * 4);
+  float* wdt = dd + kRows * 4;        // (kC, 4) W_dir^T
+  float* gws = wdt + kC * 4;          // (kQ, 3, kC) W_dir sums by query
+  int* sj = reinterpret_cast<int*>(gws + kQ * 3 * kC);
   const int tid = threadIdx.x;
   const long long q0 = (long long)blockIdx.x * kQ;
   const long long total = (long long)nb * n;
@@ -365,40 +528,87 @@ bwd_tail_kernel(const float* __restrict__ query,
 #pragma unroll
     for (int t = 0; t < 3; ++t) ds[tid * 4 + t] = d[t];
   }
+  if (w_dir != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) wdt[tid * 4 + i] = w_dir[i * kC + tid];
+  }
   __syncthreads();
 
-  const int c = tid;
-  float gwd[3] = {0.0f, 0.0f, 0.0f};
-  for (int qi = 0; qi < kQ; ++qi) {
+  // a thread per (query, four channels): the query's slots of dz0, the
+  // dPF scatter four channels an atomic, d_add_q, W_dir sums
+  {
+    const int qi = tid / (kC / 4), c4 = (tid % (kC / 4)) * 4;
     const long long g = q0 + qi;
     const bool live = g < total;
     const int bi = live ? (int)(g / n) : 0;
-    float sq = 0.0f;
+    float4 sq = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float gwd[3][4] = {};
+    float4 dv[kK];   // the query's slot rows, loaded first
+#pragma unroll
+    for (int s = 0; s < kK; ++s)
+      dv[s] = live ? *reinterpret_cast<const float4*>(
+                         dz0 + ((size_t)g * kK + s) * kC + c4)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
     for (int s = 0; s < kK; ++s) {
       const int r = qi * kK + s;
-      const float v = live ? dz0[((size_t)g * kK + s) * kC + c] : 0.0f;
-      dzs[r * kPad + c] = v;
-      if (live) {
-        atomicAdd(d_feats_p + ((size_t)bi * m + sj[r]) * kC + c, v);
-        sq += v;
+      const float4 v = dv[s];
+      if (live)
+        atomicAdd(reinterpret_cast<float4*>(
+                      d_feats_p + ((size_t)bi * m + sj[r]) * kC + c4), v);
+      const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int i = 0; i < 3; ++i) gwd[i] = fmaf(ds[r * 4 + i], v, gwd[i]);
+      for (int u = 0; u < 4; ++u) {
+        dzs[r * kPad + c4 + u] = vv[u];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) gwd[i][u] = fmaf(ds[r * 4 + i], vv[u], gwd[i][u]);
       }
+      sq.x += v.x;
+      sq.y += v.y;
+      sq.z += v.z;
+      sq.w += v.w;
     }
-    if (live && d_add_q != nullptr) d_add_q[(size_t)g * kC + c] = sq;
+    if (live && d_add_q != nullptr)
+      *reinterpret_cast<float4*>(d_add_q + (size_t)g * kC + c4) = sq;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) gws[(qi * 3 + i) * kC + c4 + u] = gwd[i][u];
   }
+  __syncthreads();
+  // this block's W_dir sums, the queries added in order
   if (w_dir != nullptr)
 #pragma unroll
-    for (int i = 0; i < 3; ++i) wdir_part[((size_t)blockIdx.x * 3 + i) * kC + c] = gwd[i];
-  __syncthreads();
+    for (int i = 0; i < 3; ++i) {
+      float a = 0.0f;
+      for (int qi = 0; qi < kQ; ++qi) a += gws[(qi * 3 + i) * kC + tid];
+      wdir_part[((size_t)blockIdx.x * 3 + i) * kC + tid] = a;
+    }
 
-  if (tid < kRows * 3) {
-    const int r = tid / 3, i = tid % 3;
+  // ddir = ddir_wn + dz0 @ W_dir^T: four threads a row (neighbouring
+  // lanes), each over a quarter of the channels as in the head, added by
+  // shuffles
+  {
+    const int r = tid / 4, q = tid % 4;
+    float a[3] = {0.0f, 0.0f, 0.0f};
+    if (w_dir != nullptr) {
+      for (int j = 0; j < kC / 4; ++j) {
+        const int k = q * (kC / 4) + ((j + 8 * q) & (kC / 4 - 1));
+        const float v = dzs[r * kPad + k];
+        a[0] = fmaf(v, wdt[k * 4 + 0], a[0]);
+        a[1] = fmaf(v, wdt[k * 4 + 1], a[1]);
+        a[2] = fmaf(v, wdt[k * 4 + 2], a[2]);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        a[i] += __shfl_xor_sync(ratrack::kFullMask, a[i], 1);
+        a[i] += __shfl_xor_sync(ratrack::kFullMask, a[i], 2);
+      }
+    }
     const long long g = q0 + r / kK;
-    float a = 0.0f;
-    if (w_dir != nullptr)
-      for (int k = 0; k < kC; ++k) a = fmaf(dzs[r * kPad + k], w_dir[i * kC + k], a);
-    dd[r * 4 + i] = g < total ? ddir_wn[((size_t)g * kK + r % kK) * 3 + i] + a : 0.0f;
+    if (q < 3)
+      dd[r * 4 + q] =
+          g < total ? ddir_wn[((size_t)g * kK + r % kK) * 3 + q] + a[q] : 0.0f;
   }
   __syncthreads();
   if (tid < kRows * 3) {
@@ -418,12 +628,47 @@ bwd_tail_kernel(const float* __restrict__ query,
   }
 }
 
+// The weight-gradient finishes of one backward: segment y adds its nparts
+// partials of len floats (part[p * len + e]) into out[e], in a fixed order
+// in float64. blockDim (32, 8): thread (x, y) sums parts y, y + 8, ... of
+// element blockIdx.x * 32 + x, then row y = 0 adds the eight group sums in
+// order.
+constexpr int kMaxSegments = 2 + 2 * kMaxMlp;
+struct Segment {
+  const float* part;
+  int nparts, len;
+  float* out;
+};
+struct Finish {
+  Segment seg[kMaxSegments];
+};
+
+__global__ void __launch_bounds__(256)
+finish_kernel(Finish f) {
+  __shared__ double red[8][32];
+  const Segment& sg = f.seg[blockIdx.y];
+  if ((int)blockIdx.x * 32 >= sg.len) return;
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  double acc = 0.0;
+  if (e < sg.len)
+    for (int p = threadIdx.y; p < sg.nparts; p += 8)
+      acc += (double)sg.part[(size_t)p * sg.len + e];
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < sg.len) {
+    double tot = 0.0;
+    for (int q = 0; q < 8; ++q) tot += red[q][threadIdx.x];
+    sg.out[e] = (float)tot;
+  }
+}
+
 constexpr size_t kHeadSmem =
-    sizeof(float) * (kRows * kPad + 5 * kRows * kWnHidden + kRows * 4) +
+    sizeof(float) * (kRows * kPad + 5 * kRows * kWnHidden + kRows * 4 +
+                     kC * kWnHidden) +
     sizeof(int) * kRows;
-constexpr size_t kRowsSmem = sizeof(float) * (kRows * kC + kKT * kC);
 constexpr size_t kTailSmem =
-    sizeof(float) * (kRows * kPad + 2 * kRows * 4) + sizeof(int) * kRows;
+    sizeof(float) * (kRows * kPad + 2 * kRows * 4 + kC * 4 + kQ * 3 * kC) +
+    sizeof(int) * kRows;
 
 #define RATRACK_CHECK(call)                       \
   do {                                            \
@@ -439,9 +684,9 @@ constexpr size_t kTailSmem =
 // dout (B, N, kC). Outputs: d_feats_p and d_points zero-filled by the
 // caller; d_add_q / d_wdir null for a stage without them; d_mlp_w/b per
 // pair layer; d_wn one kWnGrad block. Scratch: dz_a, dz_b (B*N*kK, kC),
-// ddir (B*N*kK, 3), wt (kC, kC), part >= max(blocks * kWnGrad,
-// chunks * kC * kC, blocks * 3 * kC) and part_b >= chunks * kC floats,
-// with blocks = ceil(B*N / 4), chunks = ceil(B*N*kK / 1024).
+// ddir (B*N*kK, 3) and part >= blocks * (kWnGrad + 3 * kC) + n_mlp *
+// chunks * (kC * kC + kC) floats, with blocks = ceil(B*N / 4), chunks =
+// ceil(B*N*kK / kDwChunk).
 extern "C" int ratrack_corr_train_bwd(
     const float* query, const float* points, const int* idx, int nb, int n,
     int m, const float* feats_p, int has_add, const float* w_dir,
@@ -451,7 +696,7 @@ extern "C" int ratrack_corr_train_bwd(
     const float* dout, float* d_feats_p, float* d_add_q, float* d_query,
     float* d_points, float* d_wdir, float* const* d_mlp_w,
     float* const* d_mlp_b, float* d_wn, float* dz_a, float* dz_b,
-    float* ddir, float* wt, float* part, float* part_b, void* stream) {
+    float* ddir, float* part, void* stream) {
   if (nb < 1 || n < 1 || m < 1 || n_mlp < 0 || n_mlp > kMaxMlp ||
       (n_mlp > 0 && stash[0] == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -459,35 +704,47 @@ extern "C" int ratrack_corr_train_bwd(
   const long long total = (long long)nb * n;
   const long long rows = total * kK;
   const int blocks = (int)((total + kQ - 1) / kQ);
-  const int chunks = (int)((rows + kAtbChunk - 1) / kAtbChunk);
-  const int row_blocks = (int)((rows + kRows - 1) / kRows);
+  const int chunks = (int)((rows + kDwChunk - 1) / kDwChunk);
+  const int row_tiles = (int)((rows + kBM - 1) / kBM);
   RATRACK_CHECK(cudaFuncSetAttribute(
       bwd_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kHeadSmem));
   RATRACK_CHECK(cudaFuncSetAttribute(
-      rows_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem));
+      pair_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMmaSmem));
   RATRACK_CHECK(cudaFuncSetAttribute(
       bwd_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTailSmem));
+  // part: the head's WeightNet partials, the tail's W_dir partials, then
+  // per pair layer its dW and db partials
+  float* wn_part = part;
+  float* wdir_part = wn_part + (size_t)blocks * kWnGrad;
+  float* layer_part = wdir_part + (size_t)blocks * 3 * kC;
+  Finish fin = {};
+  int nseg = 0;
+  fin.seg[nseg++] = {wn_part, blocks, kWnGrad, d_wn};
 
   const WnParams wn = {wn_w0, wn_b0, wn_w1, wn_b1, wn_w2, wn_b2};
   const int top_act = (n_mlp > 0 || has_add) ? 1 : 0;
   bwd_head_kernel<<<blocks, kThreads, kHeadSmem, st>>>(
       query, points, idx, nb, n, m, dout, stash[n_mlp], feats_p, top_act, wn,
-      dz_a, ddir, part);
+      dz_a, ddir, wn_part);
   RATRACK_CHECK(cudaGetLastError());
-  RATRACK_CHECK(ratrack::reduce_parts(part, blocks, kWnGrad, d_wn, st));
 
   float* cur = dz_a;
   float* nxt = dz_b;
   for (int l = n_mlp; l >= 1; --l) {
-    atb_kernel<<<dim3((kC / kAtbTile) * (kC / kAtbTile), chunks), kThreads, 0, st>>>(
-        stash[l - 1], cur, rows, part, part_b);
-    RATRACK_CHECK(cudaGetLastError());
-    RATRACK_CHECK(ratrack::reduce_parts(part, chunks, kC * kC, d_mlp_w[l - 1], st));
-    RATRACK_CHECK(ratrack::reduce_parts(part_b, chunks, kC, d_mlp_b[l - 1], st));
-    transpose_kernel<<<dim3(kC / 32, kC / 32), kThreads, 0, st>>>(mlp_w[l - 1], wt);
-    RATRACK_CHECK(cudaGetLastError());
-    const float* ref = (l - 1 > 0 || has_add) ? stash[l - 1] : nullptr;
-    rows_matmul_kernel<<<row_blocks, kThreads, kRowsSmem, st>>>(cur, wt, ref, rows, nxt);
+    LayerArgs la;
+    la.h = stash[l - 1];
+    la.dz = cur;
+    la.w = mlp_w[l - 1];
+    la.ref = (l - 1 > 0 || has_add) ? stash[l - 1] : nullptr;
+    la.dz_prev = nxt;
+    la.part_w = layer_part + (size_t)(l - 1) * chunks * (kC * kC + kC);
+    la.part_b = la.part_w + (size_t)chunks * kC * kC;
+    la.rows = rows;
+    la.chunks = chunks;
+    fin.seg[nseg++] = {la.part_w, chunks, kC * kC, d_mlp_w[l - 1]};
+    fin.seg[nseg++] = {la.part_b, chunks, kC, d_mlp_b[l - 1]};
+    pair_layer_kernel<<<chunks * 4 + row_tiles * 2, kMmaThreads, kMmaSmem,
+                        st>>>(la);
     RATRACK_CHECK(cudaGetLastError());
     float* t = cur;
     cur = nxt;
@@ -495,9 +752,11 @@ extern "C" int ratrack_corr_train_bwd(
   }
   bwd_tail_kernel<<<blocks, kThreads, kTailSmem, st>>>(
       query, points, idx, nb, n, m, cur, ddir, w_dir, d_feats_p,
-      has_add ? d_add_q : nullptr, d_query, d_points, part);
+      has_add ? d_add_q : nullptr, d_query, d_points, wdir_part);
   RATRACK_CHECK(cudaGetLastError());
-  if (w_dir != nullptr)
-    RATRACK_CHECK(ratrack::reduce_parts(part, blocks, 3 * kC, d_wdir, st));
-  return (int)cudaSuccess;
+  if (w_dir != nullptr) fin.seg[nseg++] = {wdir_part, blocks, 3 * kC, d_wdir};
+  int longest = 0;
+  for (int i = 0; i < nseg; ++i) longest = max(longest, fin.seg[i].len);
+  finish_kernel<<<dim3((longest + 31) / 32, nseg), dim3(32, 8), 0, st>>>(fin);
+  return (int)cudaGetLastError();
 }

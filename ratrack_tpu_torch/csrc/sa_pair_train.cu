@@ -6,11 +6,9 @@
 // ratrack_sa_train_fwd / _bwd) and ::_fwd_kernel and _bwd_kernel with their
 // _pk twins (fused_sa_scale_train; entries ratrack_sa_scale_train_fwd /
 // _bwd, for levels that are not a pair of equal depth). Each scale runs
-// its own launches (forward) or its own blocks of the one launch
-// (backward), so the one-scale entries run the same code once, after the
-// same ball query with an empty second list: a pair equals two one-scale
-// calls bit for bit, except where the float atomics of the dPF scatter add
-// in another order.
+// its own blocks of one launch, so the one-scale entries run the same code
+// once: a pair equals two one-scale calls bit for bit, except where the
+// float atomics of the dPF scatter add in another order.
 // For each scale (radius r, ns slots, L layers) and stream:
 //   ball query: ns slots per center, CUDA padding (slots past the hit
 //     count repeat the first hit; no hit at all gives point 0);
@@ -37,16 +35,19 @@
 // What bounds it on the H100: not FLOPs (at most 8 streams x 16,384 rows
 // x a 64x64 layer, ~1 GFLOP a level) but the stream-wide BN reduction
 // between every pair of layers, which one TPU program held in VMEM and
-// which here spans many blocks, and the chain of dependent launches it
-// forces. Forward: one launch per layer; every block applies the previous
-// layer's BN + ReLU on load, multiplies, stores the pre-BN activations (the
-// stash the backward reads) and writes per-channel partial sums in float64,
-// so E[z^2] - mu^2 keeps its digits where |mu| >> sigma. A one-block launch
-// adds the partials in a fixed order: no float atomics, so the statistics
-// are identical run to run. Backward: one launch for all layers of both
-// scales, a thread-block cluster per (stream, scale) that meets after each
-// layer through distributed shared memory, and one finishing reduction (see
-// bwd_cluster_kernel); only the dPF scatter uses float atomicAdd.
+// which here spans many blocks. Both directions answer it the same way:
+// one launch for all layers of both scales, a thread-block cluster per
+// (stream, scale) whose blocks meet after each layer through distributed
+// shared memory and add float64 partial sums in rank order (so E[z^2] -
+// mu^2 keeps its digits where |mu| >> sigma, and the statistics are
+// identical run to run: no float atomics). Forward: select_kernel's ball
+// query of both scales, then every layer and the max-pool in one cluster
+// launch (fwd_cluster_kernel): two launches. (The ball query inside the
+// cluster launch, 64 centers a block, measured slower at every cloud size
+// from 512 to 16,384 points: its scans are latency-bound where
+// select_kernel spreads a warp a center over the whole card.) Backward:
+// the cluster launch and one finishing reduction (see bwd_cluster_kernel);
+// only the dPF scatter uses float atomicAdd.
 
 #include "common.cuh"
 
@@ -62,11 +63,6 @@ constexpr int kMaxL = 3;            // layers per scale
 constexpr int kMaxC = 64;           // widest layer
 constexpr int kMaxNs = 32;          // largest nsample
 constexpr int kSelWarps = 8;
-constexpr int kThreads = 256;
-constexpr int kRows = 64;           // rows (center x slot) per tile
-constexpr int kPer = kRows * kMaxC / kThreads;
-constexpr int kRedThreads = 1024;   // statistics reduction, one block
-constexpr int kRedGroups = kRedThreads / kMaxC;
 
 // One scale of a level. Mirrored field for field by
 // ops/fused_sa_train.py::_Scale (ctypes); w[0] and dw[0] are unused.
@@ -148,175 +144,24 @@ __device__ __forceinline__ void rel_coords(const float* xb, const float* cb,
   for (int i = 0; i < 3; ++i) d[i] = xb[3 * j + i] - cb[3 * ci + i];
 }
 
-// Layer l over kRows rows of stream blockIdx.y (row = center * ns + slot):
-//   l == 0: z = PF[j] + (x_j - c_i) @ W_xyz, j = idx[row], i = center
-//   l >= 1: z = relu(BN_{l-1}(z_{l-1}[row])) @ W_l
-// stores z_l and the tile's per-channel sums of z and z^2 into
-// part (B, tiles, 2, kMaxC).
-__global__ void __launch_bounds__(kThreads)
-fwd_layer_kernel(TrainScale s, const float* __restrict__ xyz,
-                 const float* __restrict__ centers, int l, int n, int m,
-                 float eps, double* __restrict__ part) {
-  extern __shared__ float smem[];
-  float* xs = smem;                     // (kRows, C_in) input, then output
-  float* ws = xs + kRows * kMaxC;       // (C_in, C_out)
-  float* bnp = ws + kMaxC * kMaxC;      // mu, rstd, gamma, beta of layer l-1
-  const int tid = threadIdx.x, bi = blockIdx.y, ns = s.ns;
-  const long long rows = (long long)m * ns;
-  const long long r0 = (long long)blockIdx.x * kRows;
-  const int nrow = (int)min((long long)kRows, rows - r0);
-  const int cout = s.dims[l];
-  if (l == 0) {
-    const float* pf = s.pf != nullptr ? s.pf + (size_t)bi * n * cout : nullptr;
-    const float* xb = xyz + (size_t)bi * n * 3;
-    const float* cb = centers + (size_t)bi * m * 3;
-    const int* idx = s.idx + (size_t)bi * rows;
-    for (int e = tid; e < nrow * cout; e += kThreads) {
-      const int r = e / cout, c = e % cout;
-      const long long row = r0 + r;
-      const int j = idx[row];
-      float d[3];
-      rel_coords(xb, cb, j, row / ns, d);
-      const float v = pf != nullptr ? pf[(size_t)j * cout + c] : 0.0f;
-      xs[e] = v + coord_term(d, s.wxyz, cout, c);
-    }
-  } else {
-    const int cin = s.dims[l - 1];
-    for (int t = tid; t < cin * cout; t += kThreads) ws[t] = s.w[l][t];
-    for (int c = tid; c < cin; c += kThreads) {
-      bnp[c] = s.mu[l - 1][bi * cin + c];
-      bnp[kMaxC + c] = rstd_of(s.var[l - 1][bi * cin + c], eps);
-      bnp[2 * kMaxC + c] = s.gamma[l - 1][c];
-      bnp[3 * kMaxC + c] = s.beta[l - 1][c];
-    }
-    __syncthreads();
-    const float* zin = s.z[l - 1] + ((size_t)bi * rows + r0) * cin;
-    for (int e = tid; e < nrow * cin; e += kThreads) {
-      const int c = e % cin;
-      xs[e] = fmaxf(bn_apply(zin[e], bnp[c], bnp[kMaxC + c],
-                             bnp[2 * kMaxC + c], bnp[3 * kMaxC + c]), 0.0f);
-    }
-    __syncthreads();
-    float res[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      res[i] = 0.0f;
-      if (e < nrow * cout) {
-        const int r = e / cout, c = e % cout;
-        float acc = 0.0f;
-        for (int q = 0; q < cin; ++q)
-          acc = fmaf(xs[r * cin + q], ws[q * cout + c], acc);
-        res[i] = acc;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < nrow * cout) xs[e] = res[i];
-    }
-  }
-  __syncthreads();
-  float* zout = s.z[l] + ((size_t)bi * rows + r0) * cout;
-  for (int e = tid; e < nrow * cout; e += kThreads) zout[e] = xs[e];
-  if (tid < cout) {
-    double s1 = 0.0, s2 = 0.0;
-    for (int r = 0; r < nrow; ++r) {
-      const double v = xs[r * cout + tid];
-      s1 += v;
-      s2 += v * v;
-    }
-    double* p = part + ((size_t)bi * gridDim.x + blockIdx.x) * 2 * kMaxC;
-    p[tid] = s1;
-    p[kMaxC + tid] = s2;
-  }
-}
-
-// Adds the partial sums part (B, nblk, 2, kMaxC) of layer l over blocks in
-// a fixed order, stream by stream: mu and var of every stream (count rows
-// each).
-__global__ void __launch_bounds__(kRedThreads)
-reduce_stats_kernel(TrainScale s, int l, int nb, int nblk, double count,
-                    const double* __restrict__ part) {
-  __shared__ double red[kRedGroups][2][kMaxC];
-  const int c = threadIdx.x % kMaxC, grp = threadIdx.x / kMaxC;
-  const int C = s.dims[l];
-  for (int bi = 0; bi < nb; ++bi) {
-    double s1 = 0.0, s2 = 0.0;
-    if (c < C)
-      for (int t = grp; t < nblk; t += kRedGroups) {
-        const double* p = part + ((size_t)bi * nblk + t) * 2 * kMaxC;
-        s1 += p[c];
-        s2 += p[kMaxC + c];
-      }
-    red[grp][0][c] = s1;
-    red[grp][1][c] = s2;
-    __syncthreads();
-    if (grp == 0 && c < C) {
-      double a = 0.0, q = 0.0;
-      for (int g = 0; g < kRedGroups; ++g) {
-        a += red[g][0][c];
-        q += red[g][1][c];
-      }
-      const double mu = a / count;
-      const double v = q / count - mu * mu;
-      s.mu[l][bi * C + c] = (float)mu;
-      s.var[l][bi * C + c] = (float)(v > 0.0 ? v : 0.0);
-    }
-    __syncthreads();
-  }
-}
-
-// pooled[b, center, c] = max over slots of relu(BN_{L-1}(z_{L-1})).
-__global__ void __launch_bounds__(kThreads)
-pool_kernel(TrainScale s, int nb, int m, float eps) {
-  const int L = s.n_layers - 1, C = s.dims[L], ns = s.ns;
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= (long long)nb * m * C) return;
-  const int c = (int)(e % C);
-  const long long g = e / C;            // stream * m + center
-  const int bi = (int)(g / m);
-  const float mu = s.mu[L][bi * C + c];
-  const float rs = rstd_of(s.var[L][bi * C + c], eps);
-  const float ga = s.gamma[L][c], be = s.beta[L][c];
-  const float* z = s.z[L] + (size_t)g * ns * C + c;
-  float best = -CUDART_INF_F;
-  for (int t = 0; t < ns; ++t)
-    best = fmaxf(best, fmaxf(bn_apply(z[(size_t)t * C], mu, rs, ga, be), 0.0f));
-  s.pooled[e] = best;
-}
-
-// ---- backward: one launch, a thread-block cluster per (stream, scale) ----
+// ---- the cluster kernels: a thread-block cluster per (stream, scale) ----
 //
 // The statistics of a batch norm span one stream, so one cluster of
 // kCluster blocks owns a stream of one scale (the scale on blockIdx.z: a
 // pair is one launch, and a scale runs the same code whichever launch it is
 // in). Block r owns the r-th share of the centers, a contiguous run of
-// rows, through every layer: it reads back only the dy rows it wrote
-// itself. After each layer a block leaves its float64 sums of dy and
-// dy * xhat in its own shared memory, the cluster synchronises, and every
-// block adds the kCluster partials in rank order through distributed
+// rows (whole slot groups), through every layer: it reads back only rows
+// it wrote itself, which come from L2. After each layer a block leaves its
+// float64 sums in its own shared memory, the cluster synchronises, and
+// every block adds the kCluster partials in rank order through distributed
 // shared memory: the same totals everywhere, in a fixed order, no atomics,
-// no further launch. The per-block dW / dW_xyz partials and the per-stream
-// sums go to scratch, and finish_kernel adds them over blocks and streams
-// in a fixed order for every layer of both scales: two launches a backward.
-//
-// Every phase walks the block's rows in tiles (64 rows at 64 channels, more
-// where the layer is narrower) that cp.async brings into shared memory one
-// tile ahead. A layer's products: dz_l and a_{l-1} are staged once a tile
-// (a thread keeps four columns, so the per-channel values are float4 loads
-// without bank conflicts), W_l^T once a block; half of the block's threads
-// keep 4 x 4 tiles of dW (over the whole run of rows) in registers, the
-// other half 4 x 4 tiles of dy_{l-1} (per tile), both fed by float4 loads;
-// the column sums are taken from those registers in float64 and meet across
-// the block once a layer.
+// no further launch.
 
 constexpr int kCluster = 8;         // blocks per (stream, scale)
-constexpr int kBwd = 512;           // threads per block
-constexpr int kTeam = kBwd / 2;     // threads per product of a layer
-constexpr int kLd = kMaxC + 4;      // row stride of the staged W_l^T
-constexpr int kTile = kRows * kMaxC;   // floats of a raw tile
+constexpr int kBlock = 512;         // threads per block
+constexpr int kTeam = kBlock / 2;   // threads per product of a backward layer
+constexpr int kLd = kMaxC + 4;      // row stride of a staged weight matrix
+constexpr int kTile = 64 * kMaxC;   // floats of a raw backward tile
 constexpr int kStaged = 256 * 20;      // floats of dz / act: 256 rows of 16
 constexpr int kGradLen = (kMaxL - 1) * kMaxC * kMaxC + 3 * kMaxC;
 
@@ -331,18 +176,6 @@ __host__ __device__ inline int grad_offset(const TrainScale& s, int l) {
   for (int j = 1; j < l; ++j) off += s.dims[j - 1] * s.dims[j];
   return off;
 }
-
-// Shared memory of bwd_cluster_kernel.
-struct BwdSmem {
-  double red[kBwd * 3];                // block-wide sums, by group
-  double cpart[2][2][kMaxC];           // this block's sums of dy, dy * xhat
-  float raw[2][3][kTile];              // stages of three raw tiles
-  float dz[kStaged];
-  float act[kStaged];
-  float wt[kMaxC * kLd];               // W_l^T: (C_l, C_{l-1})
-  float prm[9][kMaxC];                 // per-channel values, 0 past the width
-  float mean[2][kMaxC];                // mean dy, mean dy * xhat of a layer
-};
 
 // Whether rows of c floats from p can go by 16-byte accesses.
 __device__ __forceinline__ bool vec16(const void* p, int c) {
@@ -367,10 +200,10 @@ __device__ __forceinline__ float4 row4(const float* row, int c, int C,
 __device__ __forceinline__ void copy_async(float* dst, const float* src,
                                            int count, bool vec) {
   if (vec) {
-    for (int e = 4 * threadIdx.x; e < count; e += 4 * kBwd)
+    for (int e = 4 * threadIdx.x; e < count; e += 4 * kBlock)
       __pipeline_memcpy_async(dst + e, src + e, 16);
   } else {
-    for (int e = threadIdx.x; e < count; e += kBwd)
+    for (int e = threadIdx.x; e < count; e += kBlock)
       __pipeline_memcpy_async(dst + e, src + e, 4);
   }
 }
@@ -404,9 +237,306 @@ __device__ __forceinline__ Lanes lanes_of(int C) {
   while (t.cp < C) t.cp <<= 1;
   t.c = threadIdx.x & (t.cp - 1);
   t.g = threadIdx.x / t.cp;
-  t.G = kBwd / t.cp;
+  t.G = kBlock / t.cp;
   return t;
 }
+
+// acc += x M for the thread's four rows of x (x points at the first, the
+// others rq rows apart, ld floats a row) and four columns of M (wt points
+// at them, kLd apart a row of M), over k4 columns of x: the backward's
+// dz_l W_l^T and the forward's a_{l-1} W_l.
+__device__ __forceinline__ void row_tile(float (&acc)[4][4], const float* dz,
+                                         const float* wt, int cout4, int rq,
+                                         int ld) {
+  for (int c = 0; c < cout4; c += 4) {
+    float dv[4][4], wv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 d4 = ld4(dz + i * rq * ld + c);
+      dv[i][0] = d4.x; dv[i][1] = d4.y; dv[i][2] = d4.z; dv[i][3] = d4.w;
+      const float4 w4 = ld4(wt + (c + i) * kLd);
+      wv[i][0] = w4.x; wv[i][1] = w4.y; wv[i][2] = w4.z; wv[i][3] = w4.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(dv[i][q], wv[q][j], acc[i][j]);
+  }
+}
+
+// The sum over the cluster's blocks, in rank order, of the double at `mine`
+// in each block's shared memory (the same offset in every block).
+__device__ __forceinline__ double cluster_total(const double* mine) {
+  cg::cluster_group cluster = cg::this_cluster();
+  double tot = 0.0;
+  for (int r = 0; r < kCluster; ++r) tot += *cluster.map_shared_rank(mine, r);
+  return tot;
+}
+
+// ---- forward: the cluster launch after select_kernel ----
+//
+// The block runs every layer over its rows in tiles (128 rows at 64
+// channels, more where the layer is narrower). Layer 1 gathers PF[j] and
+// adds the coordinate term from the relative coordinates; a later layer
+// brings z_{l-1} (rows the block wrote itself, from L2) into shared memory
+// with cp.async one tile ahead, applies BN_{l-1} + ReLU on the way into
+// the staged tile, and multiplies it by W_l on 4 x 4 register tiles fed by
+// float4 loads. Every thread stores its outputs (z_l, the stash that the
+// backward reads) and keeps float64 sums of z and z^2 for its four columns
+// from the same registers; the block adds them by row group in order, the
+// cluster by rank, and every block derives mu_l and var_l from the totals
+// (rank 0 stores them). Last, the max over each center's slots of
+// relu(BN(z_{L-1})), from the rows the block wrote.
+
+constexpr int kFwdTile = 2 * kTile;   // floats of a staged forward tile
+
+// Shared memory of fwd_cluster_kernel.
+struct FwdSmem {
+  double cpart[2][2][kMaxC];          // this block's sums of z, z^2
+  float raw[2][kFwdTile];             // stages of the input tile z_{l-1}
+  float act[kFwdTile / 4 * 5];        // relu(BN(z_{l-1})), ld = cm + 4
+  float w[kMaxC * kLd];               // W_l: (C_{l-1}, C_l)
+  float prm[4][kMaxC];                // mu, rstd, gamma, beta of layer l-1
+  float stat[2][kMaxC];               // mu, var of the layer just done
+};
+
+__global__ void __launch_bounds__(kBlock, 1)
+fwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
+                   const float* __restrict__ centers, int n, int m,
+                   float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const TrainScale& s = pair.s[blockIdx.z];
+  const int tid = threadIdx.x, bi = blockIdx.y;
+  const int rank = (int)cluster.block_rank();
+  const int ns = s.ns, L = s.n_layers;
+  const double count = (double)m * ns;
+  // this block's centers and rows, as in bwd_cluster_kernel
+  const int cpc = (m + kCluster - 1) / kCluster;
+  const int c_lo = min(rank * cpc, m);
+  const int ncen = min(cpc, m - c_lo);
+  const long long row0 = (long long)bi * m * ns + (long long)c_lo * ns;
+  const int nrows = ncen * ns;
+  const float* xb = xyz + (size_t)bi * n * 3;
+  const float* cb = centers + (size_t)bi * m * 3;
+
+  int par = 0;
+  for (int l = 0; l < L; ++l) {
+    const int cout = s.dims[l], cin = l > 0 ? s.dims[l - 1] : 0;
+    const int cout4 = (cout + 3) & ~3, cin4 = (cin + 3) & ~3;
+    int cm = 16;
+    while (cm < max(cin, cout)) cm <<= 1;
+    const int R = kFwdTile / cm, ld = cm + 4, rq = R >> 2;
+    // products: 4 rows (a quarter of the tile apart) x 4 columns a thread
+    const int ycols = cout4 >> 2, yrow = tid / ycols, c0 = 4 * (tid % ycols);
+    const bool on = yrow < rq;
+    float* zout = s.z[l] + (size_t)row0 * cout;
+    const bool vo = vec16(zout, cout);
+    const float* zin = l > 0 ? s.z[l - 1] + (size_t)row0 * cin : nullptr;
+    const bool vi = l > 0 && vec16(zin, cin);
+    const int ntiles = (nrows + R - 1) / R;
+    auto fetch = [&](int tile) {
+      const int r0 = tile * R, nr = min(R, nrows - r0);
+      copy_async(sm.raw[tile & 1], zin + (size_t)r0 * cin, nr * cin, vi);
+      __pipeline_commit();
+    };
+    if (l > 0) {
+      if (ntiles > 0) fetch(0);
+      for (int e = tid; e < kMaxC * kLd; e += kBlock) {
+        const int k = e / kLd, c = e - k * kLd;
+        sm.w[e] = k < cin && c < cout ? s.w[l][k * cout + c] : 0.0f;
+      }
+      for (int c = tid; c < kMaxC; c += kBlock) {
+        const bool pon = c < cin;
+        sm.prm[0][c] = pon ? sm.stat[0][c] : 0.0f;
+        sm.prm[1][c] = pon ? rstd_of(sm.stat[1][c], eps) : 0.0f;
+        sm.prm[2][c] = pon ? s.gamma[l - 1][c] : 0.0f;
+        sm.prm[3][c] = pon ? s.beta[l - 1][c] : 0.0f;
+      }
+    }
+    // layer 1: the thread's four columns of W_xyz and PF
+    float wx[3][4];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wx[i][j] = l == 0 && c0 + j < cout ? s.wxyz[i * cout + c0 + j] : 0.0f;
+    const float* pf = s.pf != nullptr ? s.pf + (size_t)bi * n * cout : nullptr;
+    const bool vp = vec16(pf, cout);
+    // staging: a thread keeps one group of four input columns
+    const int qi = max(cin4 >> 2, 1), si = kBlock / qi;
+    const int tci = (tid % qi) * 4, tri = tid / qi;
+    float* rel = sm.act;   // layer 1: (rows, 4) relative coordinates and j
+    double s1[4] = {0.0, 0.0, 0.0, 0.0}, s2[4] = {0.0, 0.0, 0.0, 0.0};
+
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int r0 = tile * R, nr = min(R, nrows - r0);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      if (l == 0) {
+        __syncthreads();   // the last tile's coordinates are consumed
+        for (int r = tid; r < nr; r += kBlock) {
+          const int j = s.idx[row0 + r0 + r];
+          float d[3];
+          rel_coords(xb, cb, j, c_lo + (r0 + r) / ns, d);
+          *reinterpret_cast<float4*>(&rel[4 * r]) =
+              make_float4(d[0], d[1], d[2], __int_as_float(j));
+        }
+        __syncthreads();
+        if (on) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = yrow + i * rq;
+            if (r >= nr) continue;
+            const float4 e = ld4(&rel[4 * r]);
+            const int j = __float_as_int(e.w);
+            const float4 p = pf != nullptr
+                                 ? row4(pf + (size_t)j * cout, c0, cout, vp)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[i][q] = pv[q] + fmaf(e.z, wx[2][q],
+                                       fmaf(e.y, wx[1][q], e.x * wx[0][q]));
+          }
+        }
+      } else {
+        const float* buf = sm.raw[tile & 1];
+        __pipeline_wait_prior(0);
+        __syncthreads();   // the tile has landed; the last one is consumed
+        if (tile + 1 < ntiles) fetch(tile + 1);
+        if (tri < si) {
+          const float4 pm = ld4(&sm.prm[0][tci]), pr = ld4(&sm.prm[1][tci]);
+          const float4 pg = ld4(&sm.prm[2][tci]), pb = ld4(&sm.prm[3][tci]);
+          for (int r = tri; r < R; r += si) {
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (r < nr) {
+              const float4 z = row4(buf + r * cin, tci, cin, vi);
+              v.x = fmaxf(bn_apply(z.x, pm.x, pr.x, pg.x, pb.x), 0.0f);
+              v.y = fmaxf(bn_apply(z.y, pm.y, pr.y, pg.y, pb.y), 0.0f);
+              v.z = fmaxf(bn_apply(z.z, pm.z, pr.z, pg.z, pb.z), 0.0f);
+              v.w = fmaxf(bn_apply(z.w, pm.w, pr.w, pg.w, pb.w), 0.0f);
+            }
+            *reinterpret_cast<float4*>(&sm.act[r * ld + tci]) = v;
+          }
+        }
+        __syncthreads();
+        if (on) row_tile(acc, sm.act + yrow * ld, sm.w + c0, cin4, rq, ld);
+      }
+      // the stash and this thread's column sums (columns past C_l hold 0)
+      if (on) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = yrow + i * rq;
+          if (r >= nr) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const double v = acc[i][j];
+            s1[j] += v;
+            s2[j] += v * v;
+          }
+          float* o = zout + (size_t)(r0 + r) * cout + c0;
+          if (vo) {
+            *reinterpret_cast<float4*>(o) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c0 + j < cout) o[j] = acc[i][j];
+          }
+        }
+      }
+    }
+    // the block's sums by row group, in order, then the cluster's by rank
+    __syncthreads();   // every read of the staged tiles is done
+    double* spart = reinterpret_cast<double*>(sm.raw[0]);   // (rq, 2, C4)
+    if (on) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        spart[(yrow * 2 + 0) * cout4 + c0 + j] = s1[j];
+        spart[(yrow * 2 + 1) * cout4 + c0 + j] = s2[j];
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * cout) {
+      const int which = tid / cout, ch = tid % cout;
+      double tot = 0.0;
+      for (int g = 0; g < rq; ++g) tot += spart[(g * 2 + which) * cout4 + ch];
+      sm.cpart[par][which][ch] = tot;
+    }
+    cluster.sync();
+    if (tid < cout) {
+      const double mu = cluster_total(&sm.cpart[par][0][tid]) / count;
+      const double v = cluster_total(&sm.cpart[par][1][tid]) / count - mu * mu;
+      sm.stat[0][tid] = (float)mu;
+      sm.stat[1][tid] = (float)(v > 0.0 ? v : 0.0);
+      if (rank == 0) {
+        s.mu[l][bi * cout + tid] = sm.stat[0][tid];
+        s.var[l][bi * cout + tid] = sm.stat[1][tid];
+      }
+    }
+    par ^= 1;
+    __syncthreads();
+  }
+
+  // -- the max-pool, a thread per (center, channel)
+  {
+    const int top = L - 1, C = s.dims[top];
+    const Lanes t = lanes_of(C);
+    if (t.c < C) {
+      const float mu = sm.stat[0][t.c], rs = rstd_of(sm.stat[1][t.c], eps);
+      const float ga = s.gamma[top][t.c], be = s.beta[top][t.c];
+      const float* z = s.z[top] + (size_t)row0 * C + t.c;
+      float* po = s.pooled + ((size_t)bi * m + c_lo) * C + t.c;
+      for (int cl = t.g; cl < ncen; cl += t.G) {
+        float best = -CUDART_INF_F;
+        for (int k = 0; k < ns; ++k)
+          best = fmaxf(best, fmaxf(bn_apply(z[(size_t)(cl * ns + k) * C], mu,
+                                            rs, ga, be), 0.0f));
+        po[(size_t)cl * C] = best;
+      }
+    }
+  }
+  // no block leaves while another may still read its sums
+  cluster.sync();
+}
+
+// ---- backward: the cluster launch and finish_kernel ----
+//
+// The block walks the layers top down, leaving its float64 sums of dy and
+// dy * xhat for the cluster after each. The per-block dW / dW_xyz partials
+// and the per-stream sums go to scratch, and finish_kernel adds them over
+// blocks and streams in a fixed order for every layer of both scales: two
+// launches a backward.
+//
+// Every phase walks the block's rows in tiles (64 rows at 64 channels, more
+// where the layer is narrower) that cp.async brings into shared memory one
+// tile ahead. A layer's products: dz_l and a_{l-1} are staged once a tile
+// (a thread keeps four columns, so the per-channel values are float4 loads
+// without bank conflicts), W_l^T once a block; half of the block's threads
+// keep 4 x 4 tiles of dW (over the whole run of rows) in registers, the
+// other half 4 x 4 tiles of dy_{l-1} (per tile), both fed by float4 loads;
+// the column sums are taken from those registers in float64 and meet across
+// the block once a layer.
+
+// Shared memory of bwd_cluster_kernel.
+struct BwdSmem {
+  double red[kBlock * 3];                // block-wide sums, by group
+  double cpart[2][2][kMaxC];           // this block's sums of dy, dy * xhat
+  float raw[2][3][kTile];              // stages of three raw tiles
+  float dz[kStaged];
+  float act[kStaged];
+  float wt[kMaxC * kLd];               // W_l^T: (C_l, C_{l-1})
+  float prm[9][kMaxC];                 // per-channel values, 0 past the width
+  float mean[2][kMaxC];                // mean dy, mean dy * xhat of a layer
+};
 
 // Every block's cpart[par] summed in rank order -> sm.mean (divided by
 // count) in every block; block 0 keeps the sums in ssum (2, kMaxC).
@@ -417,9 +547,7 @@ __device__ __forceinline__ void cluster_totals(BwdSmem& sm, int par, int C,
   cluster.sync();
   if (threadIdx.x < 2 * C) {
     const int which = threadIdx.x / C, c = threadIdx.x % C;
-    double tot = 0.0;
-    for (int r = 0; r < kCluster; ++r)
-      tot += *cluster.map_shared_rank(&sm.cpart[par][which][c], r);
+    const double tot = cluster_total(&sm.cpart[par][which][c]);
     sm.mean[which][c] = (float)(tot / count);
     if (cluster.block_rank() == 0) ssum[which * kMaxC + c] = tot;
   }
@@ -462,32 +590,7 @@ __device__ __forceinline__ void dw_tile(float (&acc)[4][4], const float* act,
   }
 }
 
-// acc += dz W^T for the thread's rows (dz points at the first, the others
-// rq rows apart, ld floats a row) and four columns (wt points at them, kLd
-// apart a row of W^T), over cout4 columns of dz.
-__device__ __forceinline__ void dy_tile(float (&acc)[4][4], const float* dz,
-                                        const float* wt, int cout4, int rq,
-                                        int ld) {
-  for (int c = 0; c < cout4; c += 4) {
-    float dv[4][4], wv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 d4 = ld4(dz + i * rq * ld + c);
-      dv[i][0] = d4.x; dv[i][1] = d4.y; dv[i][2] = d4.z; dv[i][3] = d4.w;
-      const float4 w4 = ld4(wt + (c + i) * kLd);
-      wv[i][0] = w4.x; wv[i][1] = w4.y; wv[i][2] = w4.z; wv[i][3] = w4.w;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(dv[i][q], wv[q][j], acc[i][j]);
-  }
-}
-
-__global__ void __launch_bounds__(kBwd, 1)
+__global__ void __launch_bounds__(kBlock, 1)
 bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
                    const float* __restrict__ centers, int n, int m, float eps,
                    double* __restrict__ ssum_all, float* __restrict__ pdw_all) {
@@ -593,7 +696,7 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
     const int cout4 = (cout + 3) & ~3, cin4 = (cin + 3) & ~3;
     const Tiling tl = tiling_of(max(cin, cout));
     const int R = tl.rows, ld = tl.ld;
-    for (int c = tid; c < kMaxC; c += kBwd) {
+    for (int c = tid; c < kMaxC; c += kBlock) {
       const bool on = c < cout, pon = c < cin;
       const float rs = on ? rstd_of(s.var[l][bi * cout + c], eps) : 0.0f;
       sm.prm[0][c] = on ? s.gamma[l][c] * rs : 0.0f;
@@ -606,9 +709,9 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
       sm.prm[7][c] = pon ? s.gamma[l - 1][c] : 0.0f;
       sm.prm[8][c] = pon ? s.beta[l - 1][c] : 0.0f;
     }
-    for (int e = tid; e < kMaxC * kLd; e += kBwd) sm.wt[e] = 0.0f;
+    for (int e = tid; e < kMaxC * kLd; e += kBlock) sm.wt[e] = 0.0f;
     __syncthreads();
-    for (int e = tid; e < cin * cout; e += kBwd)
+    for (int e = tid; e < cin * cout; e += kBlock)
       sm.wt[(e % cout) * kLd + e / cout] = s.w[l][e];
 
     const float* dyin = s.dy[l & 1] + (size_t)row0 * cout;
@@ -649,9 +752,9 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
     const int k0 = 4 * (wtile / wcols);
     const int c0 = team == 0 ? 4 * (wtile % wcols) : 4 * (tt % ycols);
     // staging: a thread keeps one group of four columns and walks the rows
-    const int qo = cout4 >> 2, so = kBwd / qo;
+    const int qo = cout4 >> 2, so = kBlock / qo;
     const int tco = (tid % qo) * 4, tro = tid / qo;
-    const int qi = cin4 >> 2, si = kBwd / qi;
+    const int qi = cin4 >> 2, si = kBlock / qi;
     const int tci = (tid % qi) * 4, tri = tid / qi;
 
     for (int tile = 0; tile < ntiles; ++tile) {
@@ -699,7 +802,7 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-        dy_tile(acc, sm.dz + yrow * ld, sm.wt + c0, cout4, rq, ld);
+        row_tile(acc, sm.dz + yrow * ld, sm.wt + c0, cout4, rq, ld);
         // relu', the store, and the column sums for the next batch norm
         // (columns past C_{l-1} hold zeros: their act is 0)
         const float4 pm = ld4(&sm.prm[5][c0]), pr = ld4(&sm.prm[6][c0]);
@@ -755,7 +858,7 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
     __syncthreads();
     // this block's dW_l partial (zeros where it owns no row), the sharing
     // threads added in order
-    for (int e = tid; e < cin * cout; e += kBwd) {
+    for (int e = tid; e < cin * cout; e += kBlock) {
       const int k = e / cout, c = e - k * cout;
       const int at = ((k >> 2) * wcols + (c >> 2)) * 16 + (k & 3) * 4 + (c & 3);
       float tot = 0.0f;
@@ -803,7 +906,7 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
       __pipeline_commit();
     };
     if (ntiles > 0) fetch(0);
-    for (int ch = tid; ch < kMaxC; ch += kBwd) {
+    for (int ch = tid; ch < kMaxC; ch += kBlock) {
       const bool on = ch < C;
       const float rs = on ? rstd_of(s.var[0][bi * C + ch], eps) : 0.0f;
       sm.prm[0][ch] = on ? s.gamma[0][ch] * rs : 0.0f;
@@ -812,7 +915,7 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
       sm.prm[3][ch] = on ? sm.mean[0][ch] : 0.0f;
       sm.prm[4][ch] = on ? sm.mean[1][ch] : 0.0f;
     }
-    const int q = C4 >> 2, so = kBwd / q;
+    const int q = C4 >> 2, so = kBlock / q;
     const int tco = (tid % q) * 4, tro = tid / q;
     float* rel = sm.act;   // (rows, 4) relative coordinates of a tile
     double gw[3] = {0.0, 0.0, 0.0};
@@ -887,7 +990,8 @@ bwd_cluster_kernel(ScalePair pair, const float* __restrict__ xyz,
 // The gradients that sum over blocks and streams, for every layer of the
 // scale on blockIdx.y, each added in a fixed order in float64: dW_l and
 // dW_xyz over the B * kCluster per-block partials, dbeta_l / dgamma_l over
-// the B per-stream sums. blockDim (32, 8) as reduce_parts_kernel.
+// the B per-stream sums. blockDim (32, 8), as correlator_train.cu's
+// finish_kernel.
 __global__ void __launch_bounds__(256)
 finish_kernel(ScalePair pair, int nb, const double* __restrict__ ssum_all,
               const float* __restrict__ pdw_all) {
@@ -936,60 +1040,21 @@ bool valid_scale(const TrainScale& s) {
   return true;
 }
 
-constexpr size_t kFwdSmem = sizeof(float) * (kRows * kMaxC + kMaxC * kMaxC + 4 * kMaxC);
-
 #define RATRACK_CHECK(call)                       \
   do {                                            \
     const cudaError_t err_ = (call);              \
     if (err_ != cudaSuccess) return (int)err_;    \
   } while (0)
 
-// Forward of scale a and, unless null, scale b: one shared ball query, then
-// per scale a launch and a statistics reduction per layer and the pool.
-int forward_scales(const float* xyz, const float* centers,
-                   const unsigned char* mask, int nb, int n, int m, float eps,
-                   const TrainScale* a, const TrainScale* b, double* part,
-                   cudaStream_t st) {
-  if (nb < 1 || n < 1 || m < 1 || !valid_scale(*a) ||
-      (b != nullptr && !valid_scale(*b)))
-    return (int)cudaErrorInvalidValue;
-  const long long centers_total = (long long)nb * m;
-  select_kernel<<<(int)((centers_total + kSelWarps - 1) / kSelWarps),
-                  kSelWarps * 32, 0, st>>>(
-      xyz, centers, mask, nb, n, m, a->r2, a->ns, a->idx,
-      b != nullptr ? b->r2 : -1.0f, b != nullptr ? b->ns : 0,
-      b != nullptr ? b->idx : nullptr);
-  RATRACK_CHECK(cudaGetLastError());
-  const TrainScale* const scales[2] = {a, b};
-  for (const TrainScale* s : scales) {
-    if (s == nullptr) continue;
-    const long long rows = (long long)m * s->ns;
-    const int tiles = (int)((rows + kRows - 1) / kRows);
-    for (int l = 0; l < s->n_layers; ++l) {
-      fwd_layer_kernel<<<dim3(tiles, nb), kThreads, kFwdSmem, st>>>(
-          *s, xyz, centers, l, n, m, eps, part);
-      RATRACK_CHECK(cudaGetLastError());
-      reduce_stats_kernel<<<1, kRedThreads, 0, st>>>(*s, l, nb, tiles,
-                                                     (double)rows, part);
-      RATRACK_CHECK(cudaGetLastError());
-    }
-    const long long outs = centers_total * s->dims[s->n_layers - 1];
-    pool_kernel<<<(int)((outs + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-        *s, nb, m, eps);
-    RATRACK_CHECK(cudaGetLastError());
-  }
-  return (int)cudaSuccess;
-}
-
-// The launch shape of bwd_cluster_kernel: a cluster of kCluster blocks along
+// The launch shape of a cluster kernel: a cluster of kCluster blocks along
 // x per stream (y) and scale (z); attr is the caller's, for the cluster
 // attribute.
-void bwd_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int nb,
-                int nscales, cudaStream_t st) {
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    int nb, int nscales, size_t smem, cudaStream_t st) {
   *cfg = {};
   cfg->gridDim = dim3(kCluster, nb, nscales);
-  cfg->blockDim = dim3(kBwd);
-  cfg->dynamicSmemBytes = sizeof(BwdSmem);
+  cfg->blockDim = dim3(kBlock);
+  cfg->dynamicSmemBytes = smem;
   cfg->stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kCluster;
@@ -999,8 +1064,64 @@ void bwd_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int nb,
   cfg->numAttrs = 1;
 }
 
+// Scale a and, unless null, scale b in launch order: the scale with more
+// rows on blockIdx.z = 0, so that its blocks start first where the card
+// cannot hold every cluster at once.
+ScalePair order_scales(const TrainScale* a, const TrainScale* b) {
+  ScalePair pair = {};
+  const bool swap = b != nullptr && b->ns > a->ns;
+  pair.s[0] = swap ? *b : *a;
+  if (b != nullptr) pair.s[1] = swap ? *a : *b;
+  return pair;
+}
+
+// Sets the kernel's shared memory and asks once whether the card can place
+// one of its clusters: a card that cannot is an error here, not a launch
+// that waits.
+template <typename Kernel>
+cudaError_t prepare_cluster(Kernel kernel, const cudaLaunchConfig_t* cfg,
+                            bool* placed) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg->dynamicSmemBytes);
+  if (err != cudaSuccess || *placed) return err;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  *placed = true;
+  return cudaSuccess;
+}
+
+// Forward of scale a and, unless null, scale b: select_kernel's ball
+// query of both, then the cluster launch.
+int forward_scales(const float* xyz, const float* centers,
+                   const unsigned char* mask, int nb, int n, int m, float eps,
+                   const TrainScale* a, const TrainScale* b,
+                   cudaStream_t st) {
+  if (nb < 1 || nb > 65535 || n < 1 || m < 1 || !valid_scale(*a) ||
+      (b != nullptr && !valid_scale(*b)))
+    return (int)cudaErrorInvalidValue;
+  const long long centers_total = (long long)nb * m;
+  select_kernel<<<(int)((centers_total + kSelWarps - 1) / kSelWarps),
+                  kSelWarps * 32, 0, st>>>(
+      xyz, centers, mask, nb, n, m, a->r2, a->ns, a->idx,
+      b != nullptr ? b->r2 : -1.0f, b != nullptr ? b->ns : 0,
+      b != nullptr ? b->idx : nullptr);
+  RATRACK_CHECK(cudaGetLastError());
+  const ScalePair pair = order_scales(a, b);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, nb, b != nullptr ? 2 : 1, sizeof(FwdSmem), st);
+  static bool placed = false;
+  RATRACK_CHECK(prepare_cluster(fwd_cluster_kernel, &cfg, &placed));
+  RATRACK_CHECK(cudaLaunchKernelEx(&cfg, fwd_cluster_kernel, pair, xyz,
+                                   centers, n, m, eps));
+  return (int)cudaSuccess;
+}
+
 // Backward of scale a and, unless null, scale b: the cluster launch and the
-// finishing reduction. A card that cannot place the cluster is an error.
+// finishing reduction.
 int backward_scales(const float* xyz, const float* centers, int nb, int n,
                     int m, float eps, const TrainScale* a,
                     const TrainScale* b, double* ssum, float* pdw,
@@ -1008,27 +1129,13 @@ int backward_scales(const float* xyz, const float* centers, int nb, int n,
   if (nb < 1 || nb > 65535 || n < 1 || m < 1 || !valid_scale(*a) ||
       (b != nullptr && !valid_scale(*b)))
     return (int)cudaErrorInvalidValue;
-  // the scale with more rows on blockIdx.z = 0: its blocks start first
-  // where the card cannot hold every cluster at once
-  ScalePair pair = {};
-  const bool swap = b != nullptr && b->ns > a->ns;
-  pair.s[0] = swap ? *b : *a;
-  if (b != nullptr) pair.s[1] = swap ? *a : *b;
+  const ScalePair pair = order_scales(a, b);
   const int nscales = b != nullptr ? 2 : 1;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  bwd_config(&cfg, &attr, nb, nscales, st);
-  RATRACK_CHECK(cudaFuncSetAttribute(
-      bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(BwdSmem)));
-  static bool placed = false;   // asked once: a card that holds no cluster
-  if (!placed) {                // is an error here, not a launch that waits
-    int clusters = 0;
-    RATRACK_CHECK(
-        cudaOccupancyMaxActiveClusters(&clusters, bwd_cluster_kernel, &cfg));
-    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    placed = true;
-  }
+  cluster_config(&cfg, &attr, nb, nscales, sizeof(BwdSmem), st);
+  static bool placed = false;
+  RATRACK_CHECK(prepare_cluster(bwd_cluster_kernel, &cfg, &placed));
   RATRACK_CHECK(cudaLaunchKernelEx(&cfg, bwd_cluster_kernel, pair, xyz,
                                    centers, n, m, eps, ssum, pdw));
   const int len = kGradLen + 2 * kMaxL * kMaxC;
@@ -1037,23 +1144,36 @@ int backward_scales(const float* xyz, const float* centers, int nb, int n,
   return (int)cudaGetLastError();
 }
 
+// How many clusters of a launch of `kernel` the card holds at once, or a
+// negative CUDA error code.
+template <typename Kernel>
+int clusters_held(Kernel kernel, size_t smem, int nb, int nscales) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, nb, nscales, smem, nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
 }  // namespace
 
 // Scratch (the Python wrapper allocates it, see ops/fused_sa_train.py).
-// Forward: part >= B * ceil(M * ns / 64) * 2 * 64 float64. Backward: ssum
-// (scales, 3, B, 2, 64) float64 and pdw (scales, B * 8, 2 * 64 * 64 + 3 *
-// 64) float32, and in every TrainScale dy[2] of (B, M * ns, 64) float32
-// each, 16-byte aligned like z.
+// Forward: none. Backward: ssum (scales, 3, B, 2, 64) float64 and pdw
+// (scales, B * 8, 2 * 64 * 64 + 3 * 64) float32, and in every TrainScale
+// dy[2] of (B, M * ns, 64) float32 each, 16-byte aligned like z.
 // sa, sb point to one TrainScale each (a type of this file only, hence
 // void pointers: the C interface must not name it).
 extern "C" int ratrack_sa_train_fwd(const float* xyz, const float* centers,
                                     const unsigned char* mask, int nb, int n,
                                     int m, float eps, const void* sa,
-                                    const void* sb, double* part,
-                                    void* stream) {
+                                    const void* sb, void* stream) {
   return forward_scales(xyz, centers, mask, nb, n, m, eps,
                         static_cast<const TrainScale*>(sa),
-                        static_cast<const TrainScale*>(sb), part,
+                        static_cast<const TrainScale*>(sb),
                         (cudaStream_t)stream);
 }
 
@@ -1070,16 +1190,12 @@ extern "C" int ratrack_sa_train_bwd(const float* xyz, const float* centers,
 // How many of the backward's clusters the card holds at once (a negative
 // CUDA error code if it cannot say).
 extern "C" int ratrack_sa_train_bwd_clusters(int nb, int nscales) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  bwd_config(&cfg, &attr, nb, nscales, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(BwdSmem));
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, bwd_cluster_kernel, &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  return clusters_held(bwd_cluster_kernel, sizeof(BwdSmem), nb, nscales);
+}
+
+// The same for the forward's clusters.
+extern "C" int ratrack_sa_train_fwd_clusters(int nb, int nscales) {
+  return clusters_held(fwd_cluster_kernel, sizeof(FwdSmem), nb, nscales);
 }
 
 // Kernel B8: one scale of a level, forward and backward; scratch as above.
@@ -1087,10 +1203,9 @@ extern "C" int ratrack_sa_scale_train_fwd(const float* xyz,
                                           const float* centers,
                                           const unsigned char* mask, int nb,
                                           int n, int m, float eps,
-                                          const void* scale, double* part,
-                                          void* stream) {
+                                          const void* scale, void* stream) {
   return forward_scales(xyz, centers, mask, nb, n, m, eps,
-                        static_cast<const TrainScale*>(scale), nullptr, part,
+                        static_cast<const TrainScale*>(scale), nullptr,
                         (cudaStream_t)stream);
 }
 

@@ -53,17 +53,17 @@ SIGNATURES = {
     "ratrack_knn_tiled": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ratrack_fps": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "ratrack_sinkhorn": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "ratrack_sa_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    "ratrack_sa_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "ratrack_sa_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+    "ratrack_sa_train_fwd_clusters": [_I, _I],
     "ratrack_sa_train_bwd_clusters": [_I, _I],
-    "ratrack_sa_scale_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "ratrack_sa_scale_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
     "ratrack_sa_scale_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "ratrack_corr_train_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                                _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "ratrack_corr_train_bwd": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P],
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

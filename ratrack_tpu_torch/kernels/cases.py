@@ -29,7 +29,8 @@ them), `apply_case` (B4), `fps_case` (B6), `sinkhorn_case` (B7), and
 
 `*_work` functions count the bytes a kernel call must move (every tensor
 of the case read once, every output written once) and the float32
-operations it needs on these inputs, for the roofline bound.
+operations it needs on these inputs, the matrix products' (every x @ W
+multiply-add, 2 K N a row) apart from the rest, for the roofline bound.
 
 Used by chip_smoke.py and tests/test_torch_port_cuda.py to hold every
 kernel against its plain version on the same tensors.
@@ -433,6 +434,19 @@ def corr_train_run(fn, kw: dict, seed: int = 0):
     return _run(corr_train_loss, fn, kw, seed)
 
 
+def corr_train_products(fn, kw: dict):
+    """The four pair-layer products of B10's stage-1 backward (dW_2 = h_1^T
+    dz_2, dh_1 = dz_2 W_2^T, dW_1 = h_0^T dz_1, dh_0 = dz_1 W_1^T) as
+    torch.matmul, a callable for timing beside the kernel: a yardstick,
+    used nowhere in the port. fn, the kernel wrapper (return_indices=True)
+    on CUDA tensors, runs the forward once for its stash (h_0, h_1, h_2),
+    which also stands in for dz_2 and dz_1 (the same shapes)."""
+    out, _ = fn(**dict(kw, feats_p=_leaf(kw["feats_p"])))
+    h0, h1, h2 = out.grad_fn.saved_tensors[-3:]
+    w1, w2 = kw["mlp_ws"]
+    return lambda: (h1.t() @ h2, h2 @ w2.t(), h0.t() @ h1, h1 @ w1.t())
+
+
 def to_float64(case: dict) -> dict:
     """Every floating tensor of a case (lists included) in float64."""
     def cast(x):
@@ -510,6 +524,7 @@ def compare_train(got, want, want64=None, cancelling=None):
 
 
 # ---- roofline work: bytes moved and float32 operations needed ----------
+# Each *_work returns (bytes, product operations, other operations).
 
 DIST_OPS = 10   # one expanded-form distance and its comparison
 
@@ -534,111 +549,120 @@ def _filled(idx):
     return (idx != idx[..., :1]).sum(-1) + 1
 
 
-def _slot_ops(c1: int, rest) -> int:
-    """Operations of the folded MLP on one filled slot."""
-    return 2 * c1 + sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
-                        for w, _ in rest)
+def _slot_ops(c1: int, rest):
+    """(Product, other) operations of the folded MLP on one filled slot."""
+    return (sum(2 * w.shape[0] * w.shape[1] for w, _ in rest),
+            2 * c1 + sum(2 * w.shape[1] for w, _ in rest))
 
 
 def sa_pair_work(kw: dict, out_a, out_b, idx_a, idx_b):
-    """B1 -> (bytes, operations). Operations: the scan of each center up
-    to where both slot lists are full (the whole cloud otherwise), and the
-    folded MLP over the filled slots only."""
+    """B1 -> (bytes, product ops, other ops). Operations: the scan of each
+    center up to where both slot lists are full (the whole cloud
+    otherwise), and the folded MLP over the filled slots only."""
     n = kw["xyz"].shape[1]
-    ops, full, last = 0, [], []
+    mm, ops, full, last = 0, 0, [], []
     for tag, idx, ns in (("a", idx_a, kw["nsample_a"]),
                          ("b", idx_b, kw["nsample_b"])):
-        filled = _filled(idx)
-        ops += int(filled.sum()) * _slot_ops(kw[f"p1{tag}"].shape[-1],
-                                             kw[f"rest_{tag}"])
-        full.append(filled >= ns)
+        filled = int(_filled(idx).sum())
+        slot_mm, slot_ops = _slot_ops(kw[f"p1{tag}"].shape[-1],
+                                      kw[f"rest_{tag}"])
+        mm += filled * slot_mm
+        ops += filled * slot_ops
+        full.append(_filled(idx) >= ns)
         last.append(idx.amax(-1) + 1)
     scanned = torch.where(full[0] & full[1], torch.maximum(*last),
                           torch.full_like(last[0], n))
     ops += DIST_OPS * int(scanned.sum())
-    return case_bytes(kw, out_a, out_b), ops
+    return case_bytes(kw, out_a, out_b), mm, ops
 
 
 def sa_scale_work(kw: dict, out, idx):
-    """B1' -> (bytes, operations), counted as `sa_pair_work` counts one
-    scale."""
+    """B1' -> (bytes, product ops, other ops), counted as `sa_pair_work`
+    counts one scale."""
     n = kw["xyz"].shape[1]
     filled = _filled(idx)
     scanned = torch.where(filled >= kw["nsample"], idx.amax(-1) + 1,
                           torch.full_like(filled, n))
-    ops = (int(filled.sum()) * _slot_ops(kw["p1"].shape[-1], kw["rest"])
-           + DIST_OPS * int(scanned.sum()))
-    return case_bytes(kw, out), ops
+    slot_mm, slot_ops = _slot_ops(kw["p1"].shape[-1], kw["rest"])
+    return (case_bytes(kw, out), int(filled.sum()) * slot_mm,
+            int(filled.sum()) * slot_ops + DIST_OPS * int(scanned.sum()))
 
 
 def three_interpolate_work(kw: dict, out):
-    """B2 -> (bytes, operations): every unknown x known distance, then 3
-    weighted rows."""
+    """B2 -> (bytes, 0, operations): every unknown x known distance, then
+    3 weighted rows."""
     b, n, _ = kw["unknown"].shape
     m, c = kw["feats"].shape[1], kw["feats"].shape[2]
-    return case_bytes(kw, out), b * n * (DIST_OPS * m + 6 * c + 12)
+    return case_bytes(kw, out), 0, b * n * (DIST_OPS * m + 6 * c + 12)
 
 
-def _pair_ops(kw: dict) -> int:
-    """Operations per (query, slot) pair of a correlator stage."""
+def _pair_ops(kw: dict):
+    """(Product, other) operations per (query, slot) pair of a correlator
+    stage."""
     c = CORR_C
-    ops = 2 * (3 * 8 + 8 * 8 + 8 * c) + 2 * c         # WeightNet, slot sum
-    ops += sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1]
-               for w in kw["mlp_ws"])
+    mm = 2 * (3 * 8 + 8 * 8 + 8 * c)                  # WeightNet
+    ops = 2 * c                                       # the slot sum
+    mm += sum(2 * w.shape[0] * w.shape[1] for w in kw["mlp_ws"])
+    ops += sum(2 * w.shape[1] for w in kw["mlp_ws"])
     if kw["add_q"] is not None:
         ops += 2 * c
     if kw.get("w_dir") is not None:
-        ops += 2 * 3 * c
-    return ops
+        mm += 2 * 3 * c
+    return mm, ops
 
 
 def corr_work(kw: dict, out, select: bool = True):
     """B3 (select=True: with the kNN's one pass of distances), B4 or B10's
-    forward -> (bytes, operations)."""
+    forward -> (bytes, product ops, other ops)."""
     b, n, _ = kw["query"].shape
     m = kw["points"].shape[1]
-    ops = b * n * 16 * _pair_ops(kw)
+    mm, ops = _pair_ops(kw)
+    ops *= b * n * 16
     if select:
         ops += DIST_OPS * b * n * m
-    return case_bytes(kw, out), ops
+    return case_bytes(kw, out), b * n * 16 * mm, ops
 
 
 def corr_train_bwd_work(kw: dict, out):
-    """B10's backward -> (bytes, operations): per pair layer a dW and a dh
-    product; it reads the forward's inputs, the cotangent and the stashed
-    activations ((n_mlp + 1) x (B N 16, 256) for stage 1) and writes a
-    gradient per input."""
+    """B10's backward -> (bytes, product ops, other ops): per pair layer a
+    dW and a dh product; it reads the forward's inputs, the cotangent and
+    the stashed activations ((n_mlp + 1) x (B N 16, 256) for stage 1) and
+    writes a gradient per input."""
     b, n, _ = kw["query"].shape
     rows = b * n * 16
     n_mlp = len(kw["mlp_ws"])
     stash = (n_mlp + 1) * rows * CORR_C * 4 if kw["add_q"] is not None else 0
-    return (2 * case_bytes(kw) + case_bytes(out) + stash,
-            2 * rows * _pair_ops(kw))
+    mm, ops = _pair_ops(kw)
+    return (2 * case_bytes(kw) + case_bytes(out) + stash, 2 * rows * mm,
+            2 * rows * ops)
 
 
-def _train_slot_ops(widths) -> int:
-    """Operations of the train-mode MLP on one slot: layer 1's coordinate
-    term, the Dense layers, and batch norm, ReLU and max per channel."""
+def _train_slot_ops(widths):
+    """(Product, other) operations of the train-mode MLP on one slot: layer
+    1's coordinate term and the Dense layers; batch norm, ReLU and max per
+    channel."""
     return (2 * 3 * widths[0]
-            + sum(2 * i * o for i, o in zip(widths[:-1], widths[1:]))
-            + sum(6 * w for w in widths))
+            + sum(2 * i * o for i, o in zip(widths[:-1], widths[1:])),
+            sum(6 * w for w in widths))
 
 
 def sa_train_work(kw: dict, outs: dict):
-    """B9 -> (forward (bytes, operations), backward (bytes, operations)).
+    """B9 -> (forward (bytes, product ops, other ops), backward (...)).
     Train-mode batch norm counts every slot, padding included, so the MLP
     runs over all M x nsample slots; the backward is a dW and a dh product
     per layer."""
     b, n, _ = kw["xyz"].shape
     m = kw["centers"].shape[1]
-    mlp = 0
+    mm = ops = 0
     for tag in "ab":
         widths = [kw[f"wxyz_{tag}"].shape[1]] + [w.shape[1]
                                                  for w in kw[f"ws_{tag}"]]
-        mlp += b * m * kw[f"nsample_{tag}"] * _train_slot_ops(widths)
+        slot_mm, slot_ops = _train_slot_ops(widths)
+        mm += b * m * kw[f"nsample_{tag}"] * slot_mm
+        ops += b * m * kw[f"nsample_{tag}"] * slot_ops
     fwd_bytes = case_bytes(kw, outs)
-    return ((fwd_bytes, mlp + DIST_OPS * b * m * n),
-            (2 * fwd_bytes, 2 * mlp))
+    return ((fwd_bytes, mm, ops + DIST_OPS * b * m * n),
+            (2 * fwd_bytes, 2 * mm, 2 * ops))
 
 
 def sa_scale_train_work(kw: dict, outs: dict):
@@ -646,29 +670,31 @@ def sa_scale_train_work(kw: dict, outs: dict):
     b, n, _ = kw["xyz"].shape
     m = kw["centers"].shape[1]
     widths = [kw["wxyz"].shape[1]] + [w.shape[1] for w in kw["ws"]]
-    mlp = b * m * kw["nsample"] * _train_slot_ops(widths)
+    slot_mm, slot_ops = _train_slot_ops(widths)
+    mm = b * m * kw["nsample"] * slot_mm
+    ops = b * m * kw["nsample"] * slot_ops
     fwd_bytes = case_bytes(kw, outs)
-    return ((fwd_bytes, mlp + DIST_OPS * b * m * n),
-            (2 * fwd_bytes, 2 * mlp))
+    return ((fwd_bytes, mm, ops + DIST_OPS * b * m * n),
+            (2 * fwd_bytes, 2 * mm, 2 * ops))
 
 
 def knn_tiled_work(kw: dict, idx, keys):
-    """B5 -> (bytes, operations): one distance and comparison per query
+    """B5 -> (bytes, 0, operations): one distance and comparison per query
     and valid candidate."""
     b, n, _ = kw["query"].shape
     valid = (int(kw["points_mask"].sum()) if kw["points_mask"] is not None
              else b * kw["points"].shape[1])
-    return case_bytes(kw, idx, keys), DIST_OPS * n * valid
+    return case_bytes(kw, idx, keys), 0, DIST_OPS * n * valid
 
 
 def fps_work(kw: dict, out):
-    """B6 -> (bytes, operations): 9 operations a point and step."""
+    """B6 -> (bytes, 0, operations): 9 operations a point and step."""
     b, n, _ = kw["xyz"].shape
-    return case_bytes(kw, out), 9 * b * n * (kw["npoint"] - 1)
+    return case_bytes(kw, out), 0, 9 * b * n * (kw["npoint"] - 1)
 
 
 def sinkhorn_work(kw: dict, u, v):
-    """B7 -> (bytes, operations): an add, an exp and an add per matrix
+    """B7 -> (bytes, 0, operations): an add, an exp and an add per matrix
     entry and half-step."""
     b, k1 = kw["log_mu"].shape
-    return case_bytes(kw, u, v), 3 * 2 * kw["iters"] * b * k1 * k1
+    return case_bytes(kw, u, v), 0, 3 * 2 * kw["iters"] * b * k1 * k1

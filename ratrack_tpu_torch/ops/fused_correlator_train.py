@@ -47,11 +47,12 @@ from .neighborhood import knn_auto
 
 WN_HIDDEN = 8
 # csrc/correlator_train.cu: WeightNet gradient block layout (kWnGrad) and
-# the split-K chunk (kAtbChunk), for sizing the scratch the kernel takes
+# the rows of a split-K dW chunk (kDwChunk), for sizing the scratch the
+# kernel takes
 _WN_SHAPES = ((3, WN_HIDDEN), (WN_HIDDEN,), (WN_HIDDEN, WN_HIDDEN),
               (WN_HIDDEN,), (WN_HIDDEN, KERNEL_C), (KERNEL_C,))
 _WN_GRAD = sum(int(torch.Size(s).numel()) for s in _WN_SHAPES)
-_ATB_CHUNK = 1024
+_DW_CHUNK = 1024
 
 
 def _wn_ptrs(wn):
@@ -143,7 +144,7 @@ class KnnWeightAggregateTrainFunction(torch.autograd.Function):
         b, n, m, c = query.shape[0], query.shape[1], points.shape[1], KERNEL_C
         rows = b * n * KERNEL_K
         blocks = -(-b * n // 4)
-        chunks = -(-rows // _ATB_CHUNK)
+        chunks = -(-rows // _DW_CHUNK)
         d_feats_p = torch.zeros((b, m, c), device=dev)
         d_points = torch.zeros((b, m, 3), device=dev)
         d_query = torch.empty((b, n, 3), device=dev)
@@ -156,10 +157,10 @@ class KnnWeightAggregateTrainFunction(torch.autograd.Function):
         dz = [torch.empty((rows, c), device=dev)
               for _ in range(2 if n_mlp else 1)]
         ddir = torch.empty((rows, 3), device=dev)
-        wt = torch.empty((c, c), device=dev)
-        part = torch.empty(max(blocks * _WN_GRAD, chunks * c * c,
-                               blocks * 3 * c), device=dev)
-        part_b = torch.empty(chunks * c, device=dev)
+        # per-block WeightNet and W_dir partials, per-chunk dW and db
+        # partials of every pair layer
+        part = torch.empty(blocks * (_WN_GRAD + 3 * c)
+                           + n_mlp * chunks * (c * c + c), device=dev)
         lib = kb.load()
         with torch.cuda.device(dev):
             code = lib.ratrack_corr_train_bwd(
@@ -170,8 +171,8 @@ class KnnWeightAggregateTrainFunction(torch.autograd.Function):
                 kb.ptr(d_feats_p), kb.ptr(d_add_q), kb.ptr(d_query),
                 kb.ptr(d_points), kb.ptr(d_wdir), kb.ptr_array(d_mlp_w),
                 kb.ptr_array(d_mlp_b), kb.ptr(d_wn), kb.ptr(dz[0]),
-                kb.ptr(dz[-1]), kb.ptr(ddir), kb.ptr(wt), kb.ptr(part),
-                kb.ptr(part_b), kb.stream_of(query))
+                kb.ptr(dz[-1]), kb.ptr(ddir), kb.ptr(part),
+                kb.stream_of(query))
         kb.check(code, "corr_train_bwd")
         knn_weight_aggregate_train_bwd.launches += 1
         sizes = [int(torch.Size(s).numel()) for s in _WN_SHAPES]

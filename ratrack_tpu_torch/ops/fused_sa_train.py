@@ -54,9 +54,8 @@ from .neighborhood import ball_query
 MAX_LAYERS = 3
 MAX_WIDTH = 64
 MAX_NSAMPLE = 32
-# shapes of csrc/sa_pair_train.cu (kRows, kCluster, kGradLen), for sizing
-# the scratch the kernels take
-_ROWS = 64
+# shapes of csrc/sa_pair_train.cu (kCluster, kGradLen), for sizing the
+# backward's scratch
 _CLUSTER = 8
 _GRAD_LEN = (MAX_LAYERS - 1) * MAX_WIDTH * MAX_WIDTH + 3 * MAX_WIDTH
 _ALIGN = 256     # bytes: every carved view starts on a 256-byte boundary
@@ -165,8 +164,6 @@ class SATrainFunction(torch.autograd.Function):
                 idx=torch.empty((b, m, ns), device=dev, dtype=torch.int32),
                 pooled=torch.empty((b, m, dims[-1]), device=dev)))
         structs = [_scale_struct(sc) for sc in scales]
-        part = torch.empty(_part_size(b, m, [sc["ns"] for sc in scales]),
-                           device=dev, dtype=torch.float64)
         lib = kb.load()
         pair = len(scales) == 2
         with torch.cuda.device(dev):
@@ -174,7 +171,7 @@ class SATrainFunction(torch.autograd.Function):
                      else lib.ratrack_sa_scale_train_fwd)
             code = entry(kb.ptr(xyz), kb.ptr(centers), kb.ptr(mask), b, n, m,
                          eps, *[ctypes.addressof(st) for st in structs],
-                         kb.ptr(part), kb.stream_of(xyz))
+                         kb.stream_of(xyz))
         kb.check(code, "sa_pair_train_fwd" if pair else "sa_scale_train_fwd")
         (sa_pair_train_fwd if pair else sa_scale_train_fwd).launches += 1
         ctx.cfg = cfg
@@ -262,10 +259,6 @@ def _carve(device, specs):
     buf = torch.empty(starts[-1], device=device, dtype=torch.uint8)
     return [buf[at:at + size].view(dtype).view(shape)
             for (shape, dtype), at, size in zip(specs, starts, nbytes)]
-
-
-def _part_size(b, m, nsamples):
-    return b * max(-(-m * ns // _ROWS) for ns in nsamples) * 2 * MAX_WIDTH
 
 
 def _scale_struct(sc) -> _Scale:

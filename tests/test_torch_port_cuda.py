@@ -20,10 +20,15 @@ identical indices; B4 within the tolerance above; B7's potentials within
 iteration).
 """
 
+import ctypes
+import math
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from ratrack_tpu_torch.kernels import build as kb
 from ratrack_tpu_torch.kernels import cases
 from ratrack_tpu_torch.ops import (fused_correlator, fused_correlator_train,
                                    fused_fp, fused_knn, fused_sa,
@@ -871,3 +876,255 @@ def test_scale_wrappers_raise_on_what_the_kernels_do_not_take(device):
             a["gammas"], a["betas"], b["pf"], b["wxyz"], b["ws"],
             b["gammas"], b["betas"], radius_a=4.0, radius_b=8.0,
             nsample_a=8, nsample_b=16)
+
+
+# ---- B9 / B8 forward (one cluster launch) and B10 backward (3xTF32) -------
+
+def _package_kernels(fn):
+    """The CUDA kernels of csrc/ that fn() launches, by name, as
+    torch.profiler sees them (PyTorch's own kernels, such as the fill of a
+    zero-initialised gradient, are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = set()
+    for src in kb.CSRC_DIR.glob("*.cu*"):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(\w+)\s*\(", src.read_text()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        hit = [k for k in names if re.search(rf"\b{k}\b", e.name)]
+        found += hit[:1]
+    return found
+
+
+@pytest.mark.parametrize("what", ["pair_fwd", "scale_fwd", "corr_bwd_stage1",
+                                  "corr_bwd_stage2"])
+def test_train_kernels_launch_counts_per_call(device, what):
+    """CUDA kernels one wrapper call launches, counted by torch.profiler: a
+    B9 pair forward and a B8 forward are the ball query and one cluster
+    launch, a B10 backward at most 6 kernels for stage 1 and 3 for stage
+    2."""
+    pc1, m1, pc2, m2 = cases.clouds(50, 4)
+    if what.startswith("corr"):
+        stage = int(what[-1])
+        kw = cases.to_device(cases.corr_train_case(stage, pc1, m1, pc2, m2,
+                                                   _gen(50)), device)
+        loss, _, leaves = cases.corr_train_loss(_corr_train_kernel, kw)
+        flat = [x for _, x in cases.flat_leaves(leaves)]
+        got = _package_kernels(lambda: torch.autograd.grad(loss, flat))
+        assert 1 <= len(got) <= (6 if stage == 1 else 3), got
+        return
+    for level in ("sa1", "sa2", "sa3"):
+        kw = cases.to_device(cases.sa_train_case(level, "pn_head", pc1, m1,
+                                                 _gen(50)), device)
+        with torch.no_grad():
+            if what == "scale_fwd":
+                single = cases.split_sa_train_case(kw)[1]
+                got = _package_kernels(
+                    lambda: fused_sa_train.sa_scale_train(**single))
+            else:
+                got = _package_kernels(
+                    lambda: fused_sa_train.sa_pair_train(**kw))
+        assert sorted(got) == ["fwd_cluster_kernel", "select_kernel"], \
+            (level, got)
+
+
+# name: (streams, queries, candidates (stage 1), valid candidates per stream)
+CORR_RAGGED = {
+    "one_stream_37_queries": (1, 37, 50, None),
+    "two_streams_past_a_chunk": (2, 70, 90, None),
+    "fewer_valid_than_k": (2, 20, 40, (40, 9)),
+}
+
+
+def _corr_ragged_case(name, stage, seed=60):
+    """The B10 cases of tests/test_torch_port_redesign.py on the card: B N
+    16 pair rows that fill no 128-row tile and no 1,024-row dW chunk, one
+    stream, a stream with fewer valid candidates than k."""
+    b, n, m, valid = CORR_RAGGED[name]
+    gen = _gen(seed + stage)
+    q = torch.round(64 * torch.randn((b, n, 3), generator=gen)) / 16
+    p = (torch.round(64 * torch.randn((b, m, 3), generator=gen)) / 16
+         if stage == 1 else q)
+    mask = torch.ones(p.shape[:2], dtype=torch.bool)
+    for s_, v in enumerate(valid or ()):
+        mask[s_, v:] = False
+    kw = cases.corr_train_case(stage, q, mask, p, mask, gen)
+    kw["feats_p"] = torch.randn((b, p.shape[1], 256), generator=gen)
+    return kw
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+@pytest.mark.parametrize("name", sorted(CORR_RAGGED))
+def test_correlator_train_ragged_rows(device, name, stage):
+    kw = cases.to_device(_corr_ragged_case(name, stage), device)
+    if stage == 2:
+        kw["points"] = kw["query"]
+    _assert_train_match(
+        cases.corr_train_run, _corr_train_kernel,
+        fused_correlator_train.knn_weight_aggregate_train_reference, kw)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_correlator_train_backward_repeats_run_to_run(device, stage):
+    """Two runs of B10 on the same inputs: the output and every gradient
+    identical but those the float atomics scatter (d_feats_p, d_points, and
+    in stage 2, where the candidates are the queries, d_query)."""
+    pc1, m1, pc2, m2 = cases.clouds(61, 8)
+    kw = cases.to_device(cases.corr_train_case(stage, pc1, m1, pc2, m2,
+                                               _gen(61)), device)
+    runs = [cases.corr_train_run(_corr_train_kernel, kw) for _ in range(2)]
+    scattered = {"feats_p", "points"} | ({"query"} if stage == 2 else set())
+    assert torch.equal(runs[0][0]["out"], runs[1][0]["out"])
+    for key, g in runs[0][1].items():
+        if key not in scattered:
+            assert torch.equal(g, runs[1][1][key]), key
+
+
+CANARY = {torch.float32: -1.2345e30, torch.float64: -1.2345e30,
+          torch.int32: -123456789}
+
+
+class _Guard:
+    """Outputs and scratch as views inside larger buffers with canary
+    values on both sides; `assert_intact` checks them after the launch."""
+    PAD = 64      # elements: keeps every view 256-byte aligned
+
+    def __init__(self, device):
+        self.device, self.bufs = device, []
+
+    def view(self, shape, dtype=torch.float32, zero=False):
+        n = math.prod(shape)
+        buf = torch.full((n + 2 * self.PAD,), CANARY[dtype], dtype=dtype,
+                         device=self.device)
+        v = buf[self.PAD:self.PAD + n].view(shape)
+        if zero:
+            v.zero_()
+        self.bufs.append((buf, n))
+        return v
+
+    def assert_intact(self):
+        torch.cuda.synchronize()
+        for buf, n in self.bufs:
+            c = CANARY[buf.dtype]
+            assert bool((buf[:self.PAD] == c).all()), buf.shape
+            assert bool((buf[self.PAD + n:] == c).all()), buf.shape
+
+
+def _canary_cloud(n_valid, b=2, n=33):
+    pc = 2.0 * torch.randn((b, n, 3), generator=_gen(70 + n_valid))
+    mask = (torch.arange(n) < n_valid).expand(b, -1).contiguous()
+    return pc, mask
+
+
+@pytest.mark.parametrize("n_valid", [33, 1, 0])
+def test_kernels_write_only_inside_their_outputs(device, n_valid):
+    """The C entries of B1, of the B9 / B8 forward and of the B10
+    backward (both stages), called directly, with every output and scratch
+    pointer a view inside a larger buffer: after the launches the canaries
+    on both sides are intact. 33 points, all, one or none valid."""
+    lib = kb.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    pc, mask = _canary_cloud(n_valid)
+    b, n = pc.shape[:2]
+    guard = _Guard(device)
+
+    # B1: both scales of sa1, outputs and indices guarded
+    kw = cases.to_device(cases.sa_case("sa1", "pn_head", pc, mask, _gen(71)),
+                         device)
+    m = kw["centers"].shape[1]
+    args = []
+    for t in "ab":
+        a, _, _ = fused_sa._kernel_scale(
+            t, kw["xyz"], kw["centers"], kw[f"p1{t}"], kw[f"cw{t}"],
+            kw[f"rest_{t}"], kw[f"radius_{t}"], kw[f"nsample_{t}"], True)
+        width = (kw[f"rest_{t}"][-1][0].shape[1] if kw[f"rest_{t}"]
+                 else kw[f"p1{t}"].shape[-1])
+        a[-2] = kb.ptr(guard.view((b, m, width)))
+        a[-1] = kb.ptr(guard.view((b, m, kw[f"nsample_{t}"]), torch.int32))
+        args += a
+    kb.check(lib.ratrack_sa_pair(kb.ptr(kw["xyz"]), kb.ptr(kw["centers"]),
+                                 kb.ptr(kw["mask"]), b, n, m, *args, stream),
+             "sa_pair")
+
+    # B9 / B8 forward: every output of the TrainScale structs guarded
+    tk = cases.to_device(cases.sa_train_case("sa1", "pn_head", pc, mask,
+                                             _gen(72), centers=pc), device)
+    structs, keep = [], []
+    for t in "ab":
+        ns = tk[f"nsample_{t}"]
+        dims = [tk[f"wxyz_{t}"].shape[1]] + [w.shape[1]
+                                             for w in tk[f"ws_{t}"]]
+        sc = dict(ws=tk[f"ws_{t}"], gam=tk[f"gammas_{t}"],
+                  bet=tk[f"betas_{t}"], dims=dims, ns=ns,
+                  r=tk[f"radius_{t}"], pf=tk[f"pf{t}"],
+                  wx=tk[f"wxyz_{t}"],
+                  z=[guard.view((b, n * ns, c)) for c in dims],
+                  mus=[guard.view((b, c)) for c in dims],
+                  vrs=[guard.view((b, c)) for c in dims],
+                  idx=guard.view((b, n, ns), torch.int32),
+                  pooled=guard.view((b, n, dims[-1])))
+        keep.append(sc)
+        structs.append(fused_sa_train._scale_struct(sc))
+    common = (kb.ptr(tk["xyz"]), kb.ptr(tk["centers"]),
+              kb.ptr(tk["mask"]), b, n, n, 1e-5)
+    kb.check(lib.ratrack_sa_train_fwd(
+        *common, ctypes.addressof(structs[0]),
+        ctypes.addressof(structs[1]), stream), "sa_pair_train_fwd")
+    kb.check(lib.ratrack_sa_scale_train_fwd(
+        *common, ctypes.addressof(structs[1]), stream),
+        "sa_scale_train_fwd")
+    torch.cuda.synchronize()
+    for sc in keep:
+        assert bool(torch.isfinite(sc["pooled"]).all())
+
+    # B10 backward: the forward through the wrapper, the backward's C entry
+    # with guarded outputs and scratch
+    pc2, _ = _canary_cloud(n_valid)
+    for stage in (1, 2):
+        ck = cases.to_device(cases.corr_train_case(
+            stage, pc, mask, pc2, mask, _gen(73)), device)
+        out, idx = _corr_train_kernel(
+            **dict(ck, feats_p=ck["feats_p"].clone().requires_grad_(True)))
+        n_mlp = len(ck["mlp_ws"])
+        stash = (list(out.grad_fn.saved_tensors[-(n_mlp + 1):])
+                 if stage == 1 else [None])
+        c, rows = 256, b * n * 16
+        blocks = -(-b * n // 4)
+        chunks = -(-rows // fused_correlator_train._DW_CHUNK)
+        wn_grad = fused_correlator_train._WN_GRAD
+        g = dict(
+            d_feats_p=guard.view((b, n, c), zero=True),
+            d_add_q=guard.view((b, n, c)) if stage == 1 else None,
+            d_query=guard.view((b, n, 3)),
+            d_points=guard.view((b, n, 3), zero=True),
+            d_wdir=guard.view((3, c)) if stage == 1 else None,
+            d_mlp_w=[guard.view((c, c)) for _ in range(n_mlp)],
+            d_mlp_b=[guard.view((c,)) for _ in range(n_mlp)],
+            d_wn=guard.view((wn_grad,)),
+            dz=[guard.view((rows, c)) for _ in range(2 if n_mlp else 1)],
+            ddir=guard.view((rows, 3)),
+            part=guard.view((blocks * (wn_grad + 3 * c)
+                             + n_mlp * chunks * (c * c + c),)))
+        dout = torch.randn((b, n, c), generator=_gen(74)).to(device)
+        wn = fused_correlator_train._wn_ptrs(ck["wn_ws"] + ck["wn_bs"])
+        kb.check(lib.ratrack_corr_train_bwd(
+            kb.ptr(ck["query"]), kb.ptr(ck["points"]), kb.ptr(idx), b, n, n,
+            kb.ptr(ck["feats_p"]), int(ck["add_q"] is not None),
+            kb.ptr(ck["w_dir"]), kb.ptr_array(list(ck["mlp_ws"])), n_mlp,
+            kb.ptr_array(stash), *wn, kb.ptr(dout), kb.ptr(g["d_feats_p"]),
+            kb.ptr(g["d_add_q"]), kb.ptr(g["d_query"]),
+            kb.ptr(g["d_points"]), kb.ptr(g["d_wdir"]),
+            kb.ptr_array(g["d_mlp_w"]), kb.ptr_array(g["d_mlp_b"]),
+            kb.ptr(g["d_wn"]), kb.ptr(g["dz"][0]), kb.ptr(g["dz"][-1]),
+            kb.ptr(g["ddir"]), kb.ptr(g["part"]), stream), "corr_train_bwd")
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(g["d_wn"]).all())
+    guard.assert_intact()

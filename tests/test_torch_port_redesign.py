@@ -17,6 +17,15 @@ B6: a block's threads own strided slices of the cloud and a cluster's
 blocks slices of those, so the cases have N that 32 does not divide,
 N = npoint with no mask, exact ties, one valid point, none, and npoint
 above the valid count, against JAX `furthest_point_sample` index for index.
+
+B10 (backward): the pair-layer products run over 128-row tiles and split-K
+chunks of 1,024 pair rows (B * N * 16 of them), so the cases have row
+counts that fill neither, one stream, a stream with fewer valid candidates
+than k = 16, and both stages, against the JAX
+`knn_weight_aggregate_reference` per stream: output 1e-4 x max|jax|, every
+gradient leaf within 1e-2 of the whole gradient's norm and cosine >= 0.99.
+Coordinates lie on a 1/16 grid, so every distance is exact in both
+packages and the selections agree.
 """
 
 import jax
@@ -25,8 +34,12 @@ import numpy as np
 import pytest
 import torch
 
+from ratrack_tpu.ops.pallas_correlator_train import \
+    knn_weight_aggregate_reference as jcorr_reference
 from ratrack_tpu.ops.pallas_sa_train import sa_scale_train_reference
 from ratrack_tpu.ops.sampling import furthest_point_sample as j_fps
+from ratrack_tpu_torch.ops.fused_correlator_train import \
+    fused_knn_weight_aggregate_train
 from ratrack_tpu_torch.ops.fused_sa_train import (fused_sa_pair_train,
                                                   fused_sa_scale_train)
 from ratrack_tpu_torch.ops.sampling import (furthest_point_sample,
@@ -190,3 +203,80 @@ def test_fps_reference_partition_shapes_match_jax(name):
             assert not got[s].any()
         if valid is None and npoint == n:
             assert sorted(got[s].tolist()) == list(range(n))
+
+
+# name: (streams, queries, candidates (stage 1), valid candidates per stream
+# (None: all))
+CORR_SHAPES = {
+    # 592 pair rows: a ragged 128-row tile and one part-filled dW chunk
+    "one_stream_37_queries": (1, 37, 50, None),
+    # 2,240 pair rows: two full 1,024-row chunks and a ragged third
+    "two_streams_past_a_chunk": (2, 70, 90, None),
+    # a stream with 9 valid candidates: slots past them repeat the nearest
+    "fewer_valid_than_k": (2, 20, 40, (40, 9)),
+}
+
+
+def _corr_case(name, stage):
+    b, n, m, valid = CORR_SHAPES[name]
+    rng = np.random.RandomState(100 + 7 * stage + len(name))
+    grid = lambda *shape: (np.round(rng.randn(*shape) * 64) / 16).astype(
+        np.float32)  # noqa: E731
+    q = grid(b, n, 3)
+    p = grid(b, m, 3) if stage == 1 else q
+    mask = np.ones(p.shape[:2], bool)
+    for s, v in enumerate(valid or ()):
+        mask[s, v:] = False
+    c = 256
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    n_mlp = 2 if stage == 1 else 0
+    diff = dict(
+        q=q, fp=f32(rng.randn(b, p.shape[1], c)),
+        mlp=([f32(rng.randn(c, c) / 16) for _ in range(n_mlp)],
+             [f32(0.1 * rng.randn(c)) for _ in range(n_mlp)]),
+        wn=([f32(rng.randn(3, 8)), f32(0.3 * rng.randn(8, 8)),
+             f32(0.3 * rng.randn(8, c))],
+            [f32(0.1 * rng.randn(w)) for w in (8, 8, c)]))
+    if stage == 1:
+        diff.update(p=p, aq=f32(rng.randn(b, n, c)),
+                    wdir=f32(0.05 * rng.randn(3, c)))
+    return diff, mask, f32(rng.randn(b, n, c))
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+@pytest.mark.parametrize("name", sorted(CORR_SHAPES))
+def test_correlator_train_ragged_shapes_match_jax(name, stage):
+    diff, mask, cot = _corr_case(name, stage)
+
+    def jax_loss(d):
+        def one(qb, pb, fb, ab, mb):
+            return jcorr_reference(qb, pb, fb, ab, mb, *d["mlp"], *d["wn"],
+                                   w_dir=d.get("wdir"))
+        pts = d["p"] if stage == 1 else d["q"]
+        ab = d["aq"] if stage == 1 else jnp.zeros((mask.shape[0], 1))
+        out = jax.vmap(lambda qb, pb, fb, a, mb: one(
+            qb, pb, fb, a if stage == 1 else None, mb))(
+            d["q"], pts, d["fp"], ab, mask)
+        return jnp.sum(out * cot), out
+    jgrad, jout = jax.jit(jax.grad(jax_loss, has_aux=True))(diff)
+
+    t = jax.tree_util.tree_map(lambda a: _t(a).requires_grad_(True), diff)
+    out = fused_knn_weight_aggregate_train(
+        t["q"], t["p"] if stage == 1 else t["q"], t["fp"], t.get("aq"),
+        _t(mask), *t["mlp"], *t["wn"], w_dir=t.get("wdir"))
+    (out * _t(cot)).sum().backward()
+    want = np.asarray(jout)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    got = jax.tree_util.tree_leaves(
+        jax.tree_util.tree_map(lambda a: a.grad.numpy(), t))
+    want = [np.asarray(w) for w in jax.tree_util.tree_leaves(jgrad)]
+    assert len(got) == len(want)
+    total = np.sqrt(sum(float((w.astype(np.float64) ** 2).sum())
+                        for w in want))
+    for g, w in zip(got, want):
+        assert np.linalg.norm(g - w) <= 1e-2 * total
+        if np.linalg.norm(w) > 1e-6 * total:
+            cos = float(g.ravel() @ w.ravel()
+                        / (np.linalg.norm(g) * np.linalg.norm(w)))
+            assert cos >= 0.99, cos
