@@ -292,6 +292,7 @@ def tally(entry, weight, err, ms, plain_ms, library_ms, nbytes, mm_ops,
 def run_kernel_cases(torch, phase, runs, summary):
     """Each run: dict(kernel, config, run_k, run_p, check(got, want) ->
     (err, tol), work(got) -> (bytes, ops), library (a callable or None),
+    products (a callable or None: a yardstick timed beside the kernel),
     weight (calls per frame step that count in the kernel's summary))."""
     with torch.inference_mode():
         for r in runs:
@@ -304,10 +305,13 @@ def run_kernel_cases(torch, phase, runs, summary):
             plain_ms = device_ms(torch, r["run_p"])
             library_ms = (device_ms(torch, r["library"])
                           if r.get("library") else None)
+            products_ms = (device_ms(torch, r["products"])
+                           if r.get("products") else None)
             emit(phase=phase, kernel=r["kernel"], config=r["config"],
                  max_abs_err=err, tol=tol, indices_equal=True, ms=ms,
                  plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
+                 products_torch_ms=products_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)
             tally(summary[r["kernel"]], r.get("weight", 1), err, ms,
                   plain_ms, library_ms, *work)
             del got, want
@@ -447,7 +451,11 @@ def phase_stretch_kernels(torch, seed: int):
             run_p=lambda kw=kw: fused_correlator.knn_gather_apply_reference(
                 **kw),
             check=check_apply,
-            work=lambda got, kw=kw: cases.corr_work(kw, got, select=False)))
+            work=lambda got, kw=kw: cases.corr_work(kw, got, select=False),
+            # stage 1's two pair-layer products as torch.matmul (float32,
+            # TF32 off): a yardstick, not a library call for the function
+            products=(cases.apply_products(kw, kw["idx"]) if kw["mlp_ws"]
+                      else None)))
 
     def check_fps(name):
         def check(got, want):

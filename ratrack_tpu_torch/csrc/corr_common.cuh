@@ -1,6 +1,7 @@
 // Shared pieces of the correlator kernels (correlator.cu, eval and train
-// forward; correlator_train.cu, backward): the block shape and the
-// register-tiled 256x256 float32 layer.
+// forward; correlator_train.cu, backward): the block shape of the
+// backward's per-query launches, the WeightNet hidden layers, and the
+// 3xTF32 tensor-core products with the cp.async copies that feed them.
 #pragma once
 
 #include "common.cuh"
@@ -10,54 +11,13 @@ namespace corr {
 
 constexpr int kC = 256;        // channel width of both stages
 constexpr int kK = 16;         // neighbours per query
-constexpr int kQ = 4;          // queries per block
-constexpr int kRows = kQ * kK; // pair rows per block
-constexpr int kKT = 32;        // weight rows per streamed K-tile
+constexpr int kQ = 4;          // queries per block (backward head and tail)
+constexpr int kRows = kQ * kK; // pair rows per block (backward head and tail)
 constexpr int kThreads = 256;  // kQ * (kC / 4)
 constexpr int kMaxMlp = 2;
 constexpr int kWnHidden = 8;
 
 __device__ __forceinline__ float leaky(float x) { return x > 0.0f ? x : 0.1f * x; }
-
-// acc[s][cc] = sum_k hs[qq * kK + s][k] * w[k][4 * col4 + cc] for a
-// (kC, kC) row-major w in global memory. hs (kRows, kC) is resident in
-// shared memory; w streams through the shared buffer wt (kKT, kC) in
-// K-tiles. Each thread owns one query's kK slots x 4 output channels, so
-// every shared read (a 4-wide activation broadcast to the query's two
-// warps, a conflict-free 4-wide piece of a weight row) feeds 16 FMAs.
-// Contains __syncthreads(): every thread of the block calls it.
-__device__ __forceinline__ void tile_layer(const float* __restrict__ w,
-                                           const float4* hs4, float* wt,
-                                           float (&acc)[kK][4], int tid,
-                                           int qq, int col4) {
-  const float4* wt4 = reinterpret_cast<const float4*>(wt);
-#pragma unroll
-  for (int s = 0; s < kK; ++s)
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) acc[s][cc] = 0.0f;
-  for (int kt = 0; kt < kC; kt += kKT) {
-    __syncthreads();   // previous tile fully read
-    for (int e = tid; e < kKT * (kC / 4); e += kThreads)
-      reinterpret_cast<float4*>(wt)[e] =
-          reinterpret_cast<const float4*>(w + (size_t)kt * kC)[e];
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kKT; kk += 4) {
-      const float4 w0 = wt4[(kk + 0) * (kC / 4) + col4];
-      const float4 w1 = wt4[(kk + 1) * (kC / 4) + col4];
-      const float4 w2 = wt4[(kk + 2) * (kC / 4) + col4];
-      const float4 w3 = wt4[(kk + 3) * (kC / 4) + col4];
-#pragma unroll
-      for (int s = 0; s < kK; ++s) {
-        const float4 h = hs4[(qq * kK + s) * (kC / 4) + (kt + kk) / 4];
-        acc[s][0] = fmaf(h.w, w3.x, fmaf(h.z, w2.x, fmaf(h.y, w1.x, fmaf(h.x, w0.x, acc[s][0]))));
-        acc[s][1] = fmaf(h.w, w3.y, fmaf(h.z, w2.y, fmaf(h.y, w1.y, fmaf(h.x, w0.y, acc[s][1]))));
-        acc[s][2] = fmaf(h.w, w3.z, fmaf(h.z, w2.z, fmaf(h.y, w1.z, fmaf(h.x, w0.z, acc[s][2]))));
-        acc[s][3] = fmaf(h.w, w3.w, fmaf(h.z, w2.w, fmaf(h.y, w1.w, fmaf(h.x, w0.w, acc[s][3]))));
-      }
-    }
-  }
-}
 
 // WeightNet hidden layers of one direction d: h1 = relu(d @ w0 + b0),
 // h2 = relu(h1 @ w1 + b1), 3 -> 8 -> 8. The forward and the backward
@@ -79,6 +39,55 @@ __device__ __forceinline__ void weightnet_hidden(
     for (int t = 0; t < kWnHidden; ++t) a = fmaf(h1[t], w1[t * kWnHidden + o], a);
     h2[o] = fmaxf(a + b1[o], 0.0f);
   }
+}
+
+// ---- 3xTF32 on the tensor cores ----
+// A float32 operand x is split into x = hi + lo, both TF32; a product is
+// lo_a * hi_b + hi_a * lo_b + hi_a * hi_b (the small terms first),
+// accumulated in float32 by mma.sync m16n8k8: float32's accuracy, not
+// TF32's three digits. Fragment layout of m16n8k8 (lane = 4 g + t):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+//     a3 (g + 8, t + 4);
+//   B (8 x 8): b0 (k = t, n = g), b1 (k = t + 4, n = g);
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+//     c3 (g + 8, 2t + 1).
+
+__device__ __forceinline__ unsigned tf32_of(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (lo: the rounding remainder, exact in float32).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_of(x);
+  lo = tf32_of(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid.
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most kPending committed groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace corr

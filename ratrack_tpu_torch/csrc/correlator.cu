@@ -14,17 +14,26 @@
 //     out[i] = sum_s w * h                     unnormalised
 //
 // What bounds it on the H100: the pair MLP, 2 x 256 x 256 multiply-adds
-// for each of the k = 16 slots of every query: about 17 GFLOP per stage-1
-// call at B = 8, N = M = 512, in float32 on the CUDA cores. A 256x256
-// float32 layer is 256 KB, above the 227 KB of shared memory a block may
-// have, so the weights stream through shared memory in 32-row K-tiles.
-// Design: a block holds the 64 pair rows of 4 queries (64 KB) in shared
-// memory; each of its 256 threads owns one query's 16 slots x 4 output
-// channels in registers, so every shared read (a 4-wide activation
-// broadcast to the query's two warps, a conflict-free 4-wide weight row
-// piece) feeds 16 multiply-adds. The last layer's epilogue applies the
-// WeightNet and sums the 16 slots in registers: nothing of the
-// (B, N, 16, 256) pair tensor reaches device memory.
+// for each of the k = 16 slots of every query: 17 GFLOP per stage-1 call
+// at B = 8, N = M = 512, 34 GFLOP at 8192 queries. Design: the products
+// run on the tensor cores as 3xTF32 (corr_common.cuh: each float32 operand
+// split into TF32 hi and lo, three mma.sync m16n8k8 products; each k8
+// step's products added into the sum by a float32 add, so float32's
+// accuracy: see mma_ktile). A block holds the pair rows of 8
+// queries (128 rows) as the A operand in shared memory and computes all 256 output columns of every
+// layer, 8 warps of 64 rows x 64 columns (32 x 64), so each 256 KB weight
+// matrix is read from L2 once per 128 rows. The weights stream through
+// a cp.async ring of 16-row K-tiles that runs on across both layers (its
+// first tiles load while the block gathers its rows), and a layer's
+// output, bias and leaky ReLU applied in registers, is written back over
+// the activation tile as the next layer's A operand. The last layer's
+// epilogue stays in registers: an m16 tile is one query's 16 slots, so
+// the WeightNet x h slot sum is two rows in a lane and shuffles across
+// the tile's 8 row groups; nothing of the (B, N, 16, 256) pair tensor
+// reaches device memory. The gather, the layer-1 terms, the WeightNet
+// hidden layers and every operation outside the products run per pair
+// row on the CUDA cores. The 64-row shape (16 warps an SM, two blocks)
+// serves the stage without a pair MLP (default_block_rows).
 // The kNN selection costs 16 warp passes over the candidates per query:
 // the k-th pass takes the (distance, index) minimum strictly after the
 // (k-1)-th winner, which needs no per-query list in memory.
@@ -35,9 +44,8 @@
 // formulation for clouds above 4096 points: there the selection is the
 // tiled kNN of knn_tiled.cu. The TPU kernel is fed rows that XLA gathered
 // outside it; here the gather by index stays inside the kernel, so no
-// (N, 16, 259) table reaches device memory. At 8192 queries stage 1 is
-// 34.4 GFLOP of float32 on the CUDA cores: bound by operations. Row
-// offsets are 64-bit; N need not equal M.
+// (N, 16, 259) table reaches device memory. Row offsets are 64-bit; N
+// need not equal M.
 //
 // The same aggregate kernel is the forward of the train kernel B10
 // (replacing ratrack_tpu/ops/pallas_correlator_train.py::_fwd_kernel,
@@ -45,9 +53,8 @@
 // from the exact directions, h = leaky(feats_p[j] + add_q[i] + dir @
 // W_dir), and the activations entering each pair layer and leaving the
 // last are stashed (three (B*N*16, 256) float32 tensors, ~200 MB at the
-// main-path shape) for the backward in correlator_train.cu. Eval passes
-// no W_dir and no stash. The 256x256 layer lives in corr_common.cuh,
-// shared with the backward.
+// main-path shape) for the backward in correlator_train.cu, which uses
+// the same 3xTF32 products. Eval passes no W_dir and no stash.
 
 #include "corr_common.cuh"
 
@@ -126,61 +133,163 @@ struct TrainExtras {
   float* h[kMaxMlp + 1];
 };
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kAggThreads = 256;      // 8 warps: 2 (rows) x 4 (columns)
+constexpr int kWarpCols = kC / 4;     // output columns of a warp: 8 n-tiles
+constexpr int kWBK = 16;              // weight rows of a staged K-tile
+constexpr int kKTiles = kC / kWBK;    // K-tiles a layer
+constexpr int kLdH = kC + 4;          // activation row stride: an A fragment
+                                      // load hits 32 banks
+constexpr int kLdW = kC + 8;          // weight row stride: a B fragment too
+
+// The block shape by kMt, the m16 tiles of a warp's rows: 32 kMt pair rows
+// (2 kMt queries) a block. 128 rows take a 3-stage ring, one block an SM;
+// 64 rows a 2-stage ring, two blocks an SM.
+template <int kMt>
+struct Agg {
+  static constexpr int kRowsB = 32 * kMt;
+  static constexpr int kQB = kRowsB / kK;
+  static constexpr int kStages = kMt == 4 ? 3 : 2;
+  static constexpr int kMinBlocks = kMt == 4 ? 1 : 2;
+  static size_t smem(int n_mlp) {
+    return sizeof(float) * ((size_t)kRowsB * kLdH +
+                            (n_mlp > 0 ? kStages * kWBK * kLdW : 0) +
+                            kRowsB * kWnHidden + kRowsB * 4) +
+           sizeof(int) * kRowsB;
+  }
+};
+
+// acc (a warp's 16 kMt rows x 64 columns) += A B over one staged K-tile:
+// as, the warp's first activation row at the tile's first depth (stride
+// kLdH); bs, the staged weight rows at the warp's first column (stride
+// kLdW). Every A and B element is split into hi and lo as it is loaded.
+// The tensor cores add a product into their accumulator with truncation,
+// not rounding to nearest, so a 256-deep sum kept in the mma accumulator
+// drifts several times further from the exact one than float32 sums do
+// (enough to flip the sign of near-zero activations, whose leaky' the
+// backward takes from the stash); each k8 step's three products start
+// from zero and are added into the accumulator by a float32 add instead.
+template <int kMt>
+__device__ __forceinline__ void mma_ktile(float (&acc)[kMt][8][4],
+                                          const float* as, const float* bs,
+                                          int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kWBK; kk += 8) {
+    unsigned ah[kMt][4], al[kMt][4];
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split_tf32(as[(mt * 16 + g + (q & 1) * 8) * kLdH + kk + t + (q >> 1) * 4],
+                   ah[mt][q], al[mt][q]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      unsigned bh[2], bl[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        split_tf32(bs[(kk + t + q * 4) * kLdW + nt * 8 + g], bh[q], bl[q]);
+      // a k8 step's three products (the small terms first) from zero,
+      // then one float32 add into the accumulator, rounded to nearest
+      float d[kMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[mt][q] = 0.0f;
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], al[mt], bh);
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], ah[mt], bl);
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], ah[mt], bh);
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[mt][nt][q] = __fadd_rn(acc[mt][nt][q], d[mt][q]);
+    }
+  }
+}
+
+template <int kMt>
+__global__ void __launch_bounds__(kAggThreads, Agg<kMt>::kMinBlocks)
 aggregate_kernel(const float* __restrict__ query,
                  const float* __restrict__ points, const int* __restrict__ idx,
                  int nb, int n, int m, const float* __restrict__ feats_p,
                  const float* __restrict__ add_q, Mlp mlp, WeightNet wn,
                  TrainExtras tx, float* __restrict__ out) {
+  constexpr int kRowsB = Agg<kMt>::kRowsB, kQB = Agg<kMt>::kQB;
+  constexpr int kStages = Agg<kMt>::kStages;
   extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);   // (kRows, kC)
-  float* wt = hs + kRows * kC;                   // (kKT, kC)
-  float* gs = wt + kKT * kC;                     // (kRows, kWnHidden)
-  float* ds = gs + kRows * kWnHidden;            // (kRows, 4) directions
-  int* sj = reinterpret_cast<int*>(ds + kRows * 4);
-  const float4* hs4 = reinterpret_cast<const float4*>(hs);
+  float* hs = reinterpret_cast<float*>(smem4);       // (kRowsB, kLdH)
+  float* ring = hs + kRowsB * kLdH;                  // kStages x (kWBK, kLdW)
+  float* gs = ring + (mlp.n > 0 ? kStages * kWBK * kLdW : 0);  // (kRowsB, 8)
+  float* ds = gs + kRowsB * kWnHidden;               // (kRowsB, 4) directions
+  int* sj = reinterpret_cast<int*>(ds + kRowsB * 4);
 
-  const int tid = threadIdx.x;
-  const long long q0 = (long long)blockIdx.x * kQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 16 * kMt;   // the warp's first pair row
+  const int wc = (warp & 3) * kWarpCols;   // and first output column
+  const long long q0 = (long long)blockIdx.x * kQB;
   const long long total = (long long)nb * n;
+  const int ntiles = mlp.n * kKTiles;
+
+  // weight K-tile T: kWBK rows of W_{T / kKTiles + 1} from row (T %
+  // kKTiles) * kWBK, 1,024 float4, 4 a thread
+  auto load_w = [&](int T) {
+    float* ws = ring + (T % kStages) * kWBK * kLdW;
+    const float* w = (T < kKTiles ? mlp.w[0] : mlp.w[1]) +
+                     (size_t)(T % kKTiles) * kWBK * kC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + i * kAggThreads, r = e >> 6, c4 = (e & 63) * 4;
+      cp16(ws + r * kLdW + c4, w + r * kC + c4, true);
+    }
+  };
+  // the ring's first tiles load while the block gathers its rows
+#pragma unroll
+  for (int T = 0; T < kStages - 1; ++T) {
+    if (T < ntiles) load_w(T);
+    cp_commit();
+  }
 
   // neighbour ids, directions and the WeightNet hidden layers, one pair
   // row a thread
-  if (tid < kRows) {
-    const long long g = q0 + tid / kK;
+  if (tid < kRowsB) {
+    const long long gq = q0 + tid / kK;
     float d[3] = {0.0f, 0.0f, 0.0f};
     float h1[kWnHidden], h2[kWnHidden];
 #pragma unroll
     for (int o = 0; o < kWnHidden; ++o) h2[o] = 0.0f;
     int j = 0;
-    if (g < total) {
-      const int bi = (int)(g / n);
-      j = idx[(size_t)g * kK + tid % kK];
-      const float* q = query + (size_t)g * 3;
+    if (gq < total) {
+      const int bi = (int)(gq / n);
+      j = idx[(size_t)gq * kK + tid % kK];
+      const float* q = query + (size_t)gq * 3;
       const float* p = points + ((size_t)bi * m + j) * 3;
       d[0] = p[0] - q[0];
       d[1] = p[1] - q[1];
       d[2] = p[2] - q[2];
-      ratrack::corr::weightnet_hidden(d, wn.w0, wn.b0, wn.w1, wn.b1, h1, h2);
+      weightnet_hidden(d, wn.w0, wn.b0, wn.w1, wn.b1, h1, h2);
     }
     sj[tid] = j;
 #pragma unroll
     for (int o = 0; o < kWnHidden; ++o) gs[tid * kWnHidden + o] = h2[o];
 #pragma unroll
-    for (int t = 0; t < 3; ++t) ds[tid * 4 + t] = d[t];
+    for (int i = 0; i < 3; ++i) ds[tid * 4 + i] = d[i];
   }
   __syncthreads();
 
   // gathered pair rows: stage 1 finishes the factorised layer 1
-  for (int e = tid; e < kRows * (kC / 4); e += kThreads) {
+#pragma unroll 4
+  for (int e = tid; e < kRowsB * (kC / 4); e += kAggThreads) {
     const int r = e / (kC / 4), c4 = e % (kC / 4);
-    const long long g = q0 + r / kK;
+    const long long gq = q0 + r / kK;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (g < total) {
-      const int bi = (int)(g / n);
+    if (gq < total) {
+      const int bi = (int)(gq / n);
       v = reinterpret_cast<const float4*>(feats_p + ((size_t)bi * m + sj[r]) * kC)[c4];
       if (add_q != nullptr) {
-        const float4 a = reinterpret_cast<const float4*>(add_q + (size_t)g * kC)[c4];
+        const float4 a = reinterpret_cast<const float4*>(add_q + (size_t)gq * kC)[c4];
         v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
         if (tx.w_dir != nullptr) {
           const float d0 = ds[r * 4], d1 = ds[r * 4 + 1], d2 = ds[r * 4 + 2];
@@ -195,109 +304,185 @@ aggregate_kernel(const float* __restrict__ query,
         v = make_float4(leaky(v.x), leaky(v.y), leaky(v.z), leaky(v.w));
       }
       if (tx.h[0] != nullptr)
-        reinterpret_cast<float4*>(tx.h[0] + ((size_t)g * kK + r % kK) * kC)[c4] = v;
+        reinterpret_cast<float4*>(tx.h[0] + ((size_t)gq * kK + r % kK) * kC)[c4] = v;
     }
-    reinterpret_cast<float4*>(hs)[e] = v;
+    reinterpret_cast<float4*>(hs + r * kLdH)[c4] = v;
   }
   __syncthreads();
 
-  const int qq = tid / (kC / 4);        // local query
-  const int col4 = tid % (kC / 4);      // owns channels 4*col4 .. 4*col4+3
-  const long long g = q0 + qq;
-  float acc[kK][4];
+  // the pair layers; accumulator (mt, nt) holds rows wm + 16 mt + g (+ 8)
+  // and columns wc + 8 nt + 2 t (+ 1), of query q0 + wm / 16 + mt
+  float acc[kMt][8][4];
   for (int l = 0; l < mlp.n; ++l) {
-    ratrack::corr::tile_layer(mlp.w[l], hs4, wt, acc, tid, qq, col4);
-    const float4 b = reinterpret_cast<const float4*>(mlp.b[l])[col4];
 #pragma unroll
-    for (int s = 0; s < kK; ++s) {
-      acc[s][0] = leaky(acc[s][0] + b.x);
-      acc[s][1] = leaky(acc[s][1] + b.y);
-      acc[s][2] = leaky(acc[s][2] + b.z);
-      acc[s][3] = leaky(acc[s][3] + b.w);
-    }
-    float* stash = tx.h[l + 1];
-    if (stash != nullptr && g < total) {
+    for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-      for (int s = 0; s < kK; ++s)
-        reinterpret_cast<float4*>(stash + ((size_t)g * kK + s) * kC)[col4] =
-            make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
+    for (int kt = 0; kt < kKTiles; ++kt) {
+      const int T = l * kKTiles + kt;
+      cp_wait<kStages - 2>();
+      __syncthreads();   // K-tile T has landed; T - 1 is consumed
+      if (T + kStages - 1 < ntiles) load_w(T + kStages - 1);
+      cp_commit();
+      mma_ktile<kMt>(acc, hs + wm * kLdH + kt * kWBK,
+                     ring + (T % kStages) * kWBK * kLdW + wc, g, t);
     }
-    if (l + 1 < mlp.n) {   // next layer reads this one's output
+    const float* bias = l == 0 ? mlp.b[0] : mlp.b[1];
+    float* stash = l == 0 ? tx.h[1] : tx.h[2];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + wc + nt * 8 + 2 * t);
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        acc[mt][nt][0] = leaky(acc[mt][nt][0] + b.x);
+        acc[mt][nt][1] = leaky(acc[mt][nt][1] + b.y);
+        acc[mt][nt][2] = leaky(acc[mt][nt][2] + b.x);
+        acc[mt][nt][3] = leaky(acc[mt][nt][3] + b.y);
+      }
+    }
+    if (stash != nullptr) {
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        const long long gq = q0 + wm / kK + mt;
+        if (gq >= total) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* row = stash + ((size_t)gq * kK + g + 8 * h) * kC + wc + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            *reinterpret_cast<float2*>(row + nt * 8) =
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      }
+    }
+    if (l + 1 < mlp.n) {   // the next layer's A operand, over this one's
       __syncthreads();
 #pragma unroll
-      for (int s = 0; s < kK; ++s)
-        reinterpret_cast<float4*>(hs)[(qq * kK + s) * (kC / 4) + col4] =
-            make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            *reinterpret_cast<float2*>(
+                hs + (wm + mt * 16 + g + 8 * h) * kLdH + wc + nt * 8 + 2 * t) =
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       __syncthreads();
     }
   }
   if (mlp.n == 0) {
 #pragma unroll
-    for (int s = 0; s < kK; ++s) {
-      const float4 h = hs4[(qq * kK + s) * (kC / 4) + col4];
-      acc[s][0] = h.x;
-      acc[s][1] = h.y;
-      acc[s][2] = h.z;
-      acc[s][3] = h.w;
-    }
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              hs + (wm + mt * 16 + g + 8 * h) * kLdH + wc + nt * 8 + 2 * t);
+          acc[mt][nt][2 * h] = v.x;
+          acc[mt][nt][2 * h + 1] = v.y;
+        }
   }
 
-  // epilogue: WeightNet output layer x pair features, summed over slots
-  if (g >= total) return;
-  float res[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float4 bo = reinterpret_cast<const float4*>(wn.b2)[col4];
-  const float bov[4] = {bo.x, bo.y, bo.z, bo.w};
-  float4 wo[kWnHidden];
+  // epilogue: WeightNet output layer x pair features, summed over a
+  // query's slots: rows g and g + 8 in the lane, then the 8 row groups by
+  // shuffles; lanes 0-3 write the query's columns
 #pragma unroll
-  for (int t = 0; t < kWnHidden; ++t)
-    wo[t] = reinterpret_cast<const float4*>(wn.w2 + (size_t)t * kC)[col4];
+  for (int mt = 0; mt < kMt; ++mt) {
+    const long long gq = q0 + wm / kK + mt;
+    float gr[2][kWnHidden];
 #pragma unroll
-  for (int s = 0; s < kK; ++s) {
-    const float* gr = gs + (qq * kK + s) * kWnHidden;
-    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int t = 0; t < kWnHidden; ++t) {
-      const float gv = gr[t];
-      a[0] = fmaf(gv, wo[t].x, a[0]);
-      a[1] = fmaf(gv, wo[t].y, a[1]);
-      a[2] = fmaf(gv, wo[t].z, a[2]);
-      a[3] = fmaf(gv, wo[t].w, a[3]);
+      for (int u = 0; u < kWnHidden; ++u)
+        gr[h][u] = gs[(wm + mt * 16 + g + 8 * h) * kWnHidden + u];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = wc + nt * 8 + 2 * t;
+      const float2 bo = *reinterpret_cast<const float2*>(wn.b2 + c);
+      float a[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+      for (int u = 0; u < kWnHidden; ++u) {
+        const float2 wo = *reinterpret_cast<const float2*>(wn.w2 + u * kC + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          a[h][0] = fmaf(gr[h][u], wo.x, a[h][0]);
+          a[h][1] = fmaf(gr[h][u], wo.y, a[h][1]);
+        }
+      }
+      float s0 = fmaxf(a[0][0] + bo.x, 0.0f) * acc[mt][nt][0];
+      float s1 = fmaxf(a[0][1] + bo.y, 0.0f) * acc[mt][nt][1];
+      s0 = fmaf(fmaxf(a[1][0] + bo.x, 0.0f), acc[mt][nt][2], s0);
+      s1 = fmaf(fmaxf(a[1][1] + bo.y, 0.0f), acc[mt][nt][3], s1);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(ratrack::kFullMask, s0, off);
+        s1 += __shfl_xor_sync(ratrack::kFullMask, s1, off);
+      }
+      if (g == 0 && gq < total)
+        *reinterpret_cast<float2*>(out + (size_t)gq * kC + c) = make_float2(s0, s1);
     }
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
-      res[cc] = fmaf(fmaxf(a[cc] + bov[cc], 0.0f), acc[s][cc], res[cc]);
   }
-  reinterpret_cast<float4*>(out + (size_t)g * kC)[col4] =
-      make_float4(res[0], res[1], res[2], res[3]);
 }
 
+struct AggArgs {
+  const float* query;
+  const float* points;
+  const int* idx;
+  int nb, n, m;
+  const float* feats_p;
+  const float* add_q;
+  Mlp mlp;
+  WeightNet wn;
+  TrainExtras tx;
+  float* out;
+};
+
+template <int kMt>
+int launch_shape(const AggArgs& a, cudaStream_t st) {
+  const size_t smem = Agg<kMt>::smem(a.mlp.n);
+  const cudaError_t err = cudaFuncSetAttribute(
+      aggregate_kernel<kMt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)a.nb * a.n;
+  const int grid = (int)((total + Agg<kMt>::kQB - 1) / Agg<kMt>::kQB);
+  aggregate_kernel<kMt><<<grid, kAggThreads, smem, st>>>(
+      a.query, a.points, a.idx, a.nb, a.n, a.m, a.feats_p, a.add_q, a.mlp,
+      a.wn, a.tx, a.out);
+  return (int)cudaGetLastError();
+}
+
+// Pair rows a block by stage, read off kernels/tune.py --apply (NVIDIA
+// H100 80GB HBM3, 700 W): with the pair MLP 128 (0.807 ms at 8192 queries,
+// 0.412 at 4096) against 64 (0.850, 0.432); without it 64 (0.097, 0.053)
+// against 128 (0.136, 0.079), two blocks an SM hiding each other's gather.
+int default_block_rows(int n_mlp) { return n_mlp > 0 ? 128 : 64; }
+
+// block_rows: 64 or 128 pair rows a block, or 0 for default_block_rows.
 int launch_aggregate(const float* query, const float* points, const int* idx,
                      int nb, int n, int m, const float* feats_p,
                      const float* add_q, const float* const* mlp_w,
                      const float* const* mlp_b, int n_mlp, const float* wn_w0,
                      const float* wn_b0, const float* wn_w1, const float* wn_b1,
                      const float* wn_w2, const float* wn_b2,
-                     const TrainExtras& tx, float* out, void* stream) {
+                     const TrainExtras& tx, int block_rows, float* out,
+                     void* stream) {
   if (nb < 1 || n < 1 || m < 1 || n_mlp < 0 || n_mlp > kMaxMlp)
     return (int)cudaErrorInvalidValue;
-  Mlp mlp;
-  mlp.n = n_mlp;
+  AggArgs a = {query, points, idx, nb, n, m, feats_p, add_q, {}, {}, tx, out};
+  a.mlp.n = n_mlp;
   for (int l = 0; l < kMaxMlp; ++l) {
-    mlp.w[l] = l < n_mlp ? mlp_w[l] : nullptr;
-    mlp.b[l] = l < n_mlp ? mlp_b[l] : nullptr;
+    a.mlp.w[l] = l < n_mlp ? mlp_w[l] : nullptr;
+    a.mlp.b[l] = l < n_mlp ? mlp_b[l] : nullptr;
   }
-  const WeightNet wn = {wn_w0, wn_b0, wn_w1, wn_b1, wn_w2, wn_b2};
-  const size_t smem = sizeof(float) * (kRows * kC + kKT * kC + kRows * kWnHidden +
-                                       kRows * 4) +
-                      sizeof(int) * kRows;
-  cudaError_t err = cudaFuncSetAttribute(
-      aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)nb * n;
-  const int grid = (int)((total + kQ - 1) / kQ);
-  aggregate_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      query, points, idx, nb, n, m, feats_p, add_q, mlp, wn, tx, out);
-  return (int)cudaGetLastError();
+  a.wn = {wn_w0, wn_b0, wn_w1, wn_b1, wn_w2, wn_b2};
+  if (block_rows == 0) block_rows = default_block_rows(n_mlp);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (block_rows == 128) return launch_shape<4>(a, st);
+  if (block_rows == 64) return launch_shape<2>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -325,7 +510,7 @@ extern "C" int ratrack_corr_aggregate(
   const TrainExtras none = {nullptr, {nullptr, nullptr, nullptr}};
   return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
                           mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
-                          wn_b2, none, out, stream);
+                          wn_b2, none, 0, out, stream);
 }
 
 // Kernel B4: one stage over the caller's neighbour indices idx (B, N, 16),
@@ -340,6 +525,21 @@ extern "C" int ratrack_corr_apply(
   return ratrack_corr_aggregate(query, points, idx, nb, n, m, feats_p, add_q,
                                 mlp_w, mlp_b, n_mlp, wn_w0, wn_b0, wn_w1,
                                 wn_b1, wn_w2, wn_b2, out, stream);
+}
+
+// B4 with its block shape forced: block_rows = 64 or 128 pair rows a
+// block (0: the default), for measuring the shapes against each other.
+extern "C" int ratrack_corr_apply_rows(
+    const float* query, const float* points, const int* idx, int nb, int n,
+    int m, const float* feats_p, const float* add_q,
+    const float* const* mlp_w, const float* const* mlp_b, int n_mlp,
+    const float* wn_w0, const float* wn_b0, const float* wn_w1,
+    const float* wn_b1, const float* wn_w2, const float* wn_b2,
+    int block_rows, float* out, void* stream) {
+  const TrainExtras none = {nullptr, {nullptr, nullptr, nullptr}};
+  return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
+                          mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
+                          wn_b2, none, block_rows, out, stream);
 }
 
 // Train forward of one stage (kernel B10, with correlator_train.cu): the
@@ -357,5 +557,5 @@ extern "C" int ratrack_corr_train_fwd(
   for (int l = 0; l <= n_mlp; ++l) tx.h[l] = stash[l];
   return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
                           mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
-                          wn_b2, tx, out, stream);
+                          wn_b2, tx, 0, out, stream);
 }

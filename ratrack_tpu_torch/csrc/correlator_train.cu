@@ -272,42 +272,6 @@ constexpr int kStageFloats = 2 * kBM * kLdM;   // both operands, >= 2 * kBK * kL
 constexpr size_t kMmaSmem = sizeof(float) * kStages * kStageFloats;
 static_assert(kBM == kBN && kBK * kLdK <= kBM * kLdM, "stage layout");
 
-__device__ __forceinline__ unsigned tf32_of(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (lo: the rounding remainder, exact in float32).
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = tf32_of(x);
-  lo = tf32_of(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !valid.
-__device__ __forceinline__ void cp16(float* dst, const float* src,
-                                     bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-}
-
 // What one launch of pair_layer_kernel computes for pair layer l.
 struct LayerArgs {
   const float* h;        // (rows, kC) h_{l-1}: dW's left operand
@@ -436,7 +400,7 @@ pair_layer_kernel(LayerArgs a) {
     cp_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_wait_ring();
+    cp_wait<kStages - 2>();
     __syncthreads();   // stage kt has landed; stage kt - 1 is consumed
     if (kt + kStages - 1 < nk) load(kt + kStages - 1);
     cp_commit();

@@ -50,9 +50,12 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P],
     "ratrack_corr_apply": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P],
+    "ratrack_corr_apply_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                                _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "ratrack_knn_tiled": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ratrack_fps": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "ratrack_sinkhorn": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "ratrack_sinkhorn_variant": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "ratrack_sa_train_fwd": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "ratrack_sa_train_bwd": [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P],
     "ratrack_sa_train_fwd_clusters": [_I, _I],

@@ -216,6 +216,21 @@ def apply_case(stage: int, pc1, mask1, pc2, mask2, gen: torch.Generator):
     return kw
 
 
+def apply_products(kw: dict, idx):
+    """The two pair-layer products of one stage-1 call of the aggregate
+    kernel (B4, B3's aggregate launch, B10's forward: h_1 = h_0 W_1 and
+    h_2 = h_1 W_2 over the B N 16 pair rows) as torch.matmul, a callable
+    for timing beside the kernel: a yardstick, used nowhere in the port.
+    h_0 is the gathered rows feats_p[idx] + add_q; the outputs are written
+    into tensors allocated here."""
+    b, n = kw["query"].shape[:2]
+    h0 = (gather(kw["feats_p"], idx.long().reshape(b, -1)).reshape(
+        b, n, -1, CORR_C) + kw["add_q"].unsqueeze(2)).reshape(-1, CORR_C)
+    h1, h2 = torch.empty_like(h0), torch.empty_like(h0)
+    w1, w2 = kw["mlp_ws"]
+    return lambda: (torch.matmul(h0, w1, out=h1), torch.matmul(h1, w2, out=h2))
+
+
 def fps_case(pc, mask, npoint: int = 512):
     """Arguments of ops.sampling.furthest_point_sample."""
     return dict(xyz=pc.contiguous(), npoint=npoint, mask=mask)

@@ -1,7 +1,9 @@
 """Time the launch shapes of kernel B6, the forward and backward of kernels
-B9 / B8 and the backward of kernel B10 on the card.
+B9 / B8, the backward of kernel B10, the aggregate kernel (B4, B3, B10's
+forward) and kernel B7 on the card.
 
     python3 -m ratrack_tpu_torch.kernels.tune [--fps] [--sa] [--corr]
+                                              [--apply] [--sinkhorn]
 
 B6 (`csrc/fps.cu`) takes its launch shape (threads a block, blocks a
 stream: one block, or a thread-block cluster) from a table by N; this
@@ -11,9 +13,19 @@ loop, so that the table can be read off its output. For B9 / B8 (--sa) it
 prints the backward's and the forward's time per level config, and the
 forward at the train stretch shapes. For B10 (--corr) the backward per
 stage with the time of each of its kernels (torch.profiler) beside its
-four pair-layer products as torch.matmul. One JSON line per measurement,
-the card's name and power limit first. Times are medians of 20 CUDA-event
-runs after 3 warm-up runs.
+four pair-layer products as torch.matmul. For the aggregate kernel
+(--apply) B4 per stage at 8192 points, B3 (its kNN and aggregate
+launches) and B10's forward per stage at 8 streams x 512 points, each with
+its kernels' times (torch.profiler) and the aggregate launch at 64 and 128
+pair rows a block (the table of csrc/correlator.cu::default_block_rows was
+read off it), and for stage 1 its two pair-layer products as torch.matmul
+(products_torch_ms). For B7 (--sinkhorn) 8 streams x 33 x 33 at 0 and 500
+iterations, its own shape and every variant (lanes a row; exp(c + v) a
+term, exp(c) once times exp(v), and the skeleton without exp or log, the
+latency floor of the launch shape), with the cost of one half-step: the
+difference of the two times over 1,000 half-steps. One JSON line per
+measurement, the card's name and power limit first. Times are medians of
+20 CUDA-event runs after 3 warm-up runs.
 """
 
 from __future__ import annotations
@@ -25,7 +37,8 @@ import subprocess
 
 import torch
 
-from ..ops import fused_correlator_train, fused_sa_train, sampling
+from ..ops import (fused_correlator, fused_correlator_train, fused_sa_train,
+                   fused_sinkhorn, sampling)
 from . import build, cases
 
 NPOINT = 512
@@ -195,13 +208,85 @@ def time_corr_backward(emit=print, streams: int = 8, seed: int = 0):
         emit(json.dumps(line))
 
 
+def time_apply(emit=print, streams: int = 8, seed: int = 0):
+    """The aggregate kernel: B4 per stage at 8192 points (one stream), B3
+    and B10's forward per stage at `streams` x 512 points; ms a call, the
+    kernels' times, the aggregate launch at each block shape (B3's through
+    B4's entry on B3's indices) and, for stage 1, the two pair-layer
+    products as torch.matmul (float32, TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+
+    def shapes(kw, idx):
+        return {rows: device_ms(lambda: fused_correlator.knn_gather_apply(
+            idx, **kw, block_rows=rows)) for rows in (64, 128)}
+
+    def line(kernel, config, fn, kw, idx):
+        out = dict(kernel=kernel, config=config, ms=device_ms(fn),
+                   kernels_ms=kernel_breakdown(fn))
+        if kernel != "knn_weight_aggregate_train_fwd":
+            out["block_rows_ms"] = shapes(kw, idx)
+        if kw["mlp_ws"]:
+            out["products_torch_ms"] = device_ms(cases.apply_products(kw,
+                                                                      idx))
+        emit(json.dumps(out))
+
+    pc1, m1, pc2, m2 = cases.stretch_clouds(seed, 8192)
+    for stage in (1, 2):
+        kw = cases.to_device(cases.apply_case(stage, pc1, m1, pc2, m2, gen),
+                             dev)
+        idx = kw.pop("idx")
+        line("knn_gather_apply", f"8192.stage{stage}",
+             lambda: fused_correlator.knn_gather_apply(idx, **kw), kw, idx)
+    pc1, m1, pc2, m2 = cases.clouds(seed, streams, 512)
+    for stage in (1, 2):
+        kw = cases.to_device(cases.corr_train_case(stage, pc1, m1, pc2, m2,
+                                                   gen), dev)
+        w_dir, mask = kw.pop("w_dir"), kw.pop("mask_p")
+        _, idx = fused_correlator.fused_knn_weight_aggregate(
+            **kw, mask_p=mask, return_indices=True)
+        line("knn_weight_aggregate", f"{streams}x512.stage{stage}",
+             lambda: fused_correlator.fused_knn_weight_aggregate(
+                 **kw, mask_p=mask), kw, idx)
+        with torch.no_grad():
+            line("knn_weight_aggregate_train_fwd",
+                 f"{streams}x512.stage{stage}",
+                 lambda: fused_correlator_train.
+                 fused_knn_weight_aggregate_train(**kw, mask_p=mask,
+                                                  w_dir=w_dir), kw, idx)
+
+
+def time_sinkhorn(emit=print, streams: int = 8, seed: int = 0):
+    """B7 at `streams` x 33 x 33, its own shape and every variant, at 0 and
+    500 iterations: ms a call and us a half-step."""
+    kw, _ = cases.sinkhorn_case(seed, streams, 32, 500)
+    kw = cases.to_device(kw, torch.device("cuda"))
+    variants = [(None, None)] + [(lanes, mode)
+                                 for lanes in fused_sinkhorn.KERNEL_LANES
+                                 for mode in fused_sinkhorn.KERNEL_MODES]
+    for lanes, mode in variants:
+        ms = {iters: device_ms(lambda: fused_sinkhorn.sinkhorn_uv(
+            **dict(kw, iters=iters), lanes=lanes, mode=mode))
+            for iters in (0, 500)}
+        emit(json.dumps(dict(
+            kernel="sinkhorn_uv", lanes=lanes, mode=mode, ms_iters_0=ms[0],
+            ms_iters_500=ms[500],
+            us_per_half_step=(ms[500] - ms[0]) / 1000 * 1000)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fps", action="store_true", help="only kernel B6")
     ap.add_argument("--sa", action="store_true", help="only kernels B9 / B8")
-    ap.add_argument("--corr", action="store_true", help="only kernel B10")
+    ap.add_argument("--corr", action="store_true",
+                    help="only kernel B10's backward")
+    ap.add_argument("--apply", action="store_true",
+                    help="only the aggregate kernel (B4, B3, B10's forward)")
+    ap.add_argument("--sinkhorn", action="store_true", help="only kernel B7")
     args = ap.parse_args()
-    every = not (args.fps or args.sa or args.corr)
+    every = not (args.fps or args.sa or args.corr or args.apply
+                 or args.sinkhorn)
     if not torch.cuda.is_available():
         raise SystemExit("tune: no CUDA device")
     print(subprocess.run(
@@ -215,6 +300,10 @@ def main() -> None:
         time_sa_forward()
     if args.corr or every:
         time_corr_backward()
+    if args.apply or every:
+        time_apply()
+    if args.sinkhorn or every:
+        time_sinkhorn()
 
 
 if __name__ == "__main__":

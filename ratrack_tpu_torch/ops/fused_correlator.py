@@ -134,11 +134,14 @@ fused_knn_weight_aggregate.launches = 0
 
 
 def knn_gather_apply(idx, query, points, feats_p, add_q, mlp_ws, mlp_bs,
-                     wn_ws, wn_bs, *, k: int = KERNEL_K):
+                     wn_ws, wn_bs, *, k: int = KERNEL_K,
+                     block_rows: int | None = None):
     """Kernel B4: one correlator stage over precomputed neighbour indices
     idx (B, N, k) into the (B, M, ...) candidates (fallback-padded, from
     `ops.fused_knn.knn_indices_tiled`) -> (B, N, C_out). N need not equal
-    M."""
+    M. block_rows: by default the kernel picks its block shape by stage;
+    64 or 128 pair rows a block forces one, for measuring the shapes
+    against each other."""
     if not query.is_cuda:
         return knn_gather_apply_reference(idx, query, points, feats_p, add_q,
                                           mlp_ws, mlp_bs, wn_ws, wn_bs)
@@ -149,15 +152,22 @@ def knn_gather_apply(idx, query, points, feats_p, add_q, mlp_ws, mlp_bs,
     if idx.device != dev or tuple(idx.shape) != (b, n, k):
         raise ValueError(f"idx: shape {tuple(idx.shape)} on {idx.device}, "
                          f"expected {(b, n, k)} on {dev}")
+    if block_rows not in (None, 64, 128):
+        raise ValueError(f"block_rows: 64 or 128, got {block_rows}")
     idx = idx.to(torch.int32).contiguous()
     out = torch.empty((b, n, KERNEL_C), device=dev, dtype=torch.float32)
     wn = [kb.ptr(t) for pair in zip(wn_ws, wn_bs) for t in pair]
-    with torch.cuda.device(dev):
-        code = kb.load().ratrack_corr_apply(
-            kb.ptr(query), kb.ptr(points), kb.ptr(idx), b, n, m,
+    lib = kb.load()
+    args = (kb.ptr(query), kb.ptr(points), kb.ptr(idx), b, n, m,
             kb.ptr(feats_p), kb.ptr(add_q), kb.ptr_array(list(mlp_ws)),
-            kb.ptr_array(list(mlp_bs)), len(mlp_ws), *wn, kb.ptr(out),
-            kb.stream_of(query))
+            kb.ptr_array(list(mlp_bs)), len(mlp_ws), *wn)
+    with torch.cuda.device(dev):
+        if block_rows is None:
+            code = lib.ratrack_corr_apply(*args, kb.ptr(out),
+                                          kb.stream_of(query))
+        else:
+            code = lib.ratrack_corr_apply_rows(*args, block_rows, kb.ptr(out),
+                                               kb.stream_of(query))
     kb.check(code, "corr_apply")
     knn_gather_apply.launches += 1
     return out

@@ -12,8 +12,9 @@ Both run `iters` iterations of the bounded log-sum-exp updates from
 u = v = 0:
   u = log_mu - log(max(sum_j exp(c + v), 1e-30))
   v = log_nu - log(max(sum_i exp(c + u), 1e-30))   (with the new u)
-The kernel sums in another order than torch, so u and v differ in the last
-bits per iteration. Primal only, as the JAX kernel: nothing differentiates
+The kernel sums in another order than torch, and by default as exp(c) *
+exp(v) (exp(c) taken once), so u and v differ in the last bits per
+iteration. Primal only, as the JAX kernel: nothing differentiates
 through the coupling, and the wrapper raises on an input that requires
 grad.
 """
@@ -24,7 +25,11 @@ import torch
 
 from ..kernels import build as kb
 
-KERNEL_MAX_K1 = 128   # csrc/sinkhorn.cu: one thread a row
+KERNEL_MAX_K1 = 128   # csrc/sinkhorn.cu: one block, 8 lanes a row
+# csrc/sinkhorn.cu's variants: lanes a row (K1 * lanes <= 1024), and how a
+# term is summed
+KERNEL_LANES = (4, 8, 16)
+KERNEL_MODES = {"exp": 0, "factored": 1, "skeleton": 2}
 
 
 def _lse_bounded(a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -45,13 +50,28 @@ def sinkhorn_uv_reference(c, log_mu, log_nu, iters: int):
     return u, v
 
 
-def sinkhorn_uv(c, log_mu, log_nu, iters: int):
+def sinkhorn_uv(c, log_mu, log_nu, iters: int, *, lanes: int | None = None,
+                mode: str | None = None):
     """Kernel B7: the potentials (u, v), each (B, K1), of `iters` Sinkhorn
-    iterations on c (B, K1, K1) with log-marginals log_mu, log_nu (B, K1)."""
+    iterations on c (B, K1, K1) with log-marginals log_mu, log_nu (B, K1).
+
+    lanes / mode force one of the kernel's variants, for measuring them
+    against each other: lanes a row (KERNEL_LANES) and "exp" (exp(c + v) a
+    term), "factored" (exp(c) once, times exp(v)) or "skeleton" (no exp or
+    log: the latency floor of the launch shape; its u and v are not the
+    potentials). By default the kernel's own choice."""
     if c.requires_grad or log_mu.requires_grad or log_nu.requires_grad:
         raise RuntimeError("sinkhorn_uv is primal only: detach its inputs "
                            "(nothing differentiates through the coupling)")
+    if (lanes is None) != (mode is None):
+        raise ValueError("lanes and mode force a variant together")
+    if lanes is not None and (lanes not in KERNEL_LANES
+                              or mode not in KERNEL_MODES):
+        raise ValueError(f"lanes in {KERNEL_LANES} and mode in "
+                         f"{tuple(KERNEL_MODES)}; got {lanes}, {mode}")
     if not c.is_cuda:
+        if mode == "skeleton":
+            raise ValueError("the skeleton variant is a timing of the card")
         return sinkhorn_uv_reference(c, log_mu, log_nu, iters)
     dev = c.device
     b, k1 = log_mu.shape
@@ -61,12 +81,21 @@ def sinkhorn_uv(c, log_mu, log_nu, iters: int):
     if not (1 <= k1 <= KERNEL_MAX_K1 and iters >= 0):
         raise ValueError(f"the kernel takes K + 1 <= {KERNEL_MAX_K1} and "
                          f"iters >= 0; got {k1}, {iters}")
+    if lanes is not None and k1 * lanes > 1024:
+        raise ValueError(f"{lanes} lanes a row take K + 1 <= {1024 // lanes}; "
+                         f"got {k1}")
     u = torch.empty_like(log_mu)
     v = torch.empty_like(log_nu)
+    lib = kb.load()
+    args = (kb.ptr(c), kb.ptr(log_mu), kb.ptr(log_nu), b, k1, iters)
     with torch.cuda.device(dev):
-        code = kb.load().ratrack_sinkhorn(
-            kb.ptr(c), kb.ptr(log_mu), kb.ptr(log_nu), b, k1, iters,
-            kb.ptr(u), kb.ptr(v), kb.stream_of(c))
+        if lanes is None:
+            code = lib.ratrack_sinkhorn(*args, kb.ptr(u), kb.ptr(v),
+                                        kb.stream_of(c))
+        else:
+            code = lib.ratrack_sinkhorn_variant(
+                *args, lanes, KERNEL_MODES[mode], kb.ptr(u), kb.ptr(v),
+                kb.stream_of(c))
     kb.check(code, "sinkhorn")
     sinkhorn_uv.launches += 1
     return u, v

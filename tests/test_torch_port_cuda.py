@@ -878,6 +878,160 @@ def test_scale_wrappers_raise_on_what_the_kernels_do_not_take(device):
             nsample_a=8, nsample_b=16)
 
 
+# ---- the aggregate kernel on the tensor cores (B4, B3, B10 forward) and B7
+# with a group of lanes a row -------------------------------------------------
+
+def _agg_case(stage, streams, n, seed):
+    """Stage-1 (n queries into n + 17 candidates, a fifth of them masked
+    out) or stage-2 (the queries in themselves) train-case arguments on
+    random clouds: query counts that fill no block of 4 or 8 queries."""
+    gen = _gen(seed)
+    q = 3.0 * torch.randn((streams, n, 3), generator=gen)
+    p = 3.0 * torch.randn((streams, n + 17, 3), generator=gen)
+    pm = torch.rand((streams, n + 17), generator=gen) > 0.2
+    qm = torch.ones((streams, n), dtype=torch.bool)
+    kw = cases.corr_train_case(stage, q, qm, p, pm, gen)
+    if stage == 1:      # feats_p must match the candidates, not the queries
+        kw["feats_p"] = torch.randn((streams, n + 17, 256), generator=gen)
+    return kw
+
+
+def _plain_stash(kw, idx):
+    """The activations the B10 forward stashes, by the plain version's
+    operations: h_0 = leaky(feats_p[j] + add_q + dir @ W_dir), then each
+    pair layer's output, each (B, N, 16, 256)."""
+    import torch.nn.functional as F
+    from ratrack_tpu_torch.ops.grouping import group
+    idx = idx.long()
+    dirs = group(kw["points"], idx) - kw["query"].unsqueeze(2)
+    h = F.leaky_relu(group(kw["feats_p"], idx) + kw["add_q"].unsqueeze(2)
+                     + dirs @ kw["w_dir"], 0.1)
+    out = [h]
+    for w, b in zip(kw["mlp_ws"], kw["mlp_bs"]):
+        out.append(F.leaky_relu(out[-1] @ w + b, 0.1))
+    return out
+
+
+@pytest.mark.parametrize("entry", ["apply", "aggregate", "train_fwd"])
+@pytest.mark.parametrize("streams", [1, 3])
+@pytest.mark.parametrize("n", [33, 300, 1000])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_aggregate_kernel_at_ragged_query_counts(device, entry, streams, n,
+                                                 stage):
+    """The shared aggregate kernel through its three entries at query
+    counts that fill no block (B4 also with 64 and 128 pair rows a block
+    forced), against the plain versions; B10's forward also with every
+    stashed activation against the plain version's, element by element."""
+    kw = cases.to_device(_agg_case(stage, streams, n, 80 + n + streams),
+                         device)
+    mask = kw.pop("mask_p")
+    w_dir = kw.pop("w_dir")
+    if entry == "apply":
+        from ratrack_tpu_torch.ops.neighborhood import knn
+        idx = knn(16, kw["query"], kw["points"], mask)[1]
+        want = fused_correlator.knn_gather_apply_reference(idx, **kw)
+        for rows in (None, 64, 128):
+            got = fused_correlator.knn_gather_apply(idx, **kw,
+                                                    block_rows=rows)
+            torch.cuda.synchronize()
+            _assert_close(got, want)
+        return
+    if entry == "aggregate":
+        got, idx = fused_correlator.fused_knn_weight_aggregate(
+            **kw, mask_p=mask, return_indices=True)
+        want, ridx = fused_correlator.knn_weight_aggregate_reference(
+            **kw, mask_p=mask)
+        torch.cuda.synchronize()
+        assert torch.equal(idx.long(), ridx.long())
+        _assert_close(got, want)
+        return
+    train = dict(kw, mask_p=mask, w_dir=w_dir,
+                 feats_p=kw["feats_p"].clone().requires_grad_(True))
+    got, idx = _corr_train_kernel(**train)
+    want, ridx = fused_correlator_train.knn_weight_aggregate_train_reference(
+        **dict(kw, mask_p=mask, w_dir=w_dir))
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), ridx.long())
+    _assert_close(got.detach(), want)
+    if stage == 1:
+        stash = got.grad_fn.saved_tensors[-3:]
+        for l, (s_, p_) in enumerate(zip(stash, _plain_stash(
+                dict(kw, w_dir=w_dir), idx))):
+            _assert_close(s_.view(p_.shape), p_)
+
+
+@pytest.mark.parametrize("streams,n", [(1, 33), (3, 300)])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_correlator_train_forward_then_backward_at_ragged_query_counts(
+        device, streams, n, stage):
+    """The B10 forward on the tensor cores followed by the B10 backward,
+    forward and gradients inside phase 6's float64 yardstick."""
+    kw = cases.to_device(_agg_case(stage, streams, n, 90 + n), device)
+    _assert_train_match(
+        cases.corr_train_run, _corr_train_kernel,
+        fused_correlator_train.knn_weight_aggregate_train_reference, kw)
+
+
+@pytest.mark.parametrize("k1", [1, 33, 100, 128])
+def test_sinkhorn_every_width_and_variant(device, k1):
+    """B7 at K1 = 1, 33, 100 and 128 (one to sixteen terms a lane), its
+    own shape and every forced variant that K1 admits (4, 8, 16 lanes a
+    row, K1 * lanes <= 1024; exp(c + v) a term, or exp(c) once times
+    exp(v)) against the plain loop: u and v within 1e-4 on the valid rows
+    and columns, all finite. A variant K1 does not admit raises."""
+    kw, meta = cases.sinkhorn_case(15 + k1, 3, k1 - 1, 100)
+    kw, meta = cases.to_device(kw, device), cases.to_device(meta, device)
+    ru, rv = fused_sinkhorn.sinkhorn_uv_reference(**kw)
+    ar = torch.arange(k1, device=device)
+    rows = (ar < meta["m"].unsqueeze(1)) | (ar == k1 - 1)
+    cols = (ar < meta["n"].unsqueeze(1)) | (ar == k1 - 1)
+    variants = [(None, None)] + [
+        (lanes, mode) for lanes in fused_sinkhorn.KERNEL_LANES
+        for mode in ("exp", "factored")]
+    for lanes, mode in variants:
+        if lanes is not None and k1 * lanes > 1024:
+            with pytest.raises(ValueError):
+                fused_sinkhorn.sinkhorn_uv(**kw, lanes=lanes, mode=mode)
+            continue
+        u, v = fused_sinkhorn.sinkhorn_uv(**kw, lanes=lanes, mode=mode)
+        torch.cuda.synchronize()
+        assert (u - ru)[rows].abs().max().item() <= 1e-4, (lanes, mode)
+        assert (v - rv)[cols].abs().max().item() <= 1e-4, (lanes, mode)
+        assert bool(torch.isfinite(u).all() and torch.isfinite(v).all())
+
+
+@pytest.mark.parametrize("what", ["apply", "aggregate", "train_fwd",
+                                  "sinkhorn"])
+def test_aggregate_and_sinkhorn_launches_per_call(device, what):
+    """CUDA kernels one wrapper call launches, counted by torch.profiler:
+    a B4 call is one aggregate launch, a B3 call and a B10 forward the
+    kNN selection and one aggregate launch, a B7 call one launch."""
+    pc1, m1, pc2, m2 = cases.clouds(51, 4)
+    if what == "sinkhorn":
+        kw = cases.to_device(cases.sinkhorn_case(51, 4)[0], device)
+        got = _package_kernels(lambda: fused_sinkhorn.sinkhorn_uv(**kw))
+        assert got == ["sinkhorn_kernel"], got
+        return
+    if what == "apply":
+        kw = cases.to_device(cases.apply_case(1, *_stretch_clouds(51, 1024),
+                                              _gen(51)), device)
+        got = _package_kernels(
+            lambda: fused_correlator.knn_gather_apply(**kw))
+        assert got == ["aggregate_kernel"], got
+        return
+    kw = cases.to_device(cases.corr_train_case(1, pc1, m1, pc2, m2,
+                                               _gen(51)), device)
+    w_dir = kw.pop("w_dir")
+    with torch.no_grad():
+        if what == "aggregate":
+            got = _package_kernels(
+                lambda: fused_correlator.fused_knn_weight_aggregate(**kw))
+        else:
+            got = _package_kernels(
+                lambda: _corr_train_kernel(**kw, w_dir=w_dir))
+    assert sorted(got) == ["aggregate_kernel", "knn_kernel"], got
+
+
 # ---- B9 / B8 forward (one cluster launch) and B10 backward (3xTF32) -------
 
 def _package_kernels(fn):
@@ -1000,22 +1154,25 @@ class _Guard:
     def __init__(self, device):
         self.device, self.bufs = device, []
 
-    def view(self, shape, dtype=torch.float32, zero=False):
+    def view(self, shape, dtype=torch.float32, zero=False, name=""):
         n = math.prod(shape)
         buf = torch.full((n + 2 * self.PAD,), CANARY[dtype], dtype=dtype,
                          device=self.device)
         v = buf[self.PAD:self.PAD + n].view(shape)
         if zero:
             v.zero_()
-        self.bufs.append((buf, n))
+        self.bufs.append((buf, n, name or str(tuple(shape))))
         return v
 
     def assert_intact(self):
         torch.cuda.synchronize()
-        for buf, n in self.bufs:
+        broken = []
+        for buf, n, name in self.bufs:
             c = CANARY[buf.dtype]
-            assert bool((buf[:self.PAD] == c).all()), buf.shape
-            assert bool((buf[self.PAD + n:] == c).all()), buf.shape
+            if not (bool((buf[:self.PAD] == c).all())
+                    and bool((buf[self.PAD + n:] == c).all())):
+                broken.append(name)
+        assert not broken, broken
 
 
 def _canary_cloud(n_valid, b=2, n=33):
@@ -1024,19 +1181,10 @@ def _canary_cloud(n_valid, b=2, n=33):
     return pc, mask
 
 
-@pytest.mark.parametrize("n_valid", [33, 1, 0])
-def test_kernels_write_only_inside_their_outputs(device, n_valid):
-    """The C entries of B1, of the B9 / B8 forward and of the B10
-    backward (both stages), called directly, with every output and scratch
-    pointer a view inside a larger buffer: after the launches the canaries
-    on both sides are intact. 33 points, all, one or none valid."""
-    lib = kb.load()
-    stream = torch.cuda.current_stream().cuda_stream
-    pc, mask = _canary_cloud(n_valid)
+def _canary_sa_eval(lib, stream, guard, pc, mask, device):
+    """B1 (both scales of sa1) and B1' (one of them): outputs and indices
+    guarded."""
     b, n = pc.shape[:2]
-    guard = _Guard(device)
-
-    # B1: both scales of sa1, outputs and indices guarded
     kw = cases.to_device(cases.sa_case("sa1", "pn_head", pc, mask, _gen(71)),
                          device)
     m = kw["centers"].shape[1]
@@ -1047,34 +1195,172 @@ def test_kernels_write_only_inside_their_outputs(device, n_valid):
             kw[f"rest_{t}"], kw[f"radius_{t}"], kw[f"nsample_{t}"], True)
         width = (kw[f"rest_{t}"][-1][0].shape[1] if kw[f"rest_{t}"]
                  else kw[f"p1{t}"].shape[-1])
-        a[-2] = kb.ptr(guard.view((b, m, width)))
-        a[-1] = kb.ptr(guard.view((b, m, kw[f"nsample_{t}"]), torch.int32))
-        args += a
-    kb.check(lib.ratrack_sa_pair(kb.ptr(kw["xyz"]), kb.ptr(kw["centers"]),
-                                 kb.ptr(kw["mask"]), b, n, m, *args, stream),
+        a[-2] = kb.ptr(guard.view((b, m, width), name=f"sa_pair.out_{t}"))
+        a[-1] = kb.ptr(guard.view((b, m, kw[f"nsample_{t}"]), torch.int32,
+                                  name=f"sa_pair.idx_{t}"))
+        args.append(a)
+    clouds = (kb.ptr(kw["xyz"]), kb.ptr(kw["centers"]), kb.ptr(kw["mask"]),
+              b, n, m)
+    kb.check(lib.ratrack_sa_pair(*clouds, *args[0], *args[1], stream),
              "sa_pair")
+    sc = cases.split_sa_case(kw)[1]
+    a, _, _ = fused_sa._kernel_scale("", sc["xyz"], sc["centers"], sc["p1"],
+                                     sc["cw"], sc["rest"], sc["radius"],
+                                     sc["nsample"], True)
+    a[-2] = kb.ptr(guard.view((b, m, sc["rest"][-1][0].shape[1]),
+                              name="sa_scale.out"))
+    a[-1] = kb.ptr(guard.view((b, m, sc["nsample"]), torch.int32,
+                              name="sa_scale.idx"))
+    kb.check(lib.ratrack_sa_scale(*clouds, *a, stream), "sa_scale")
 
-    # B9 / B8 forward: every output of the TrainScale structs guarded
+
+def _canary_fp_and_stretch(lib, stream, guard, pc, mask, device):
+    """B2 (with the known mask), B5, B6 (its own launch shape, one block,
+    clusters of 2 and 8) and B7 (33 x 33; its own shape and every
+    variant): every output guarded."""
+    b, n = pc.shape[:2]
+    kw = cases.to_device(cases.fp_case("fp1", pc, mask, _gen(75)), device)
+    m, c = kw["known"].shape[1], kw["feats"].shape[-1]
+    kb.check(lib.ratrack_three_interpolate(
+        kb.ptr(kw["unknown"]), kb.ptr(kw["known"]), kb.ptr(kw["feats"]),
+        kb.ptr(mask.to(device)), b, n, m, c, fused_fp.EPS,
+        kb.ptr(guard.view((b, n, c), name="three_interpolate.out")),
+        kb.ptr(guard.view((b, n, 3), torch.int32,
+                          name="three_interpolate.idx")), stream),
+        "three_interpolate")
+    xyz, dmask = pc.to(device), mask.to(device)
+    kb.check(lib.ratrack_knn_tiled(
+        kb.ptr(xyz), kb.ptr(xyz), kb.ptr(dmask), b, n, n, 16,
+        kb.ptr(guard.view((b, n, 16), torch.int32, name="knn_tiled.idx")),
+        kb.ptr(guard.view((b, n, 16), name="knn_tiled.keys")), stream),
+        "knn_tiled")
+    for threads, blocks in ((0, 0), (32, 1), (128, 2), (128, 8)):
+        kb.check(lib.ratrack_fps(
+            kb.ptr(xyz), kb.ptr(dmask), b, n, 20,
+            kb.ptr(guard.view((b, 20), torch.int32,
+                              name=f"fps.out[{threads}x{blocks}]")),
+            threads, blocks, stream), "fps")
+    sk, _ = cases.sinkhorn_case(76, b, n - 1, 20)
+    sk = cases.to_device(sk, device)
+    kb.check(lib.ratrack_sinkhorn(
+        kb.ptr(sk["c"]), kb.ptr(sk["log_mu"]), kb.ptr(sk["log_nu"]), b, n,
+        sk["iters"], kb.ptr(guard.view((b, n), name="sinkhorn.u")),
+        kb.ptr(guard.view((b, n), name="sinkhorn.v")), stream), "sinkhorn")
+    for lanes in fused_sinkhorn.KERNEL_LANES:
+        for mode, code in fused_sinkhorn.KERNEL_MODES.items():
+            name = f"sinkhorn_variant[{lanes},{mode}]"
+            kb.check(lib.ratrack_sinkhorn_variant(
+                kb.ptr(sk["c"]), kb.ptr(sk["log_mu"]), kb.ptr(sk["log_nu"]),
+                b, n, sk["iters"], lanes, code,
+                kb.ptr(guard.view((b, n), name=f"{name}.u")),
+                kb.ptr(guard.view((b, n), name=f"{name}.v")), stream), name)
+
+
+def _corr_weights(ck):
+    return (kb.ptr_array(list(ck["mlp_ws"])), kb.ptr_array(list(ck["mlp_bs"])),
+            len(ck["mlp_ws"]),
+            *fused_correlator_train._wn_ptrs(ck["wn_ws"] + ck["wn_bs"]))
+
+
+def _canary_correlator(lib, stream, guard, pc, mask, device):
+    """B3 (its kNN selection, then the aggregate), B4 (its own block shape
+    and 64 and 128 pair rows a block) and the B10 forward
+    (every stash pointer) and backward (every output and scratch pointer),
+    both stages: each output guarded; the backward reads the guarded
+    forward's stash."""
+    b, n = pc.shape[:2]
+    c, rows = 256, b * n * 16
+    pc2, _ = _canary_cloud(int(mask[0].sum()))
+    for stage in (1, 2):
+        ck = cases.to_device(cases.corr_train_case(
+            stage, pc, mask, pc2, mask, _gen(73)), device)
+        clouds = (kb.ptr(ck["query"]), kb.ptr(ck["points"]))
+        idx = guard.view((b, n, 16), torch.int32, name=f"knn{stage}.idx")
+        kb.check(lib.ratrack_knn(*clouds, kb.ptr(ck["mask_p"]), b, n, n, 16,
+                                 kb.ptr(idx), stream), "knn")
+        head = (*clouds, kb.ptr(idx), b, n, n, kb.ptr(ck["feats_p"]),
+                kb.ptr(ck["add_q"]))
+        for name in ("corr_aggregate", "corr_apply"):
+            out = guard.view((b, n, c), name=f"{name}{stage}.out")
+            kb.check(getattr(lib, f"ratrack_{name}")(
+                *head, *_corr_weights(ck), kb.ptr(out), stream), name)
+        for rows_ in (64, 128):
+            out = guard.view((b, n, c), name=f"corr_apply_rows{stage}.{rows_}")
+            kb.check(lib.ratrack_corr_apply_rows(
+                *head, *_corr_weights(ck), rows_, kb.ptr(out), stream),
+                "corr_apply_rows")
+        n_mlp = len(ck["mlp_ws"])
+        stash = [guard.view((rows, c), name=f"train_fwd{stage}.stash{l}")
+                 for l in range(n_mlp + 1)]
+        out = guard.view((b, n, c), name=f"train_fwd{stage}.out")
+        ws, bs, _, *wn = _corr_weights(ck)
+        kb.check(lib.ratrack_corr_train_fwd(
+            *head, kb.ptr(ck["w_dir"]), ws, bs, n_mlp, *wn,
+            kb.ptr_array(stash), kb.ptr(out), stream), "corr_train_fwd")
+        if stage == 2:
+            stash = [None]     # the backward reads feats_p itself
+        blocks = -(-b * n // 4)
+        chunks = -(-rows // fused_correlator_train._DW_CHUNK)
+        wn_grad = fused_correlator_train._WN_GRAD
+
+        def gv(shape, name, zero=False):
+            return guard.view(shape, zero=zero, name=f"train_bwd{stage}.{name}")
+        g = dict(
+            d_feats_p=gv((b, n, c), "d_feats_p", zero=True),
+            d_add_q=gv((b, n, c), "d_add_q") if stage == 1 else None,
+            d_query=gv((b, n, 3), "d_query"),
+            d_points=gv((b, n, 3), "d_points", zero=True),
+            d_wdir=gv((3, c), "d_wdir") if stage == 1 else None,
+            d_mlp_w=[gv((c, c), f"d_mlp_w{i}") for i in range(n_mlp)],
+            d_mlp_b=[gv((c,), f"d_mlp_b{i}") for i in range(n_mlp)],
+            d_wn=gv((wn_grad,), "d_wn"),
+            dz=[gv((rows, c), f"dz{i}") for i in range(2 if n_mlp else 1)],
+            ddir=gv((rows, 3), "ddir"),
+            part=gv((blocks * (wn_grad + 3 * c)
+                     + n_mlp * chunks * (c * c + c),), "part"))
+        dout = torch.randn((b, n, c), generator=_gen(74)).to(device)
+        kb.check(lib.ratrack_corr_train_bwd(
+            *clouds, kb.ptr(idx), b, n, n, kb.ptr(ck["feats_p"]),
+            int(ck["add_q"] is not None), kb.ptr(ck["w_dir"]), ws, n_mlp,
+            kb.ptr_array(stash), *wn, kb.ptr(dout), kb.ptr(g["d_feats_p"]),
+            kb.ptr(g["d_add_q"]), kb.ptr(g["d_query"]),
+            kb.ptr(g["d_points"]), kb.ptr(g["d_wdir"]),
+            kb.ptr_array(g["d_mlp_w"]), kb.ptr_array(g["d_mlp_b"]),
+            kb.ptr(g["d_wn"]), kb.ptr(g["dz"][0]), kb.ptr(g["dz"][-1]),
+            kb.ptr(g["ddir"]), kb.ptr(g["part"]), stream), "corr_train_bwd")
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert bool(torch.isfinite(g["d_wn"]).all())
+
+
+def _canary_sa_train(lib, stream, guard, pc, mask, device):
+    """B9 / B8 forward (the ball query inside the cluster launch and as
+    select_kernel's launch) and backward, pair and one-scale entries: every
+    output and scratch pointer of the scale structs guarded."""
+    b, n = pc.shape[:2]
     tk = cases.to_device(cases.sa_train_case("sa1", "pn_head", pc, mask,
                                              _gen(72), centers=pc), device)
-    structs, keep = [], []
+    mw, ml = fused_sa_train.MAX_WIDTH, fused_sa_train.MAX_LAYERS
+    keep = []
     for t in "ab":
         ns = tk[f"nsample_{t}"]
         dims = [tk[f"wxyz_{t}"].shape[1]] + [w.shape[1]
                                              for w in tk[f"ws_{t}"]]
-        sc = dict(ws=tk[f"ws_{t}"], gam=tk[f"gammas_{t}"],
-                  bet=tk[f"betas_{t}"], dims=dims, ns=ns,
-                  r=tk[f"radius_{t}"], pf=tk[f"pf{t}"],
-                  wx=tk[f"wxyz_{t}"],
-                  z=[guard.view((b, n * ns, c)) for c in dims],
-                  mus=[guard.view((b, c)) for c in dims],
-                  vrs=[guard.view((b, c)) for c in dims],
-                  idx=guard.view((b, n, ns), torch.int32),
-                  pooled=guard.view((b, n, dims[-1])))
-        keep.append(sc)
-        structs.append(fused_sa_train._scale_struct(sc))
+
+        def gv(shape, name, dtype=torch.float32, zero=False):
+            return guard.view(shape, dtype, zero, name=f"sa_train.{t}.{name}")
+        keep.append(dict(
+            ws=tk[f"ws_{t}"], gam=tk[f"gammas_{t}"], bet=tk[f"betas_{t}"],
+            dims=dims, ns=ns, r=tk[f"radius_{t}"], pf=tk[f"pf{t}"],
+            wx=tk[f"wxyz_{t}"],
+            z=[gv((b, n * ns, c), f"z{i}") for i, c in enumerate(dims)],
+            mus=[gv((b, c), f"mu{i}") for i, c in enumerate(dims)],
+            vrs=[gv((b, c), f"var{i}") for i, c in enumerate(dims)],
+            idx=gv((b, n, ns), "idx", torch.int32),
+            pooled=gv((b, n, dims[-1]), "pooled")))
     common = (kb.ptr(tk["xyz"]), kb.ptr(tk["centers"]),
               kb.ptr(tk["mask"]), b, n, n, 1e-5)
+    structs = [fused_sa_train._scale_struct(sc) for sc in keep]
     kb.check(lib.ratrack_sa_train_fwd(
         *common, ctypes.addressof(structs[0]),
         ctypes.addressof(structs[1]), stream), "sa_pair_train_fwd")
@@ -1084,47 +1370,79 @@ def test_kernels_write_only_inside_their_outputs(device, n_valid):
     torch.cuda.synchronize()
     for sc in keep:
         assert bool(torch.isfinite(sc["pooled"]).all())
+    # the backward over the guarded forward's stash, as
+    # SATrainFunction.backward builds its structs
+    for k, sc in enumerate(keep):
+        t, dims = "ab"[k], sc["dims"]
 
-    # B10 backward: the forward through the wrapper, the backward's C entry
-    # with guarded outputs and scratch
-    pc2, _ = _canary_cloud(n_valid)
-    for stage in (1, 2):
-        ck = cases.to_device(cases.corr_train_case(
-            stage, pc, mask, pc2, mask, _gen(73)), device)
-        out, idx = _corr_train_kernel(
-            **dict(ck, feats_p=ck["feats_p"].clone().requires_grad_(True)))
-        n_mlp = len(ck["mlp_ws"])
-        stash = (list(out.grad_fn.saved_tensors[-(n_mlp + 1):])
-                 if stage == 1 else [None])
-        c, rows = 256, b * n * 16
-        blocks = -(-b * n // 4)
-        chunks = -(-rows // fused_correlator_train._DW_CHUNK)
-        wn_grad = fused_correlator_train._WN_GRAD
-        g = dict(
-            d_feats_p=guard.view((b, n, c), zero=True),
-            d_add_q=guard.view((b, n, c)) if stage == 1 else None,
-            d_query=guard.view((b, n, 3)),
-            d_points=guard.view((b, n, 3), zero=True),
-            d_wdir=guard.view((3, c)) if stage == 1 else None,
-            d_mlp_w=[guard.view((c, c)) for _ in range(n_mlp)],
-            d_mlp_b=[guard.view((c,)) for _ in range(n_mlp)],
-            d_wn=guard.view((wn_grad,)),
-            dz=[guard.view((rows, c)) for _ in range(2 if n_mlp else 1)],
-            ddir=guard.view((rows, 3)),
-            part=guard.view((blocks * (wn_grad + 3 * c)
-                             + n_mlp * chunks * (c * c + c),)))
-        dout = torch.randn((b, n, c), generator=_gen(74)).to(device)
-        wn = fused_correlator_train._wn_ptrs(ck["wn_ws"] + ck["wn_bs"])
-        kb.check(lib.ratrack_corr_train_bwd(
-            kb.ptr(ck["query"]), kb.ptr(ck["points"]), kb.ptr(idx), b, n, n,
-            kb.ptr(ck["feats_p"]), int(ck["add_q"] is not None),
-            kb.ptr(ck["w_dir"]), kb.ptr_array(list(ck["mlp_ws"])), n_mlp,
-            kb.ptr_array(stash), *wn, kb.ptr(dout), kb.ptr(g["d_feats_p"]),
-            kb.ptr(g["d_add_q"]), kb.ptr(g["d_query"]),
-            kb.ptr(g["d_points"]), kb.ptr(g["d_wdir"]),
-            kb.ptr_array(g["d_mlp_w"]), kb.ptr_array(g["d_mlp_b"]),
-            kb.ptr(g["d_wn"]), kb.ptr(g["dz"][0]), kb.ptr(g["dz"][-1]),
-            kb.ptr(g["ddir"]), kb.ptr(g["part"]), stream), "corr_train_bwd")
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(g["d_wn"]).all())
+        def gv(shape, name, dtype=torch.float32, zero=False):
+            return guard.view(shape, dtype, zero,
+                              name=f"sa_train_bwd.{t}.{name}")
+        sc.update(
+            dpooled=torch.randn(sc["pooled"].shape, generator=_gen(77 + k)
+                                ).to(device),
+            dy=[gv((b, n * sc["ns"], mw), f"dy{i}") for i in range(2)],
+            dpf=gv(tuple(sc["pf"].shape), "dpf", zero=True),
+            dwx=gv((3, dims[0]), "dwxyz"),
+            dw=[None] + [gv((i, o), f"dw{li + 1}") for li, (i, o) in
+                         enumerate(zip(dims[:-1], dims[1:]))],
+            dgam=[gv((c,), f"dgamma{i}") for i, c in enumerate(dims)],
+            dbet=[gv((c,), f"dbeta{i}") for i, c in enumerate(dims)])
+    bwd = [fused_sa_train._scale_struct(sc) for sc in keep]
+    for name, scales in (("sa_train_bwd", bwd), ("sa_scale_train_bwd",
+                                                 bwd[1:])):
+        n_sc = len(scales)
+        ssum = guard.view((n_sc, ml, b, 2, mw), torch.float64,
+                          name=f"{name}.ssum")
+        pdw = guard.view((n_sc, b * fused_sa_train._CLUSTER,
+                          fused_sa_train._GRAD_LEN), name=f"{name}.pdw")
+        kb.check(getattr(lib, f"ratrack_{name}")(
+            kb.ptr(tk["xyz"]), kb.ptr(tk["centers"]), b, n, n, 1e-5,
+            *[ctypes.addressof(st) for st in scales], kb.ptr(ssum),
+            kb.ptr(pdw), stream), name)
+    torch.cuda.synchronize()
+    for sc in keep:
+        assert bool(torch.isfinite(sc["dwx"]).all())
+
+
+# every C entry of kernels/build.py's library that launches a kernel, by
+# the helper above that calls it with guarded outputs
+CANARY_ENTRIES = {
+    "ratrack_sa_pair": _canary_sa_eval, "ratrack_sa_scale": _canary_sa_eval,
+    "ratrack_three_interpolate": _canary_fp_and_stretch,
+    "ratrack_knn_tiled": _canary_fp_and_stretch,
+    "ratrack_fps": _canary_fp_and_stretch,
+    "ratrack_sinkhorn": _canary_fp_and_stretch,
+    "ratrack_sinkhorn_variant": _canary_fp_and_stretch,
+    "ratrack_knn": _canary_correlator,
+    "ratrack_corr_aggregate": _canary_correlator,
+    "ratrack_corr_apply": _canary_correlator,
+    "ratrack_corr_apply_rows": _canary_correlator,
+    "ratrack_corr_train_fwd": _canary_correlator,
+    "ratrack_corr_train_bwd": _canary_correlator,
+    "ratrack_sa_train_fwd": _canary_sa_train,
+    "ratrack_sa_scale_train_fwd": _canary_sa_train,
+    "ratrack_sa_train_bwd": _canary_sa_train,
+    "ratrack_sa_scale_train_bwd": _canary_sa_train,
+}
+
+
+@pytest.mark.parametrize("n_valid", [33, 1, 0])
+def test_kernels_write_only_inside_their_outputs(device, n_valid):
+    """Every C entry of the library (CANARY_ENTRIES: B1, B1', B2, B3's two
+    launches, B4 at both block shapes, B5, B6 at four launch shapes, B7
+    and each of its variants, the B9 / B8 forward
+    and backward, the B10 forward and backward, both correlator stages),
+    called directly, with every output and scratch pointer a view inside
+    a larger buffer: after the launches the canaries on both sides are
+    intact. 33 points, all, one or none valid."""
+    launching = {name for name in kb.SIGNATURES
+                 if not name.endswith("_clusters")}
+    assert launching == set(CANARY_ENTRIES), launching ^ set(CANARY_ENTRIES)
+    lib = kb.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    pc, mask = _canary_cloud(n_valid)
+    guard = _Guard(device)
+    for helper in dict.fromkeys(CANARY_ENTRIES.values()):
+        helper(lib, stream, guard, pc, mask, device)
     guard.assert_intact()
