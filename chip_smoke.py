@@ -53,6 +53,8 @@ Phases, each printing one line:
                 at 16384), B4 apply (both stages), B6 farthest point
                 sampling (8192 points with the cloud mask, 512 with none;
                 also 16384), B7 Sinkhorn (8 streams, m and n from 0..32);
+                B5 again on the clouds unsorted, as B10's selection takes
+                them in train stretch (no weight in the summary);
                 B1 and B2 again at 8192 points x 512 centers. Indices
                 identical, values within phase 3's tolerance (B7: u, v and
                 Z within 1e-4 on the valid block, the matching equal);
@@ -112,7 +114,9 @@ bound of the same work (the largest of bytes / 3.35 TB/s, matrix-product
 operations / 165 TFLOP/s, the card's fastest float32-accurate product:
 3xTF32, a third of the 495 TF32 rate, and the other float32 operations /
 67 TFLOP/s, counted by kernels/cases.py::*_work) and, where one PyTorch
-call computes the same function, that call's time; and last the result
+call computes the same function, that call's time; for B1 also its
+two sa1 calls of a stretch frame (8192 points x 512 centers: stretch_ms,
+stretch_plain_ms, stretch_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
 and 12-15 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
@@ -418,16 +422,20 @@ def phase_stretch_kernels(torch, seed: int):
             torch.cdist(kw["query"], kw["points"]).masked_fill_(
                 gone, float("inf")), kw["k"], dim=-1, largest=False)
 
+    # Z-sorted as the split correlator sorts them (the stretch eval path);
+    # unsorted as B10's selection takes them in train stretch (no weight)
     for n, (c1, cm1, c2, cm2) in clouds.items():
-        for stage in (1, 2):
+        for stage, zsorted in ((1, True), (2, True), (1, False), (2, False)):
             if n != STRETCH_N and stage == 2:
                 continue
-            kw = cases.to_device(cases.knn_tiled_case(stage, c1, cm1, c2,
-                                                      cm2), dev)
-            name = f"{n}.stage{stage}"
+            kw = cases.to_device(
+                cases.knn_tiled_case(stage, c1, cm1, c2, cm2) if zsorted
+                else dict(query=c1, points=c2 if stage == 1 else c1,
+                          points_mask=cm2 if stage == 1 else cm1, k=16), dev)
+            name = f"{n}.stage{stage}" + ("" if zsorted else ".unsorted")
             runs.append(dict(
                 kernel="knn_tiled", config=name,
-                weight=int(n == STRETCH_N),
+                weight=int(n == STRETCH_N and zsorted),
                 run_k=lambda kw=kw: fused_knn.knn_indices_tiled(
                     **kw, return_keys=True),
                 run_p=lambda kw=kw: fused_knn.knn_indices_tiled_reference(
@@ -523,11 +531,12 @@ def phase_stretch_kernels(torch, seed: int):
         work=lambda got: cases.sinkhorn_work(kw, *got)))
 
     # B1 and B2 where N != M: the cloud against its 512 sampled centers
+    # (B1's two sa1 calls a stretch frame summed into the kernels line)
     for head in ("pn_head", "mse"):
         sa_kw = cases.to_device(cases.sa_case(
             "sa1", head, pc1, m1, gen, npoint=STRETCH_NPOINT), dev)
         runs.append(sa_run(torch, cases, fused_sa,
-                           f"{STRETCH_N}.{head}.sa1", sa_kw, weight=0))
+                           f"{STRETCH_N}.{head}.sa1", sa_kw, weight=1))
     fp_kw = cases.to_device(cases.fp_case("fp1", pc1, m1, gen,
                                           npoint=STRETCH_NPOINT), dev)
     runs.append(fp_run(torch, cases, fused_fp, f"{STRETCH_N}.fp1", fp_kw,
@@ -554,7 +563,9 @@ def phase_stretch_kernels(torch, seed: int):
                  indices_equal=True,
                  ms=device_ms(torch, lambda: sampling.furthest_point_sample(
                      **kw, shape=shape)))
-    return {k: summary[k] for k in STRETCH_KERNELS}
+    out = {k: summary[k] for k in STRETCH_KERNELS}
+    out["sa_pair_stretch"] = summary["sa_pair"]
+    return out
 
 
 def counters():
@@ -1550,6 +1561,12 @@ def main() -> None:
             max_abs_err=entry["max_abs_err"], ms=entry["ms"],
             plain_ms=entry["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=entry["library_ms"]))
+    # B1 at the stretch shape: both heads' sa1, 8192 points x 512 centers
+    entry = summary["sa_pair_stretch"]
+    bound_ms, _ = roofline(entry["bytes"], entry["mm_ops"], entry["ops"])
+    next(k for k in kernels if k["name"] == "sa_pair").update(
+        stretch_ms=entry["ms"], stretch_plain_ms=entry["plain_ms"],
+        stretch_bound_ms=bound_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

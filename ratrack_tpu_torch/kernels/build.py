@@ -12,11 +12,14 @@ nvcc per source, all started together, then one link:
 The library is built at first use into `kernels/build/` (git-ignored),
 keyed by a hash of the sources and flags, so a fresh checkout builds
 everything on its first kernel launch and a changed source rebuilds.
-Nothing here runs at import time.
+Nothing here runs at import time. `measuring(...)` switches the wrappers,
+for a block of `kernels/tune.py`, to a second build with a measuring macro
+defined; the port's own build defines none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -40,9 +43,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ratrack_sa_pair": [_P, _P, _P, _I, _I, _I,
                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
-                        _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _I, _P],
     "ratrack_sa_scale": [_P, _P, _P, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P],
+                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _I, _P],
     "ratrack_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
                                   _P, _P],
     "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -52,7 +55,8 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _P],
     "ratrack_corr_apply_rows": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                                 _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "ratrack_knn_tiled": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ratrack_knn_tiled": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P],
     "ratrack_fps": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "ratrack_sinkhorn": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ratrack_sinkhorn_variant": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -69,7 +73,14 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
-_lib: ctypes.CDLL | None = None
+# Macros of a measuring build (kernels/tune.py), never of the port's:
+# RATRACK_SKELETON makes B1 / B1' skip their layers (outputs 0) and B5
+# insert no candidate, the floor of each launch; RATRACK_KNN_NO_GATE makes
+# B5 visit every chunk that holds a valid candidate.
+MEASURING_MACROS = ("RATRACK_SKELETON", "RATRACK_KNN_NO_GATE")
+
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+_macros: tuple[str, ...] = ()   # of the build `load` returns
 last_build: dict = {}
 
 
@@ -85,8 +96,12 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(macros) -> list[str]:
+    return NVCC_FLAGS + [f"-D{m}" for m in macros]
+
+
+def source_hash(macros=()) -> str:
+    h = hashlib.sha256(" ".join(_flags(macros)).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -102,12 +117,13 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build() -> Path:
-    """Compile csrc/ into the library unless a build of these exact sources
-    exists. Safe against concurrent builds (file lock + atomic rename).
-    Records the seconds spent and nvcc's stderr (ptxas register, shared
-    memory and spill report per kernel) in `last_build`."""
-    target = BUILD_DIR / f"libratrack_kernels_{source_hash()}.so"
+def build(macros=()) -> Path:
+    """Compile csrc/ (with `macros` defined) into the library unless a
+    build of these exact sources exists. Safe against concurrent builds
+    (file lock + atomic rename). Records the seconds spent and nvcc's
+    stderr (ptxas register, shared memory and spill report per kernel) in
+    `last_build`."""
+    target = BUILD_DIR / f"libratrack_kernels_{source_hash(macros)}.so"
     if target.exists():
         last_build.update(seconds=0.0, cached=True, log="")
         return target
@@ -124,7 +140,7 @@ def build() -> Path:
         t0 = time.perf_counter()
         jobs = []
         for src in (p for p in sources() if p.suffix == ".cu"):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+            cmd = [nvcc, *_flags(macros), "-c", str(src), "-o",
                    str(obj_dir / f"{src.stem}.o")]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -153,17 +169,33 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The kernels' library, built on first call."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+    lib = _libs.get(_macros)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(_macros)))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.ratrack_error_string.argtypes = [ctypes.c_int]
         lib.ratrack_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[_macros] = lib
+    return lib
+
+
+@contextlib.contextmanager
+def measuring(*macros: str):
+    """Inside the block every kernel wrapper launches the build with
+    `macros` (of MEASURING_MACROS) defined: a floor or a variant to time,
+    whose results are not the kernels' function."""
+    global _macros
+    unknown = set(macros) - set(MEASURING_MACROS)
+    if unknown:
+        raise ValueError(f"not a measuring macro: {sorted(unknown)}")
+    saved, _macros = _macros, tuple(sorted(macros))
+    try:
+        yield
+    finally:
+        _macros = saved
 
 
 def check(code: int, what: str) -> None:

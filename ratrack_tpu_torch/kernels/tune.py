@@ -1,9 +1,10 @@
 """Time the launch shapes of kernel B6, the forward and backward of kernels
 B9 / B8, the backward of kernel B10, the aggregate kernel (B4, B3, B10's
-forward) and kernel B7 on the card.
+forward), kernel B7, kernels B1 / B1' and kernel B5 on the card.
 
     python3 -m ratrack_tpu_torch.kernels.tune [--fps] [--sa] [--corr]
                                               [--apply] [--sinkhorn]
+                                              [--sa-eval] [--knn]
 
 B6 (`csrc/fps.cu`) takes its launch shape (threads a block, blocks a
 stream: one block, or a thread-block cluster) from a table by N; this
@@ -23,9 +24,20 @@ read off it), and for stage 1 its two pair-layer products as torch.matmul
 iterations, its own shape and every variant (lanes a row; exp(c + v) a
 term, exp(c) once times exp(v), and the skeleton without exp or log, the
 latency floor of the launch shape), with the cost of one half-step: the
-difference of the two times over 1,000 half-steps. One JSON line per
-measurement, the card's name and power limit first. Times are medians of
-20 CUDA-event runs after 3 warm-up runs.
+difference of the two times over 1,000 half-steps. For B1 / B1'
+(--sa-eval) each level config at 8 streams x 512 points, the GENERAL_LEVELS
+scales and sa1 at 8192 points x 512 centers, at every center tile, the
+kernel's own choice and its skeleton (the ball query, the compaction and
+the index output without a layer: the launch's floor) (the table of
+csrc/sa_pair.cu::default_tile was read off it). For B5 (--knn) both
+stages at 8192 points and stage 1 at 16384, Z-sorted and unsorted, at
+every launch shape (queries a block, candidates a chunk), as the port
+builds it (chunk gate on), with the gate off and as the skeleton (every
+chunk scanned, nothing inserted: the scan's floor)
+(ops/fused_knn.py::KERNEL_SHAPE was read off it). The skeletons and the
+gate off are measuring builds of the same sources (build.measuring), never
+the port's. One JSON line per measurement, the card's name and power limit
+first. Times are medians of 20 CUDA-event runs after 3 warm-up runs.
 """
 
 from __future__ import annotations
@@ -37,8 +49,8 @@ import subprocess
 
 import torch
 
-from ..ops import (fused_correlator, fused_correlator_train, fused_sa_train,
-                   fused_sinkhorn, sampling)
+from ..ops import (fused_correlator, fused_correlator_train, fused_knn,
+                   fused_sa, fused_sa_train, fused_sinkhorn, sampling)
 from . import build, cases
 
 NPOINT = 512
@@ -69,6 +81,13 @@ def device_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def measured_ms(macros, fn) -> float:
+    """device_ms of fn() with the kernels of the measuring build that
+    defines `macros` (none: the port's own build)."""
+    with build.measuring(*macros):
+        return device_ms(fn)
 
 
 def kernel_breakdown(fn, reps: int = 5) -> dict:
@@ -275,6 +294,74 @@ def time_sinkhorn(emit=print, streams: int = 8, seed: int = 0):
             us_per_half_step=(ms[500] - ms[0]) / 1000 * 1000)))
 
 
+def time_sa_eval(emit=print, streams: int = 8, seed: int = 0):
+    """B1 at the six level configs (8 streams x 512 points), B1' at the
+    GENERAL_LEVELS scales and B1 at sa1 of an 8192-point cloud with 512
+    farthest-point centers: ms a call at every center tile, and the
+    skeleton's at the kernel's own."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    pc, mask, _, _ = cases.clouds(seed, streams, 512)
+    runs = [(f"{head}.{level}", fused_sa.sa_pair, cases.to_device(
+        cases.sa_case(level, head, pc, mask, gen), dev))
+        for head in ("pn_head", "mse") for level in cases.SA_LEVELS]
+    runs += [(f"{level}.{i}", fused_sa.sa_scale, cases.to_device(kw, dev))
+             for level in cases.GENERAL_LEVELS
+             for i, kw in enumerate(cases.sa_scale_cases(level, pc, mask,
+                                                         gen))]
+    spc, smask, _, _ = cases.stretch_clouds(seed, 8192)
+    runs += [(f"8192.{head}.sa1", fused_sa.sa_pair, cases.to_device(
+        cases.sa_case("sa1", head, spc, smask, gen, npoint=NPOINT), dev))
+        for head in ("pn_head", "mse")]
+    for config, fn, kw in runs:
+        ms = {str(tile): device_ms(lambda: fn(**kw, tile=tile))
+              for tile in (None,) + fused_sa.KERNEL_TILES}
+        ms["None.skeleton"] = measured_ms(["RATRACK_SKELETON"],
+                                          lambda: fn(**kw))
+        emit(json.dumps(dict(kernel=fn.__name__, config=config, ms=ms)))
+
+
+def time_knn(emit=print, seed: int = 0):
+    """B5 for both stages of the split correlator at 8192 points and stage
+    1 at 16384, Z-sorted (the stretch eval path) and unsorted (B10's
+    selection in train stretch), and stage 1 at 8192 with only the valid
+    points as queries: ms a call with the chunk gate on (the port's build)
+    and off and the skeleton, at every launch shape for stage 1."""
+    dev = torch.device("cuda")
+    shapes = [None] + [(q, c) for q in fused_knn.KERNEL_QUERIES
+                       for c in fused_knn.KERNEL_CHUNKS]
+    builds = {"gate": [], "nogate": ["RATRACK_KNN_NO_GATE"],
+              "skeleton": ["RATRACK_SKELETON"]}
+    for n in (8192, 16384):
+        pc1, m1, pc2, m2 = cases.stretch_clouds(seed, n)
+        # (stage, Z-sorted, only the query cloud's valid points as queries)
+        for stage, zsorted, valid_only in (
+                (1, True, False), (1, False, False), (2, True, False),
+                (2, False, False), (1, True, True)):
+            if n != 8192 and (stage == 2 or valid_only):
+                continue
+            kw = (cases.knn_tiled_case(stage, pc1, m1, pc2, m2)
+                  if zsorted else
+                  dict(query=pc1, points=pc2 if stage == 1 else pc1,
+                       points_mask=m2 if stage == 1 else m1, k=16))
+            if valid_only:   # Z-sorted: the valid points come first
+                kw["query"] = kw["query"][:, :int(m1.sum())].contiguous()
+            kw = cases.to_device(kw, dev)
+            emit(json.dumps(dict(
+                kernel="knn_indices_tiled",
+                config=f"{n}.stage{stage}."
+                       f"{'zsorted' if zsorted else 'unsorted'}"
+                       + (".valid_queries" if valid_only else ""),
+                ms={f"{shape}.{name}": measured_ms(
+                    macros, lambda: fused_knn.knn_indices_tiled(
+                        **kw, shape=shape))
+                    for shape in (shapes if stage == 1 and not valid_only
+                                  else [None])
+                    for name, macros in builds.items()},
+                kernels_ms=kernel_breakdown(
+                    lambda: fused_knn.knn_indices_tiled(**kw)))))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fps", action="store_true", help="only kernel B6")
@@ -284,9 +371,12 @@ def main() -> None:
     ap.add_argument("--apply", action="store_true",
                     help="only the aggregate kernel (B4, B3, B10's forward)")
     ap.add_argument("--sinkhorn", action="store_true", help="only kernel B7")
+    ap.add_argument("--sa-eval", action="store_true",
+                    help="only kernels B1 / B1'")
+    ap.add_argument("--knn", action="store_true", help="only kernel B5")
     args = ap.parse_args()
     every = not (args.fps or args.sa or args.corr or args.apply
-                 or args.sinkhorn)
+                 or args.sinkhorn or args.sa_eval or args.knn)
     if not torch.cuda.is_available():
         raise SystemExit("tune: no CUDA device")
     print(subprocess.run(
@@ -304,6 +394,10 @@ def main() -> None:
         time_apply()
     if args.sinkhorn or every:
         time_sinkhorn()
+    if args.sa_eval or every:
+        time_sa_eval()
+    if args.knn or every:
+        time_knn()
 
 
 if __name__ == "__main__":

@@ -29,6 +29,11 @@ from ..kernels import build as kb
 from .neighborhood import BIG, point_distance
 
 KERNEL_K_MAX = 16        # csrc/knn_tiled.cu keeps a top-16 per query
+# Launch shapes of csrc/knn_tiled.cu: queries a block and candidates a
+# chunk (the defaults read off `kernels/tune.py --knn`)
+KERNEL_QUERIES = (8, 16, 32)
+KERNEL_CHUNKS = (128, 256, 512)
+KERNEL_SHAPE = (8, 256)
 REFERENCE_CHUNK = 1024   # queries a step in the plain version
 
 
@@ -69,10 +74,14 @@ def knn_indices_tiled_reference(query, points, points_mask=None, *, k: int):
 
 
 def knn_indices_tiled(query, points, points_mask=None, *, k: int,
-                      return_keys: bool = False):
+                      return_keys: bool = False,
+                      shape: tuple[int, int] | None = None):
     """Kernel B5: query (B, N, 3), points (B, M, 3), points_mask (B, M)
     bool or None -> idx (B, N, k) int64 [, keys (B, N, k) float32, valid
-    (B, N, k) bool]."""
+    (B, N, k) bool].
+
+    shape = (queries a block, candidates a chunk) forces the kernel's
+    launch shape, for measuring; it changes no result."""
     if not query.is_cuda:
         idx, keys, valid = knn_indices_tiled_reference(query, points,
                                                        points_mask, k=k)
@@ -87,12 +96,21 @@ def knn_indices_tiled(query, points, points_mask=None, *, k: int,
     if not 1 <= k <= min(KERNEL_K_MAX, m):
         raise ValueError(f"the kernel takes 1 <= k <= {KERNEL_K_MAX} and "
                          f"k <= M; got k={k}, M={m}")
+    queries, chunk = KERNEL_SHAPE if shape is None else shape
+    if queries not in KERNEL_QUERIES or chunk not in KERNEL_CHUNKS:
+        raise ValueError(f"shape {shape}: the kernel takes queries in "
+                         f"{KERNEL_QUERIES}, chunks in {KERNEL_CHUNKS}")
     idx = torch.empty((b, n, k), device=dev, dtype=torch.int32)
     keys = torch.empty((b, n, k), device=dev, dtype=torch.float32)
+    # the packed candidates and each chunk's box (csrc/knn_tiled.cu)
+    n_chunks = -(-m // chunk)
+    scratch = torch.empty((b * n_chunks * (4 * chunk + 8),), device=dev,
+                          dtype=torch.float32)
     with torch.cuda.device(dev):
         code = kb.load().ratrack_knn_tiled(
             kb.ptr(query), kb.ptr(points), kb.ptr(points_mask), b, n, m, k,
-            kb.ptr(idx), kb.ptr(keys), kb.stream_of(query))
+            queries, chunk, kb.ptr(scratch), kb.ptr(idx), kb.ptr(keys),
+            kb.stream_of(query))
     kb.check(code, "knn_tiled")
     knn_indices_tiled.launches += 1
     idx = idx.long()

@@ -30,6 +30,8 @@ from ..kernels import build as kb
 from .grouping import group
 from .neighborhood import ball_query
 
+KERNEL_TILES = (8, 16, 32)   # centers a block, for `tile=`; None: its own
+
 
 def fold_bn_params(weights, scales, biases, means, variances,
                    eps: float = 1e-5):
@@ -115,13 +117,22 @@ def _kernel_scale(tag, xyz, centers, p1, cw, rest, radius, ns,
     return args, out, idx
 
 
+def _tile_arg(tile):
+    """The tile C argument; 0 lets the kernel choose."""
+    if tile is not None and tile not in KERNEL_TILES:
+        raise ValueError(f"tile {tile}: the kernel takes {KERNEL_TILES}")
+    return tile or 0
+
+
 def sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b, *,
             radius_a: float, radius_b: float, nsample_a: int, nsample_b: int,
-            return_indices: bool = False):
+            return_indices: bool = False, tile: int | None = None):
     """Kernel B1 over (B, N, 3) points and (B, M, 3) centers.
 
     rest_a / rest_b: [(W (C_l, C_{l+1}), b (C_{l+1},)), ...] folded layers
     after layer 1. Returns (out_a, out_b) [+ (idx_a, idx_b) int].
+    tile (centers a block) forces the kernel's launch shape, for
+    measuring; it changes no result.
     """
     if not xyz.is_cuda:
         oa, ob, ia, ib = sa_pair_reference(
@@ -141,7 +152,7 @@ def sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b, *,
     with torch.cuda.device(xyz.device):
         code = lib.ratrack_sa_pair(kb.ptr(xyz), kb.ptr(centers),
                                    kb.ptr(mask), b, n, m, *args_a, *args_b,
-                                   kb.stream_of(xyz))
+                                   _tile_arg(tile), kb.stream_of(xyz))
     kb.check(code, "sa_pair")
     sa_pair.launches += 1
     if return_indices:
@@ -153,7 +164,8 @@ sa_pair.launches = 0
 
 
 def sa_scale(xyz, centers, mask, p1, cw, rest, *, radius: float,
-             nsample: int, return_indices: bool = False):
+             nsample: int, return_indices: bool = False,
+             tile: int | None = None):
     """Kernel B1' over (B, N, 3) points and (B, M, 3) centers: one scale,
     arguments as one scale of `sa_pair`. Returns out [, idx int]."""
     if not xyz.is_cuda:
@@ -168,7 +180,7 @@ def sa_scale(xyz, centers, mask, p1, cw, rest, *, radius: float,
     with torch.cuda.device(xyz.device):
         code = lib.ratrack_sa_scale(kb.ptr(xyz), kb.ptr(centers),
                                     kb.ptr(mask), b, n, m, *args,
-                                    kb.stream_of(xyz))
+                                    _tile_arg(tile), kb.stream_of(xyz))
     kb.check(code, "sa_scale")
     sa_scale.launches += 1
     return (out, idx) if return_indices else out

@@ -1037,18 +1037,26 @@ def test_aggregate_and_sinkhorn_launches_per_call(device, what):
 def _package_kernels(fn):
     """The CUDA kernels of csrc/ that fn() launches, by name, as
     torch.profiler sees them (PyTorch's own kernels, such as the fill of a
-    zero-initialised gradient, are not counted)."""
-    from torch.profiler import ProfilerActivity, profile
+    zero-initialised gradient, are not counted). The tracer gets a
+    warm-up step of its own, with one PyTorch kernel, whose records are
+    dropped: with fn() first in the window, a run of the card tests saw
+    its first kernel go unreported now and then."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     names = set()
     for src in kb.CSRC_DIR.glob("*.cu*"):
         names |= set(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
             r"(\w+)\s*\(", src.read_text()))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         fn()
         torch.cuda.synchronize()
+        prof.step()
     found = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1188,30 +1196,35 @@ def _canary_sa_eval(lib, stream, guard, pc, mask, device):
     kw = cases.to_device(cases.sa_case("sa1", "pn_head", pc, mask, _gen(71)),
                          device)
     m = kw["centers"].shape[1]
-    args = []
-    for t in "ab":
-        a, _, _ = fused_sa._kernel_scale(
-            t, kw["xyz"], kw["centers"], kw[f"p1{t}"], kw[f"cw{t}"],
-            kw[f"rest_{t}"], kw[f"radius_{t}"], kw[f"nsample_{t}"], True)
-        width = (kw[f"rest_{t}"][-1][0].shape[1] if kw[f"rest_{t}"]
-                 else kw[f"p1{t}"].shape[-1])
-        a[-2] = kb.ptr(guard.view((b, m, width), name=f"sa_pair.out_{t}"))
-        a[-1] = kb.ptr(guard.view((b, m, kw[f"nsample_{t}"]), torch.int32,
-                                  name=f"sa_pair.idx_{t}"))
-        args.append(a)
     clouds = (kb.ptr(kw["xyz"]), kb.ptr(kw["centers"]), kb.ptr(kw["mask"]),
               b, n, m)
-    kb.check(lib.ratrack_sa_pair(*clouds, *args[0], *args[1], stream),
-             "sa_pair")
-    sc = cases.split_sa_case(kw)[1]
-    a, _, _ = fused_sa._kernel_scale("", sc["xyz"], sc["centers"], sc["p1"],
-                                     sc["cw"], sc["rest"], sc["radius"],
-                                     sc["nsample"], True)
-    a[-2] = kb.ptr(guard.view((b, m, sc["rest"][-1][0].shape[1]),
-                              name="sa_scale.out"))
-    a[-1] = kb.ptr(guard.view((b, m, sc["nsample"]), torch.int32,
-                              name="sa_scale.idx"))
-    kb.check(lib.ratrack_sa_scale(*clouds, *a, stream), "sa_scale")
+    # every center tile, 16 the one the eval and serving paths run (33
+    # centers: the last tile part-full)
+    for tile in fused_sa.KERNEL_TILES:
+        args = []
+        for t in "ab":
+            a, _, _ = fused_sa._kernel_scale(
+                t, kw["xyz"], kw["centers"], kw[f"p1{t}"], kw[f"cw{t}"],
+                kw[f"rest_{t}"], kw[f"radius_{t}"], kw[f"nsample_{t}"], True)
+            width = (kw[f"rest_{t}"][-1][0].shape[1] if kw[f"rest_{t}"]
+                     else kw[f"p1{t}"].shape[-1])
+            a[-2] = kb.ptr(guard.view((b, m, width),
+                                      name=f"sa_pair[{tile}].out_{t}"))
+            a[-1] = kb.ptr(guard.view((b, m, kw[f"nsample_{t}"]), torch.int32,
+                                      name=f"sa_pair[{tile}].idx_{t}"))
+            args.append(a)
+        kb.check(lib.ratrack_sa_pair(*clouds, *args[0], *args[1], tile,
+                                     stream), "sa_pair")
+        sc = cases.split_sa_case(kw)[1]
+        a, _, _ = fused_sa._kernel_scale(
+            "", sc["xyz"], sc["centers"], sc["p1"], sc["cw"], sc["rest"],
+            sc["radius"], sc["nsample"], True)
+        a[-2] = kb.ptr(guard.view((b, m, sc["rest"][-1][0].shape[1]),
+                                  name=f"sa_scale[{tile}].out"))
+        a[-1] = kb.ptr(guard.view((b, m, sc["nsample"]), torch.int32,
+                                  name=f"sa_scale[{tile}].idx"))
+        kb.check(lib.ratrack_sa_scale(*clouds, *a, tile, stream),
+                 "sa_scale")
 
 
 def _canary_fp_and_stretch(lib, stream, guard, pc, mask, device):
@@ -1229,11 +1242,16 @@ def _canary_fp_and_stretch(lib, stream, guard, pc, mask, device):
                           name="three_interpolate.idx")), stream),
         "three_interpolate")
     xyz, dmask = pc.to(device), mask.to(device)
-    kb.check(lib.ratrack_knn_tiled(
-        kb.ptr(xyz), kb.ptr(xyz), kb.ptr(dmask), b, n, n, 16,
-        kb.ptr(guard.view((b, n, 16), torch.int32, name="knn_tiled.idx")),
-        kb.ptr(guard.view((b, n, 16), name="knn_tiled.keys")), stream),
-        "knn_tiled")
+    # the smallest and largest shapes and the kernel's own (8, 256)
+    for queries, chunk in ((8, 128), fused_knn.KERNEL_SHAPE, (32, 512)):
+        name = f"knn_tiled[{queries},{chunk}]"
+        kb.check(lib.ratrack_knn_tiled(
+            kb.ptr(xyz), kb.ptr(xyz), kb.ptr(dmask), b, n, n, 16, queries,
+            chunk, kb.ptr(guard.view((b * (4 * chunk + 8),),
+                                        name=f"{name}.scratch")),
+            kb.ptr(guard.view((b, n, 16), torch.int32, name=f"{name}.idx")),
+            kb.ptr(guard.view((b, n, 16), name=f"{name}.keys")), stream),
+            name)
     for threads, blocks in ((0, 0), (32, 1), (128, 2), (128, 8)):
         kb.check(lib.ratrack_fps(
             kb.ptr(xyz), kb.ptr(dmask), b, n, 20,
@@ -1446,3 +1464,236 @@ def test_kernels_write_only_inside_their_outputs(device, n_valid):
     for helper in dict.fromkeys(CANARY_ENTRIES.values()):
         helper(lib, stream, guard, pc, mask, device)
     guard.assert_intact()
+
+
+# ---- B1 / B1' in center tiles, B5 with its chunk gate ---------------------
+
+SA_TILES = (None,) + fused_sa.KERNEL_TILES
+
+
+def _tile_sa_case(level, b, n, m, n_valid=None, seed=80, spread=3.0):
+    """A `sa_pair` case at an SA_LEVELS level (pn_head widths) over a random
+    cloud of n points (the first n_valid valid; None: no mask) and m
+    centers near cloud points, so that N != M and the last center tile of
+    a stream is part-full."""
+    radii, nsamples, mlps, c_feat = cases.SA_LEVELS[level]
+    gen = _gen(seed)
+    xyz = spread * torch.randn((b, n, 3), generator=gen)
+    pick = torch.randint(0, n, (m,), generator=gen)
+    centers = (xyz[:, pick] + 0.1 * torch.randn((b, m, 3), generator=gen))
+    mask = (None if n_valid is None else
+            (torch.arange(n) < n_valid).expand(b, -1).contiguous())
+    feats = torch.randn((b, n, c_feat["pn_head"]), generator=gen)
+    kw = dict(xyz=xyz, centers=centers.contiguous(), mask=mask)
+    for tag, widths in zip("ab", mlps):
+        ws, bs = cases._weights(gen, (3 + c_feat["pn_head"],) + tuple(widths))
+        kw[f"p1{tag}"], kw[f"cw{tag}"] = fused_sa.hoist_layer1(
+            xyz, kw["centers"], feats, ws[0], bs[0])
+        kw[f"rest_{tag}"] = list(zip(ws[1:], bs[1:]))
+    kw.update(radius_a=radii[0], radius_b=radii[1], nsample_a=nsamples[0],
+              nsample_b=nsamples[1])
+    return kw
+
+
+def _assert_pair_matches(kw, **shape):
+    oa, ob, ia, ib = fused_sa.sa_pair(**kw, return_indices=True, **shape)
+    ra, rb, ja, jb = fused_sa.sa_pair_reference(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ia.long(), ja) and torch.equal(ib.long(), jb), shape
+    _assert_close(oa, ra)
+    _assert_close(ob, rb)
+
+
+@pytest.mark.parametrize("m", [33, 100, 513])
+@pytest.mark.parametrize("level", ["sa1", "sa2", "sa3"])
+def test_sa_pair_every_tile_matches_plain(device, level, m):
+    """33, 100 and 513 centers over 600 points (450 valid): every center
+    tile ends part-full somewhere; each tile and the kernel's own."""
+    kw = cases.to_device(_tile_sa_case(level, 2, 600, m, 450), device)
+    for tile in SA_TILES:
+        _assert_pair_matches(kw, tile=tile)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, None])
+def test_sa_pair_no_slot_one_slot_every_slot(device, n_valid):
+    """No valid point (every center pools (i, point 0)), one valid point
+    (at most one filled slot), and a dense cloud with no mask where sa3's
+    radii fill all 16 + 32 slots of every center."""
+    for level in ("sa1", "sa3"):
+        kw = cases.to_device(_tile_sa_case(level, 2, 300, 100, n_valid,
+                                           spread=1.0), device)
+        if n_valid is None and level == "sa3":
+            _, _, ia, ib = fused_sa.sa_pair_reference(**kw)
+            assert bool((ia != ia[..., :1]).any(-1).all())
+            assert bool((ib != ib[..., :1]).any(-1).all())
+        for tile in SA_TILES:
+            _assert_pair_matches(kw, tile=tile)
+
+
+@pytest.mark.parametrize("head", ["pn_head", "mse"])
+def test_sa_pair_at_the_stretch_shape(device, head):
+    """sa1 of the stretch path: 8192 points, 512 farthest-point centers."""
+    pc, mask, _, _ = cases.stretch_clouds(81, 8192)
+    kw = cases.to_device(cases.sa_case("sa1", head, pc, mask, _gen(81),
+                                       npoint=512), device)
+    _assert_pair_matches(kw)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_sa_scale_every_tile_matches_plain(device, level):
+    """Every scale of the GENERAL_LEVELS at 100 centers over 700 points."""
+    pc, _, _, _ = cases.clouds(82, 2, 700, n_static=500)
+    mask = (torch.arange(700) < 520).expand(2, -1).contiguous()
+    for kw in cases.sa_scale_cases(level, pc, mask, _gen(82), npoint=100):
+        kw = cases.to_device(kw, device)
+        ref, ridx = fused_sa.sa_scale_reference(**kw)
+        for tile in SA_TILES:
+            out, idx = fused_sa.sa_scale(**kw, return_indices=True,
+                                         tile=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(idx.long(), ridx), tile
+            _assert_close(out, ref)
+
+
+@pytest.mark.parametrize("level", ["sa1", "sa2", "sa3"])
+def test_sa_pair_equals_two_singles_at_every_tile(device, level):
+    """A pair launch equals two one-scale launches bit for bit at every
+    tile (the tile changes no bit either), and repeats itself."""
+    kw = cases.to_device(_tile_sa_case(level, 3, 500, 100, 400, seed=83),
+                         device)
+    first = fused_sa.sa_pair(**kw, return_indices=True)
+    for tile in SA_TILES:
+        pair = fused_sa.sa_pair(**kw, return_indices=True, tile=tile)
+        assert all(torch.equal(x, y) for x, y in zip(pair, first)), tile
+        for t, single in enumerate(cases.split_sa_case(kw)):
+            out, idx = fused_sa.sa_scale(**single, return_indices=True,
+                                         tile=tile)
+            assert torch.equal(out, pair[t]) and torch.equal(idx, pair[t + 2])
+
+
+KNN_SHAPES = [(q, c) for q in fused_knn.KERNEL_QUERIES
+              for c in fused_knn.KERNEL_CHUNKS]
+
+
+def _assert_knn_matches(kw, shapes=KNN_SHAPES):
+    ridx, rkeys, rvalid = fused_knn.knn_indices_tiled_reference(**kw)
+    for shape in [None] + list(shapes):
+        idx, keys, valid = fused_knn.knn_indices_tiled(
+            **kw, return_keys=True, shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, ridx), shape
+        assert torch.equal(valid, rvalid) and torch.equal(keys, rkeys)
+
+
+@pytest.mark.parametrize("zsorted", [True, False])
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_knn_tiled_stretch_clouds_sorted_and_not(device, n, zsorted):
+    """Both stages at the stretch sizes, Z-sorted as the split correlator
+    sorts them (the gate skips most chunks) and as they come (B10's
+    selection in train stretch: it rarely fires)."""
+    pc1, m1, pc2, m2 = cases.stretch_clouds(84, n)
+    for stage in (1, 2):
+        if zsorted:
+            kw = cases.knn_tiled_case(stage, pc1, m1, pc2, m2)
+        else:
+            kw = dict(query=pc1, points=pc2 if stage == 1 else pc1,
+                      points_mask=m2 if stage == 1 else m1, k=16)
+        _assert_knn_matches(cases.to_device(kw, device),
+                            shapes=KNN_SHAPES if n == 8192 else [(8, 512)])
+
+
+def test_knn_tiled_exact_ties_across_chunk_boundaries(device):
+    """Candidates on a coarse grid, each point repeated 256, 512 and 1024
+    places later, so that equal distances fall in different chunks of
+    every chunk size: lowest index first."""
+    gen = _gen(85)
+    base = torch.round(2 * torch.randn((2, 130, 3), generator=gen))
+    p = torch.cat([base, torch.zeros(2, 126, 3), base, torch.zeros(2, 126, 3),
+                   base, torch.zeros(2, 382, 3), base], dim=1)
+    mask = torch.ones(p.shape[:2], dtype=torch.bool)
+    mask[:, 130:256] = False
+    q = torch.round(2 * torch.randn((2, 300, 3), generator=gen))
+    for k in (3, 16):
+        _assert_knn_matches(cases.to_device(
+            dict(query=q, points=p, points_mask=mask, k=k), device))
+
+
+@pytest.mark.parametrize("k", [1, 5, 15, 16])
+def test_knn_tiled_few_valid_and_a_stream_without_any(device, k):
+    """Three streams of 1500 candidates: all valid, 9 valid (fewer than
+    16; first-hit padding), none valid (index 0, key -1e10); k below 16."""
+    gen = _gen(86)
+    p = 5 * torch.randn((3, 1500, 3), generator=gen)
+    q = 5 * torch.randn((3, 700, 3), generator=gen)
+    mask = torch.ones((3, 1500), dtype=torch.bool)
+    mask[1] = torch.arange(1500) % 167 == 3
+    mask[2] = False
+    _assert_knn_matches(cases.to_device(
+        dict(query=q, points=p, points_mask=mask, k=k), device))
+
+
+def test_knn_tiled_far_query_tiles(device):
+    """Query tiles far from every candidate, and one tile straddling two
+    clusters: the gate must keep the chunks that hold the nearest."""
+    gen = _gen(87)
+    p = torch.cat([torch.randn((1, 2000, 3), generator=gen),
+                   torch.randn((1, 2000, 3), generator=gen) + 300.0], dim=1)
+    q = torch.cat([torch.randn((1, 40, 3), generator=gen) + 1000.0,
+                   torch.randn((1, 40, 3), generator=gen) - 150.0,
+                   torch.randn((1, 40, 3), generator=gen) * 300.0], dim=1)
+    kw = dict(query=q, points=p, points_mask=None, k=16)
+    _assert_knn_matches(cases.to_device(kw, device))
+    sq, sm, sp, spm = cases.stretch_clouds(87, 8192)
+    kw = cases.knn_tiled_case(1, sq, sm, sp, spm)
+    kw["query"] = kw["query"] + torch.tensor([500.0, -300.0, 20.0])
+    _assert_knn_matches(cases.to_device(kw, device), shapes=[(32, 128)])
+
+
+def test_measuring_builds_stay_apart_from_the_ports(device):
+    """kernels/tune.py's measuring builds: the skeleton runs B1's ball
+    query (indices as the plain version's) and no layer (outputs 0) and
+    B5's scan without an insertion (no slot valid); with the gate off B5
+    selects as the plain version. After each block the port's own kernels
+    run again."""
+    kw = cases.to_device(_tile_sa_case("sa2", 2, 300, 100, 250, seed=89),
+                         device)
+    _, _, ja, jb = fused_sa.sa_pair_reference(**kw)
+    kn = cases.to_device(cases.knn_tiled_case(
+        1, *_stretch_clouds(89, 2048)), device)
+    with kb.measuring("RATRACK_SKELETON"):
+        oa, ob, ia, ib = fused_sa.sa_pair(**kw, return_indices=True)
+        _, _, valid = fused_knn.knn_indices_tiled(**kn, return_keys=True)
+        torch.cuda.synchronize()
+    assert torch.equal(ia.long(), ja) and torch.equal(ib.long(), jb)
+    assert not bool(oa.any()) and not bool(ob.any())
+    assert not bool(valid.any())
+    with kb.measuring("RATRACK_KNN_NO_GATE"):
+        _assert_knn_matches(kn, shapes=[])
+    _assert_pair_matches(kw)
+    _assert_knn_matches(kn, shapes=[])
+
+
+@pytest.mark.parametrize("what", ["pair", "scale", "knn"])
+def test_sa_and_knn_launches_per_call(device, what):
+    """CUDA kernels one wrapper call launches, counted by torch.profiler
+    over one call at each tile (B1, B1': one launch of the SA
+    kernel each) or at each launch shape (B5: the packing launch and the
+    selection launch each), all in one torch.profiler run."""
+    if what == "knn":
+        kw = cases.to_device(cases.knn_tiled_case(
+            1, *_stretch_clouds(88, 2048)), device)
+        shapes = [None] + KNN_SHAPES
+        got = _package_kernels(lambda: [fused_knn.knn_indices_tiled(
+            **kw, shape=shape) for shape in shapes])
+        assert sorted(got) == sorted(
+            ["knn_prep_kernel", "knn_select_kernel"] * len(shapes)), got
+        return
+    kw = cases.to_device(_tile_sa_case("sa3", 2, 300, 100, seed=88), device)
+    single = cases.split_sa_case(kw)[1]
+    if what == "pair":
+        got = _package_kernels(lambda: [fused_sa.sa_pair(
+            **kw, tile=tile) for tile in SA_TILES])
+    else:
+        got = _package_kernels(lambda: [fused_sa.sa_scale(
+            **single, tile=tile) for tile in SA_TILES])
+    assert got == ["sa_kernel"] * len(SA_TILES), got

@@ -26,6 +26,24 @@ than k = 16, and both stages, against the JAX
 gradient leaf within 1e-2 of the whole gradient's norm and cosine >= 0.99.
 Coordinates lie on a 1/16 grid, so every distance is exact in both
 packages and the selections agree.
+
+B1 / B1' (eval): a block owns a tile of 8-32 centers and packs their
+filled slots into row chunks, so the cases have 33, 100 and 513 centers
+(tiles that end part-full), N != M, every slot filled, one filled and none,
+against the JAX `sa_scale_reference` (any shape; it has no no-hit rule, so
+every center there keeps a hit) and the JAX kernel in interpret mode (its
+shapes are multiples of 128): 1e-4 x max|jax|, the port's output through
+its plain version.
+
+B5: the kernel walks candidate chunks of 128-512 from the tile's own place
+in the cloud and skips chunks by a bound, so the cases put exact ties in
+different chunks (grid-snapped duplicates 128 and 256 places apart), a
+ragged last chunk, k below 16, fewer valid candidates than k, and an
+unsorted clustered cloud, against the JAX `knn_indices_tiled` in interpret
+mode with 128-candidate chunks: indices equal, keys within 1e-4 x max.
+
+The measuring builds that kernels/tune.py times B1 and B5 with (the
+skeleton, the gate off) are keyed apart from the port's own build.
 """
 
 import jax
@@ -34,12 +52,18 @@ import numpy as np
 import pytest
 import torch
 
+from ratrack_tpu.ops import pallas_sa
 from ratrack_tpu.ops.pallas_correlator_train import \
     knn_weight_aggregate_reference as jcorr_reference
+from ratrack_tpu.ops.pallas_knn import knn_indices_tiled as j_knn_tiled
 from ratrack_tpu.ops.pallas_sa_train import sa_scale_train_reference
 from ratrack_tpu.ops.sampling import furthest_point_sample as j_fps
+from ratrack_tpu_torch.kernels import build as kb
+from ratrack_tpu_torch.kernels import cases
 from ratrack_tpu_torch.ops.fused_correlator_train import \
     fused_knn_weight_aggregate_train
+from ratrack_tpu_torch.ops.fused_knn import knn_indices_tiled
+from ratrack_tpu_torch.ops.fused_sa import fused_sa_pair, fused_sa_scale
 from ratrack_tpu_torch.ops.fused_sa_train import (fused_sa_pair_train,
                                                   fused_sa_scale_train)
 from ratrack_tpu_torch.ops.sampling import (furthest_point_sample,
@@ -280,3 +304,164 @@ def test_correlator_train_ragged_shapes_match_jax(name, stage):
             cos = float(g.ravel() @ w.ravel()
                         / (np.linalg.norm(g) * np.linalg.norm(w)))
             assert cos >= 0.99, cos
+
+
+# ---- B1 / B1' (eval) at the center tiles' edges -------------------------
+
+def _folded(rng, dims):
+    ws = [(rng.randn(i, o) / np.sqrt(i)).astype(np.float32)
+          for i, o in zip(dims[:-1], dims[1:])]
+    bs = [(0.1 * rng.randn(o)).astype(np.float32) for o in dims[1:]]
+    return ws, bs
+
+
+def _eval_sa_cloud(seed, n, m, c, n_valid, spread=3.0):
+    """One stream: n points (the first n_valid valid), m centers next to
+    valid points (each keeps at least one hit), c feature channels."""
+    rng = np.random.RandomState(seed)
+    xyz = (spread * rng.randn(n, 3)).astype(np.float32)
+    mask = np.arange(n) < n_valid
+    pick = rng.randint(0, n_valid, m)
+    centers = (xyz[pick] + 0.05 * rng.randn(m, 3)).astype(np.float32)
+    return rng, xyz, centers, mask, rng.randn(n, c).astype(np.float32)
+
+
+def _tl(xs):
+    return [_t(x) for x in xs]
+
+
+_j_sa_reference = jax.jit(pallas_sa.sa_scale_reference,
+                          static_argnames=("radius", "nsample"))
+
+
+@pytest.mark.parametrize("m", [33, 100, 513])
+def test_sa_eval_plain_at_ragged_center_tiles_matches_jax(m):
+    """Both scales of every SA_LEVELS level (pn_head widths) at m centers
+    over 600 points, 450 valid, against the JAX reference; sa3's radii
+    fill all 16 + 32 slots of most centers."""
+    for level, (radii, nsamples, mlps, c_feat) in cases.SA_LEVELS.items():
+        c = c_feat["pn_head"]
+        rng, xyz, centers, mask, feats = _eval_sa_cloud(m, 600, m, c, 450)
+        prm = [_folded(rng, (3 + c,) + w) for w in mlps]
+        got = fused_sa_pair(_t(xyz)[None], _t(centers)[None],
+                            _t(feats)[None], _t(mask)[None],
+                            _tl(prm[0][0]), _tl(prm[0][1]), _tl(prm[1][0]),
+                            _tl(prm[1][1]), radius_a=radii[0],
+                            radius_b=radii[1], nsample_a=nsamples[0],
+                            nsample_b=nsamples[1])
+        for t in range(2):
+            want = np.asarray(_j_sa_reference(
+                jnp.asarray(xyz), jnp.asarray(centers), jnp.asarray(feats),
+                jnp.asarray(mask), *prm[t], radius=radii[t],
+                nsample=nsamples[t]))
+            np.testing.assert_allclose(got[t][0].numpy(), want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 384])
+def test_sa_eval_plain_fewer_centers_than_points_matches_jax_kernel(n_valid):
+    """128 centers over 384 points (N != M), the JAX kernels in interpret
+    mode: the pair at sa3 (no hit, one filled slot, every slot filled)
+    and one scale of the one-scale level."""
+    radii, nsamples, mlps, c_feat = cases.SA_LEVELS["sa3"]
+    c = c_feat["pn_head"]
+    rng, xyz, centers, mask, feats = _eval_sa_cloud(
+        90 + n_valid, 384, 128, c, max(n_valid, 1), spread=1.0)
+    mask = np.arange(384) < n_valid
+    (wa, ba), (wb, bb) = [_folded(rng, (3 + c,) + w) for w in mlps]
+    kw = dict(radius_a=radii[0], radius_b=radii[1], nsample_a=nsamples[0],
+              nsample_b=nsamples[1])
+    oa, ob = fused_sa_pair(_t(xyz)[None], _t(centers)[None], _t(feats)[None],
+                           _t(mask)[None], _tl(wa), _tl(ba), _tl(wb),
+                           _tl(bb), **kw)
+    j = jnp.asarray
+    ja, jb = pallas_sa.fused_sa_pair(
+        j(xyz), j(centers), j(feats), j(mask), wa, ba, wb, bb,
+        compute_dtype=jnp.float32, precision=jax.lax.Precision.HIGHEST,
+        interpret=True, **kw)
+    for got, want in ((oa, ja), (ob, jb)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got[0].numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+    (r,), (ns,), (widths,), c1 = cases.GENERAL_LEVELS["one_scale"]
+    f1 = rng.randn(384, c1).astype(np.float32)
+    ws, bs = _folded(rng, (3 + c1,) + widths)
+    got = fused_sa_scale(_t(xyz)[None], _t(centers)[None], _t(f1)[None],
+                         _t(mask)[None], _tl(ws), _tl(bs), radius=r,
+                         nsample=ns)
+    want = np.asarray(pallas_sa.fused_sa_scale(
+        j(xyz), j(centers), j(f1), j(mask), ws, bs, radius=r, nsample=ns,
+        compute_dtype=jnp.float32, precision=jax.lax.Precision.HIGHEST,
+        interpret=True))
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+# ---- B5 across candidate chunks -----------------------------------------
+
+def _assert_knn_matches_jax(q, p, mask, k):
+    w_idx, w_keys, w_valid = j_knn_tiled(
+        jnp.asarray(q), jnp.asarray(p), jnp.asarray(mask), k=k, tq=64,
+        tp=128, interpret=True, return_keys=True)
+    idx, keys, valid = knn_indices_tiled(_t(q)[None], _t(p)[None],
+                                         _t(mask)[None], k=k,
+                                         return_keys=True)
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(w_idx))
+    np.testing.assert_array_equal(valid[0].numpy(), np.asarray(w_valid))
+    w_keys = np.asarray(w_keys)
+    np.testing.assert_allclose(keys[0].numpy(), w_keys, rtol=0,
+                               atol=1e-4 * np.abs(w_keys).max())
+    return valid
+
+
+@pytest.mark.parametrize("k", [5, 16])
+def test_knn_plain_ties_split_across_chunks_matches_jax(k):
+    """Grid-snapped candidates, each repeated every 128 places (in
+    another chunk of every chunk size), 600 of them (a ragged last chunk
+    of 128), 70 queries (a ragged tile): ties go to the lowest index."""
+    rng = np.random.RandomState(95)
+    base = np.round(2 * rng.randn(128, 3)).astype(np.float32)
+    p = np.tile(base, (5, 1))[:600]
+    mask = rng.rand(600) > 0.2
+    q = np.round(2 * rng.randn(70, 3)).astype(np.float32)
+    _assert_knn_matches_jax(q, p, mask, k)
+
+
+def test_knn_plain_unsorted_clusters_and_few_valid_match_jax():
+    """An unsorted cloud of five tight clusters far apart (a query tile
+    spans clusters; most chunks hold points of every cluster), then the
+    same with only 9 valid candidates (fewer than k = 16). Off a grid the
+    two packages may order near-ties differently (the JAX kernel's
+    rounding freedom, pallas_knn.py:134-137): the coordinates are
+    snapped."""
+    rng = np.random.RandomState(96)
+    ctr = np.clip(20 * rng.randn(5, 3), -55, 55)
+    # on a 1/16 grid and under 60 m: every distance exact in both packages
+    snap = lambda x: (np.round(16 * x) / 16).astype(np.float32)  # noqa: E731
+    p = snap(ctr[rng.randint(0, 5, 700)] + 0.5 * rng.randn(700, 3))
+    q = snap(ctr[rng.randint(0, 5, 150)] + 0.5 * rng.randn(150, 3))
+    _assert_knn_matches_jax(q, p, np.ones(700, bool), 16)
+    few = np.zeros(700, bool)
+    few[rng.permutation(700)[:9]] = True
+    valid = _assert_knn_matches_jax(q, p, few, 16)
+    assert int(valid.sum()) == 150 * 9
+
+
+# ---- measuring builds ----------------------------------------------------
+
+def test_measuring_macros_build_apart_from_the_port():
+    """A measuring macro keys a library of its own (the port's hash is its
+    flags' alone), an unknown macro raises, and the port's build is
+    restored when the block ends, also when it raises."""
+    skeleton = kb.source_hash(("RATRACK_SKELETON",))
+    assert kb.source_hash() != skeleton
+    assert kb.source_hash(("RATRACK_KNN_NO_GATE",)) not in (
+        kb.source_hash(), skeleton)
+    with pytest.raises(ValueError, match="RATRACK_FAST"):
+        with kb.measuring("RATRACK_FAST"):
+            pass
+    with pytest.raises(RuntimeError):
+        with kb.measuring("RATRACK_SKELETON"):
+            assert kb._macros == ("RATRACK_SKELETON",)
+            raise RuntimeError
+    assert kb._macros == ()
