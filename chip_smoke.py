@@ -11,7 +11,10 @@ Phases, each printing one line:
   3. kernel     every kernel at the main-path shapes (8 streams, 512-point
                 clouds) against its plain PyTorch version on the same CUDA
                 tensors: max abs error vs 1e-4 * max|plain| + 1e-5, selected
-                indices equal, median CUDA-event times over 20 runs;
+                indices equal, median CUDA-event times over 20 runs; B3's
+                selection launch also on its own for each stage (indices
+                equal to the plain `knn`; its time, the plain version's,
+                one library call's and its bound);
   4. slice      Track4D(npoint=512, k_max=32, sinkhorn_iters=500) with
                 seeded random weights, the cached eval scan over 8
                 synthetic streams x 4 frames on the GPU against the same
@@ -116,7 +119,10 @@ operations / 165 TFLOP/s, the card's fastest float32-accurate product:
 67 TFLOP/s, counted by kernels/cases.py::*_work) and, where one PyTorch
 call computes the same function, that call's time; for B1 also its
 two sa1 calls of a stretch frame (8192 points x 512 centers: stretch_ms,
-stretch_plain_ms, stretch_bound_ms); and last the result
+stretch_plain_ms, stretch_bound_ms), likewise for B2 its two fp1 calls of
+a stretch frame (8192 unknowns x 512 known points), and for B3 its two
+selection launches of an eval step (select_ms, select_plain_ms,
+select_library_ms, select_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
 and 12-15 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
@@ -356,9 +362,31 @@ def fp_run(torch, cases, fused_fp, name, kw, weight=1):
                     largest=False))
 
 
+def select_run(torch, cases, fused_correlator, knn, name, kw):
+    """B3's selection launch alone, against the plain `knn`."""
+    q, p, mask = kw["query"], kw["points"], kw["mask_p"]
+
+    def check(got, want):
+        if not torch.equal(got.long(), want[1]):
+            fail(f"knn_select[{name}]: indices differ from the plain knn")
+        return 0.0, 0.0
+    return dict(kernel="knn_select", config=name,
+                run_k=lambda: fused_correlator.launch_knn(q, p, mask, 16),
+                run_p=lambda: knn(16, q, p, mask),
+                check=check,
+                work=lambda got: cases.knn_select_work(q, p, mask, got),
+                # one library selection: top-16 of the masked dense
+                # distance matrix
+                library=lambda: torch.topk(
+                    torch.cdist(q, p).masked_fill_(
+                        ~mask.unsqueeze(1), float("inf")), 16, dim=-1,
+                    largest=False))
+
+
 def phase_kernels(torch, seed: int):
     from ratrack_tpu_torch.kernels import cases
     from ratrack_tpu_torch.ops import fused_correlator, fused_fp, fused_sa
+    from ratrack_tpu_torch.ops.neighborhood import knn
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
@@ -383,7 +411,9 @@ def phase_kernels(torch, seed: int):
             fused_correlator.knn_weight_aggregate_reference(**kw),
             check=check_out_idx(torch, f"knn_weight_aggregate[stage{stage}]"),
             work=lambda got, kw=kw: cases.corr_work(kw, got[0])))
-    summary = new_summary(EVAL_KERNELS)
+        runs.append(select_run(torch, cases, fused_correlator, knn,
+                               f"stage{stage}", kw))
+    summary = new_summary(EVAL_KERNELS + ("knn_select",))
     run_kernel_cases(torch, "kernel", runs, summary)
     return summary
 
@@ -537,10 +567,11 @@ def phase_stretch_kernels(torch, seed: int):
             "sa1", head, pc1, m1, gen, npoint=STRETCH_NPOINT), dev)
         runs.append(sa_run(torch, cases, fused_sa,
                            f"{STRETCH_N}.{head}.sa1", sa_kw, weight=1))
+    # (B2's two fp1 calls a stretch frame, both at 128 channels)
     fp_kw = cases.to_device(cases.fp_case("fp1", pc1, m1, gen,
                                           npoint=STRETCH_NPOINT), dev)
     runs.append(fp_run(torch, cases, fused_fp, f"{STRETCH_N}.fp1", fp_kw,
-                       weight=0))
+                       weight=2))
 
     summary = new_summary(STRETCH_KERNELS + ("sa_pair", "three_interpolate"))
     run_kernel_cases(torch, "stretch_kernel", runs, summary)
@@ -565,6 +596,7 @@ def phase_stretch_kernels(torch, seed: int):
                      **kw, shape=shape)))
     out = {k: summary[k] for k in STRETCH_KERNELS}
     out["sa_pair_stretch"] = summary["sa_pair"]
+    out["three_interpolate_stretch"] = summary["three_interpolate"]
     return out
 
 
@@ -1561,12 +1593,22 @@ def main() -> None:
             max_abs_err=entry["max_abs_err"], ms=entry["ms"],
             plain_ms=entry["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=entry["library_ms"]))
-    # B1 at the stretch shape: both heads' sa1, 8192 points x 512 centers
-    entry = summary["sa_pair_stretch"]
-    bound_ms, _ = roofline(entry["bytes"], entry["mm_ops"], entry["ops"])
-    next(k for k in kernels if k["name"] == "sa_pair").update(
-        stretch_ms=entry["ms"], stretch_plain_ms=entry["plain_ms"],
-        stretch_bound_ms=bound_ms)
+    # B1 and B2 at the stretch shape: both heads' sa1 (8192 points x 512
+    # centers) and fp1 (8192 unknowns x 512 known points); B3's selection
+    # launches of an eval step
+    for name, part, prefix in (("sa_pair", "sa_pair_stretch", "stretch"),
+                               ("three_interpolate",
+                                "three_interpolate_stretch", "stretch"),
+                               ("knn_weight_aggregate", "knn_select",
+                                "select")):
+        entry = summary[part]
+        bound_ms, _ = roofline(entry["bytes"], entry["mm_ops"], entry["ops"])
+        extra = {f"{prefix}_ms": entry["ms"],
+                 f"{prefix}_plain_ms": entry["plain_ms"],
+                 f"{prefix}_bound_ms": bound_ms}
+        if entry["library_ms"] is not None:
+            extra[f"{prefix}_library_ms"] = entry["library_ms"]
+        next(k for k in kernels if k["name"] == name).update(extra)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

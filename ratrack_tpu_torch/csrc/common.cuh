@@ -29,16 +29,56 @@ __device__ __forceinline__ float sq_dist(float cx, float cy, float cz,
   return fmaxf(d, 0.0f);
 }
 
-// Lexicographic (distance, index) minimum across the warp; every lane
-// ends with the winner. Lowest index wins ties, like a stable top_k.
-__device__ __forceinline__ void warp_argmin(float& d, int& j) {
+// Lexicographic (distance, index) minimum across each aligned group of
+// kG lanes (kG a power of two up to 32); every lane of the group ends with
+// the group's winner. Lowest index wins ties, like a stable top_k.
+template <int kG>
+__device__ __forceinline__ void group_argmin(float& d, int& j) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = kG / 2; off > 0; off >>= 1) {
     const float od = __shfl_xor_sync(kFullMask, d, off);
     const int oj = __shfl_xor_sync(kFullMask, j, off);
     if (od < d || (od == d && oj < j)) {
       d = od;
       j = oj;
+    }
+  }
+}
+
+// Stage points [p0, p0 + cnt) of one stream's cloud xyz (M x 3, mask or
+// null) into shared memory as float4 (x, y, z, |x|^2, or w = -1 for a
+// masked point), and (0, 0, 0, -1) on to `padded`, by the kThreads
+// threads of a block (tid = threadIdx.x): four points a thread a round,
+// their loads issued before their stores, so a round waits for memory
+// once. The caller synchronises the block before reading `cloud`.
+template <int kThreads>
+__device__ __forceinline__ void stage_cloud(float4* cloud, const float* xyz,
+                                            const unsigned char* mask,
+                                            int p0, int cnt, int padded,
+                                            int tid) {
+  constexpr int kPer = 4;
+  for (int base = tid; base < padded; base += kPer * kThreads) {
+    float x[kPer], y[kPer], z[kPer];
+    bool valid[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = base + u * kThreads;
+      x[u] = y[u] = z[u] = 0.0f;
+      valid[u] = false;
+      if (e < cnt) {
+        const float* pj = xyz + (size_t)(p0 + e) * 3;
+        x[u] = pj[0];
+        y[u] = pj[1];
+        z[u] = pj[2];
+        valid[u] = mask == nullptr || mask[p0 + e] != 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = base + u * kThreads;
+      if (e < padded)
+        cloud[e] = make_float4(x[u], y[u], z[u],
+                               valid[u] ? sq_norm3(x[u], y[u], z[u]) : -1.0f);
     }
   }
 }

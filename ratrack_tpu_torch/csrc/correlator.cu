@@ -3,9 +3,11 @@
 // Replaces the TPU kernel ratrack_tpu/ops/pallas_correlator.py::_corr_kernel
 // (fused_knn_weight_aggregate), as two launches:
 //
-//   knn_kernel: the k nearest valid candidates of each query, lowest index
-//     on ties; fewer than k valid repeat the nearest, none valid gives
-//     index 0 (ops.neighborhood.knn's rules) -> idx (B, N, k) int32.
+//   knn_staged_kernel: the k <= 16 nearest valid candidates of each query,
+//     ascending by (d^2, index) with common.cuh::sq_dist distances, lowest
+//     index on ties; a candidate at d^2 >= 1e10 counts as invalid; fewer
+//     than k valid repeat the nearest, none valid gives index 0
+//     (ops.neighborhood.knn's rules) -> idx (B, N, k) int32.
 //   aggregate_kernel, for each query i and slot s with j = idx[i, s]:
 //     h = leaky(feats_p[j] + add_q[i])         stage 1 (layer 1 hoisted)
 //     h = feats_p[j]                           stage 2
@@ -34,9 +36,19 @@
 // hidden layers and every operation outside the products run per pair
 // row on the CUDA cores. The 64-row shape (16 warps an SM, two blocks)
 // serves the stage without a pair MLP (default_block_rows).
-// The kNN selection costs 16 warp passes over the candidates per query:
-// the k-th pass takes the (distance, index) minimum strictly after the
-// (k-1)-th winner, which needs no per-query list in memory.
+// The kNN selection is bound by latency: N x M distances (2.1 M at 8
+// streams x 512 points, 0.003 ms of float32 operations) through a chain
+// of compares and shuffles a query. Design: one pass. A block owns a tile
+// of Q = 8 or 32 queries of one stream (default_knn_queries) and stages
+// the stream's candidates once in shared memory as float4 (x, y, z,
+// |x|^2, or -1 for a masked point), read coalesced from the raw (B, M, 3)
+// cloud and mask, kPiece = 4096 at a time (64 KB; every path's clouds fit
+// in one piece: dense eval at n <= SPLIT_ABOVE = 4096 and train at n m <=
+// KNN_DENSE_LIMIT); each query's sorted top-k lives across half a warp
+// and takes the candidates through the list B5 shares (knn_common.cuh):
+// insertion, and a bitonic merge for a batch that more than three
+// candidates of a query beat (the first batches, as the list fills). No chunk gate: B3's
+// clouds are not Z-sorted, where B5's gate costs more than it skips.
 //
 // The aggregate kernel alone, over indices its caller selected, is kernel
 // B4 (entry ratrack_corr_apply), which replaces the TPU kernel
@@ -57,54 +69,93 @@
 // the same 3xTF32 products. Eval passes no W_dir and no stash.
 
 #include "corr_common.cuh"
-
-#include <climits>
-#include <math_constants.h>
+#include "knn_common.cuh"
 
 namespace {
 
 using namespace ratrack::corr;
 
-constexpr int kKnnWarps = 8;
+namespace knn = ratrack::knn;
 
-__global__ void __launch_bounds__(kKnnWarps * 32)
-knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
-           const unsigned char* __restrict__ mask, int nb, int n, int m, int k,
-           int* __restrict__ idx) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long g = (long long)blockIdx.x * kKnnWarps + warp;
-  if (g >= (long long)nb * n) return;
-  const int bi = (int)(g / n);
-  const float* q = query + (size_t)g * 3;
-  const float qx = q[0], qy = q[1], qz = q[2];
+constexpr int kPiece = 4096;   // candidates staged at a time (64 KB)
+
+// Dynamic shared memory of a launch over m candidates: one piece, padded
+// to whole steps.
+size_t knn_smem(int m) {
+  const int piece = m < kPiece ? m : kPiece;
+  return sizeof(float4) *
+         (size_t)((piece + knn::kStep - 1) / knn::kStep * knn::kStep);
+}
+
+// Block = a tile of kQ queries of one stream (blockIdx.y), 16 lanes a
+// query.
+template <int kQ>
+__global__ void __launch_bounds__(kQ * knn::kLanes)
+knn_staged_kernel(const float* __restrict__ query,
+                  const float* __restrict__ points,
+                  const unsigned char* __restrict__ mask, int n, int m, int k,
+                  int* __restrict__ idx) {
+  extern __shared__ float4 cloud[];
+  constexpr int kThreads = kQ * knn::kLanes;
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.y;
+  const int qi = blockIdx.x * kQ + tid / knn::kLanes;
+  const bool active = qi < n;
+  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+  if (active) {
+    const float* q = query + ((size_t)bi * n + qi) * 3;
+    qx = q[0];
+    qy = q[1];
+    qz = q[2];
+  }
   const float sqq = ratrack::sq_norm3(qx, qy, qz);
   const float* pb = points + (size_t)bi * m * 3;
   const unsigned char* mb = mask != nullptr ? mask + (size_t)bi * m : nullptr;
 
-  float prev_d = -CUDART_INF_F;
-  int prev_j = -1, first = 0;
-  for (int s = 0; s < k; ++s) {
-    float bd = CUDART_INF_F;
-    int bj = INT_MAX;
-    for (int j = lane; j < m; j += 32) {
-      float d = ratrack::kBig;
-      if (mb == nullptr || mb[j] != 0) {
-        const float x = pb[3 * j], y = pb[3 * j + 1], z = pb[3 * j + 2];
-        d = ratrack::sq_dist(qx, qy, qz, sqq, x, y, z,
-                             ratrack::sq_norm3(x, y, z));
-      }
-      const bool after = d > prev_d || (d == prev_d && j > prev_j);
-      if (after && d < bd) {   // a lane sees j ascending: first wins ties
-        bd = d;
-        bj = j;
-      }
-    }
-    ratrack::warp_argmin(bd, bj);
-    if (s == 0) first = bj;
-    if (lane == 0) idx[(size_t)g * k + s] = bd >= ratrack::kBig ? first : bj;
-    prev_d = bd;
-    prev_j = bj;
+  auto list = knn::HalfWarpList::empty(k, tid & 31);
+  for (int p0 = 0; p0 < m; p0 += kPiece) {
+    const int cnt = min(kPiece, m - p0);
+    const int padded = (cnt + knn::kStep - 1) / knn::kStep * knn::kStep;
+    if (p0 > 0) __syncthreads();   // every query has read the last piece
+    ratrack::stage_cloud<kThreads>(cloud, pb, mb, p0, cnt, padded, tid);
+    __syncthreads();
+    for (int s = 0; s < padded; s += knn::kStep)
+      list.step(cloud + s, p0 + s, qx, qy, qz, sqq, active);
   }
+
+  // a slot at d^2 >= kBig is padding, as masked candidates are in the plain
+  // version: it repeats slot 0, or index 0 when slot 0 is padding too
+  const float first_d = __shfl_sync(ratrack::kFullMask, list.sd, 0,
+                                    knn::kLanes);
+  const int first = __shfl_sync(ratrack::kFullMask, list.sj, 0, knn::kLanes);
+  if (!active || list.l16 >= k) return;
+  idx[((size_t)bi * n + qi) * k + list.l16] =
+      list.sd < ratrack::kBig ? list.sj
+                              : (first_d < ratrack::kBig ? first : 0);
+}
+
+template <int kQ>
+int launch_knn_tile(const float* query, const float* points,
+                    const unsigned char* mask, int nb, int n, int m, int k,
+                    int* idx, cudaStream_t st) {
+  const size_t smem = knn_smem(m);
+  const cudaError_t err = cudaFuncSetAttribute(
+      knn_staged_kernel<kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kQ - 1) / kQ, nb);
+  knn_staged_kernel<kQ><<<grid, kQ * knn::kLanes, smem, st>>>(
+      query, points, mask, n, m, k, idx);
+  return (int)cudaGetLastError();
+}
+
+// Queries a block, read off kernels/tune.py --select (NVIDIA H100 80GB
+// HBM3, 700 W): 8 up to 1,024 queries a launch (1 x 512: 0.0155 ms
+// against 0.0162 at 16 and 0.0186 at 32), 32 above (8 x 512: 0.0197
+// against 0.0202 and 0.0209; 1 x 4096: 0.0551 against 0.0574 and 0.0885,
+// where every block stages the whole cloud).
+int default_knn_queries(int nb, int n) {
+  return (long long)nb * n <= 1024 ? 8 : 32;
 }
 
 struct Mlp {
@@ -487,15 +538,22 @@ int launch_aggregate(const float* query, const float* points, const int* idx,
 
 }  // namespace
 
+// queries: queries a block (8 or 32), or 0 for default_knn_queries.
 extern "C" int ratrack_knn(const float* query, const float* points,
                            const unsigned char* mask, int nb, int n, int m,
-                           int k, int* idx, void* stream) {
-  if (nb < 1 || n < 1 || m < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)nb * n;
-  const int grid = (int)((total + kKnnWarps - 1) / kKnnWarps);
-  knn_kernel<<<grid, kKnnWarps * 32, 0, (cudaStream_t)stream>>>(
-      query, points, mask, nb, n, m, k, idx);
-  return (int)cudaGetLastError();
+                           int k, int queries, int* idx, void* stream) {
+  if (nb < 1 || nb > 65535 || n < 1 || m < 1 || k < 1 || k > knn::kK)
+    return (int)cudaErrorInvalidValue;
+  if (queries == 0) queries = default_knn_queries(nb, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (queries) {
+    case 8:
+      return launch_knn_tile<8>(query, points, mask, nb, n, m, k, idx, st);
+    case 32:
+      return launch_knn_tile<32>(query, points, mask, nb, n, m, k, idx, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Channel width and neighbour count are fixed at 256 and 16 (the model's

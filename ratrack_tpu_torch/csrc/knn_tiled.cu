@@ -28,14 +28,10 @@
 //                 over its VALID points (exact min / max, the count, sum
 //                 of max squares);
 //   knn_select_kernel a block owns a tile of Q queries, 16 lanes (half a
-//                 warp) a query, so the two queries of a warp insert side
-//                 by side. The query's running top-k of (d^2, index) is
-//                 spread over its lanes, slot s in lane s, sorted; a batch
-//                 of 16 candidates is one distance a lane, a compare with
-//                 the k-th slot and a ballot (four batches a step, for
-//                 independent chains), and each candidate that beats it is
-//                 inserted by a shuffle shift (about ten instructions), so
-//                 the k-th slot is always exact.
+//                 warp) a query: the top-k list of knn_common.cuh
+//                 (insertion, a bitonic merge for a batch that many
+//                 candidates beat), which B3's selection launch
+//                 (correlator.cu) shares.
 //                 Chunks of P candidates (128-512) come through cp.async,
 //                 double-buffered. The TPU kernel's gate 1, with boxes for
 //                 its spheres: the chunks are visited locality first (from
@@ -50,7 +46,7 @@
 // |q|^2 + |x|^2; the gate keeps a margin of 4e-6 (67 ulp) of
 // lb^2 + |q|^2_max + |x|^2_max and skips only on a strict inequality.
 // A skipped chunk holds no candidate that a query of the tile would keep,
-// and insertion orders by (d^2, index) whatever the visit order, so the
+// and the list orders by (d^2, index) whatever the visit order, so the
 // result is the plain version's index for index, ties included.
 // Measuring builds (kernels/build.py): RATRACK_KNN_NO_GATE visits every
 // chunk that holds a valid candidate; RATRACK_SKELETON does and inserts
@@ -58,33 +54,23 @@
 
 #include "common.cuh"
 #include "corr_common.cuh"
+#include "knn_common.cuh"
 
 #include <climits>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kK = 16;        // deepest list: one slot a lane of a half warp
-constexpr int kLanes = 16;    // lanes a query
+using ratrack::knn::kK;
+using ratrack::knn::kLanes;
 constexpr int kBox = 8;       // lo xyz, hi xyz, valid count, sum max(lo^2, hi^2)
 constexpr int kMaxChunk = 512;
 constexpr float kMargin = 4e-6f;
-constexpr int kUnroll = 4;     // batches of 16 candidates a step
-#ifdef RATRACK_SKELETON
-constexpr bool kSkeleton = true;   // a measuring build: no insertion
-#else
-constexpr bool kSkeleton = false;
-#endif
 #ifdef RATRACK_KNN_NO_GATE
 constexpr bool kGate = false;      // a measuring build: every valid chunk
 #else
 constexpr bool kGate = true;
 #endif
-
-// (d, j) sorts before (od, oj): nearer, or as near with the lower index.
-__device__ __forceinline__ bool before(float d, int j, float od, int oj) {
-  return d < od || (d == od && j < oj);
-}
 
 // A box of points from per-lane extremes and counts, warp-reduced; every
 // lane returns it.
@@ -198,8 +184,8 @@ knn_select_kernel(const float* __restrict__ query,
   __shared__ float qc[kQ][3];
   __shared__ float kq[kQ];
   constexpr int kThreads = kQ * kLanes;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ql = tid / kLanes, l16 = tid % kLanes, half = lane & 16;
+  const int tid = threadIdx.x;
+  const int ql = tid / kLanes, l16 = tid % kLanes;
   const int bi = blockIdx.y;
   const int qi = blockIdx.x * kQ + ql;
   const bool active = qi < n;
@@ -237,11 +223,7 @@ knn_select_kernel(const float* __restrict__ query,
     sq = __fadd_rn(sq, fmaxf(__fmul_rn(qlo[a], qlo[a]),
                              __fmul_rn(qhi[a], qhi[a])));
 
-  // slot l16 of the query's sorted list (lanes >= k hold none)
-  float sd = CUDART_INF_F;
-  int sj = INT_MAX;
-  float kd = CUDART_INF_F;    // the k-th slot, in every lane of the query
-  int kj = INT_MAX;
+  auto list = ratrack::knn::HalfWarpList::empty(k, tid & 31);
   float tile_kth = CUDART_INF_F;
 
   auto chunk_needed = [&](int c) {
@@ -264,38 +246,6 @@ knn_select_kernel(const float* __restrict__ query,
     ratrack::corr::cp_commit();
   };
 
-  // Insert, in turn, the candidates (d, j) of the lanes set in `mine` that
-  // still beat the k-th slot; both queries of the warp side by side, until
-  // neither has one left.
-  auto insert = [&](float d, int j, unsigned mine) {
-    while (__any_sync(ratrack::kFullMask, mine != 0u)) {
-      const bool have = mine != 0u;
-      const int src = have ? __ffs(mine) - 1 : 0;
-      const float nd = __shfl_sync(ratrack::kFullMask, d, src, kLanes);
-      const int nj = __shfl_sync(ratrack::kFullMask, j, src, kLanes);
-      if (have) mine &= mine - 1u;
-      const bool ins = have && before(nd, nj, kd, kj);
-      const unsigned bef =
-          (__ballot_sync(ratrack::kFullMask,
-                         l16 < k && before(sd, sj, nd, nj)) >> half) &
-          0xffffu;
-      const int pos = __popc(bef);
-      const float ud = __shfl_up_sync(ratrack::kFullMask, sd, 1, kLanes);
-      const int uj = __shfl_up_sync(ratrack::kFullMask, sj, 1, kLanes);
-      if (ins && l16 < k) {
-        if (l16 == pos) {
-          sd = nd;
-          sj = nj;
-        } else if (l16 > pos) {
-          sd = ud;
-          sj = uj;
-        }
-      }
-      kd = __shfl_sync(ratrack::kFullMask, sd, k - 1, kLanes);
-      kj = __shfl_sync(ratrack::kFullMask, sj, k - 1, kLanes);
-    }
-  };
-
   int p_cur = next_needed(0);
   if (p_cur < n_chunks) load(p_cur, buf);
   int b = 0;
@@ -310,31 +260,11 @@ knn_select_kernel(const float* __restrict__ query,
     __syncthreads();
     const int c = (c0 + p_cur) % n_chunks;
     if (chunk_needed(c)) {
-      // kUnroll batches of 16 candidates a step: their distances are
-      // independent chains, and a candidate that misses the k-th slot as
-      // it was misses it as it becomes
       const float4* cb = buf + b * chunk;
-      for (int s = 0; s < chunk; s += kUnroll * kLanes) {
-        float d[kUnroll];
-        int j[kUnroll];
-        unsigned mine[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float4 p = cb[s + u * kLanes + l16];
-          j[u] = c * chunk + s + u * kLanes + l16;
-          d[u] = p.w >= 0.0f ? ratrack::sq_dist(qx, qy, qz, sqq, p.x, p.y,
-                                                p.z, p.w)
-                             : CUDART_INF_F;
-          const bool beats = active && !kSkeleton && p.w >= 0.0f &&
-                             before(d[u], j[u], kd, kj);
-          mine[u] =
-              (__ballot_sync(ratrack::kFullMask, beats) >> half) & 0xffffu;
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) insert(d[u], j[u], mine[u]);
-      }
+      for (int s = 0; s < chunk; s += ratrack::knn::kStep)
+        list.step(cb + s, c * chunk + s, qx, qy, qz, sqq, active);
     }
-    if (l16 == 0) kq[ql] = kd;
+    if (l16 == 0) kq[ql] = list.kd;
     __syncthreads();   // the buffer is read; every query's k-th is posted
     tile_kth = -CUDART_INF_F;
     for (int t = 0; t < nq; ++t) tile_kth = fmaxf(tile_kth, kq[t]);
@@ -342,12 +272,12 @@ knn_select_kernel(const float* __restrict__ query,
     b ^= 1;
   }
 
-  const int first = __shfl_sync(ratrack::kFullMask, sj, 0, kLanes);
+  const int first = __shfl_sync(ratrack::kFullMask, list.sj, 0, kLanes);
   if (!active || l16 >= k) return;
-  const bool filled = sj != INT_MAX;
+  const bool filled = list.sj != INT_MAX;
   const size_t o = ((size_t)bi * n + qi) * k + l16;
-  idx[o] = filled ? sj : (first != INT_MAX ? first : 0);
-  keys[o] = filled ? -sd : -ratrack::kBig;
+  idx[o] = filled ? list.sj : (first != INT_MAX ? first : 0);
+  keys[o] = filled ? -list.sd : -ratrack::kBig;
 }
 
 template <int kQ>

@@ -46,9 +46,9 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _I, _P],
     "ratrack_sa_scale": [_P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _I, _P],
-    "ratrack_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P,
-                                  _P, _P],
-    "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "ratrack_three_interpolate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                  _I, _P, _P, _P],
+    "ratrack_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "ratrack_corr_aggregate": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P],
     "ratrack_corr_apply": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
@@ -74,9 +74,10 @@ SIGNATURES = {
 }
 
 # Macros of a measuring build (kernels/tune.py), never of the port's:
-# RATRACK_SKELETON makes B1 / B1' skip their layers (outputs 0) and B5
-# insert no candidate, the floor of each launch; RATRACK_KNN_NO_GATE makes
-# B5 visit every chunk that holds a valid candidate.
+# RATRACK_SKELETON makes B1 / B1' skip their layers (outputs 0), B5 and
+# B3's selection insert no candidate and B2 scan one known point a lane,
+# the floor of each launch; RATRACK_KNN_NO_GATE makes B5 visit every chunk
+# that holds a valid candidate.
 MEASURING_MACROS = ("RATRACK_SKELETON", "RATRACK_KNN_NO_GATE")
 
 _libs: dict[tuple[str, ...], ctypes.CDLL] = {}

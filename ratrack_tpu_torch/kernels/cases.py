@@ -27,6 +27,14 @@ Stretch kernels (clouds of 8192 / 16384 points, 512 centers):
 them), `apply_case` (B4), `fps_case` (B6), `sinkhorn_case` (B7), and
 `sa_case` / `fp_case` with `npoint` centers sampled from the cloud.
 
+Partition cases (numpy, shared by the CPU tests against the JAX package
+and the card tests against the kernels): `fp_partition_case` (B2: known
+counts around its lane groups, duplicated known points, few valid) and
+`select_partition_case` (B3's selection launch: candidate counts around
+its 16-lane batches and 4096-point pieces, few valid, exact ties across
+lanes), both on a 1/16 grid so that every distance is exact in both
+packages.
+
 `*_work` functions count the bytes a kernel call must move (every tensor
 of the case read once, every output written once) and the float32
 operations it needs on these inputs, the matrix products' (every x @ W
@@ -189,6 +197,77 @@ def corr_case(stage: int, pc1, mask1, pc2, mask2, gen: torch.Generator):
     return dict(query=pc1, points=pc1, feats_p=feats_p, add_q=None,
                 mask_p=mask1, mlp_ws=[], mlp_bs=[], wn_ws=wn_ws,
                 wn_bs=wn_bs)
+
+
+# Known counts of B2 and candidate counts of B3's selection around the
+# kernels' partitions (lane groups of 8 to 32, batches of 16, pieces of
+# 4096 points), as the CPU and the card tests take them.
+FP_PARTITION_KNOWN = (1, 2, 3, 33, 100, 1000)
+SELECT_PARTITION_CANDIDATES = (17, 33, 513, 4096)
+
+
+def grid_points(rng, n: int, scale: float = 8.0):
+    """(n, 3) float32 points on a 1/16 grid, |x| < 60: every expanded-form
+    and matmul-form distance between two of them is exact in float32."""
+    x = np.clip(scale * rng.randn(n, 3), -59, 59)
+    return (np.round(16 * x) / 16).astype(np.float32)
+
+
+def _near(rng, points, n: int):
+    """n grid points, each a step or two of the grid from one of
+    `points`: most have close neighbours and several at equal range."""
+    pick = points[rng.randint(0, len(points), n)]
+    return (pick + rng.randint(-2, 3, (n, 3)) / 16).astype(np.float32)
+
+
+def _repeat_earlier(rng, points, offsets):
+    """Copy points over later ones at the given index offsets (for a third
+    of the indices), so that equal distances fall on other lanes."""
+    out = points.copy()
+    m = len(out)
+    for j in range(m):
+        off = offsets[j % len(offsets)]
+        if j >= off and rng.rand() < 1 / 3:
+            out[j] = out[j - off]
+    return out
+
+
+def _valid_mask(rng, m: int, n_valid):
+    if n_valid is None:
+        return None
+    mask = np.zeros(m, bool)
+    mask[rng.permutation(m)[:n_valid]] = True
+    return mask
+
+
+def fp_partition_case(m: int, n: int = 128, c: int = 64, n_valid=None,
+                      duplicates: bool = False, seed: int = 0):
+    """One stream for B2 -> (unknown (n, 3), known (m, 3), feats (m, c),
+    known mask (m,) or None). duplicates: known points repeated 1, 3 and
+    5 places later (other lanes of every lane group). n_valid: that many
+    valid known points at random places."""
+    rng = np.random.RandomState(seed)
+    known = grid_points(rng, m)
+    if duplicates:
+        known = _repeat_earlier(rng, known, (1, 3, 5))
+    unknown = _near(rng, known, n)
+    feats = rng.randn(m, c).astype(np.float32)
+    return unknown, known, feats, _valid_mask(rng, m, n_valid)
+
+
+def select_partition_case(m: int, n: int = 64, n_valid=None,
+                          ties: bool = False, seed: int = 0):
+    """One stream for B3's selection -> (query (n, 3), points (m, 3), mask
+    (m,) bool). ties: points repeated 1, 5 and 17 places later (another
+    lane, another batch). n_valid: that many valid points at random
+    places (all valid by default)."""
+    rng = np.random.RandomState(seed)
+    points = grid_points(rng, m)
+    if ties:
+        points = _repeat_earlier(rng, points, (1, 5, 17))
+    query = _near(rng, points, n)
+    mask = _valid_mask(rng, m, m if n_valid is None else n_valid)
+    return query, points, mask
 
 
 def _zsorted(pc, mask):
@@ -609,6 +688,14 @@ def three_interpolate_work(kw: dict, out):
     b, n, _ = kw["unknown"].shape
     m, c = kw["feats"].shape[1], kw["feats"].shape[2]
     return case_bytes(kw, out), 0, b * n * (DIST_OPS * m + 6 * c + 12)
+
+
+def knn_select_work(query, points, mask, idx):
+    """B3's selection launch -> (bytes, 0, operations): one distance and
+    comparison per query and candidate."""
+    b, n, _ = query.shape
+    return (case_bytes(query, points, mask, idx), 0,
+            DIST_OPS * b * n * points.shape[1])
 
 
 def _pair_ops(kw: dict):

@@ -1,10 +1,12 @@
 """Time the launch shapes of kernel B6, the forward and backward of kernels
 B9 / B8, the backward of kernel B10, the aggregate kernel (B4, B3, B10's
-forward), kernel B7, kernels B1 / B1' and kernel B5 on the card.
+forward), kernel B7, kernels B1 / B1', kernel B5, kernel B2 and B3's
+selection launch on the card.
 
     python3 -m ratrack_tpu_torch.kernels.tune [--fps] [--sa] [--corr]
                                               [--apply] [--sinkhorn]
-                                              [--sa-eval] [--knn]
+                                              [--sa-eval] [--knn] [--fp]
+                                              [--select]
 
 B6 (`csrc/fps.cu`) takes its launch shape (threads a block, blocks a
 stream: one block, or a thread-block cluster) from a table by N; this
@@ -34,10 +36,22 @@ stages at 8192 points and stage 1 at 16384, Z-sorted and unsorted, at
 every launch shape (queries a block, candidates a chunk), as the port
 builds it (chunk gate on), with the gate off and as the skeleton (every
 chunk scanned, nothing inserted: the scan's floor)
-(ops/fused_knn.py::KERNEL_SHAPE was read off it). The skeletons and the
-gate off are measuring builds of the same sources (build.measuring), never
-the port's. One JSON line per measurement, the card's name and power limit
-first. Times are medians of 20 CUDA-event runs after 3 warm-up runs.
+(ops/fused_knn.py::KERNEL_SHAPE was read off it). For B2 (--fp) each FP
+level at 8 streams x 512 points (fp3 / fp2 / fp1: 64 / 128 / 128
+channels), fp1 of one stream (serving bucket 1) and of an 8192-point
+cloud under its 512 farthest-point centers, at every launch shape
+(unknowns a block, lanes an unknown), the kernel's own choice and its
+skeleton (one known point a lane: the staging, the merge and the
+weighted sum, the launch's floor) (csrc/fp.cu::default_shape was read
+off it). For B3's selection launch (--select) both correlator stages at
+8 streams x 512 points (eval), 1 x 512 (serving bucket 1) and 1 x 4096
+(the largest dense cloud), at every tile of queries, the kernel's own
+choice and the skeleton (every candidate staged and scanned, nothing
+inserted) (csrc/correlator.cu::default_knn_queries was read off it).
+The skeletons and the gate off are measuring builds of the same sources
+(build.measuring), never the port's. One JSON line per measurement, the
+card's name and power limit first. Times are medians of 20 CUDA-event
+runs after 3 warm-up runs.
 """
 
 from __future__ import annotations
@@ -49,8 +63,9 @@ import subprocess
 
 import torch
 
-from ..ops import (fused_correlator, fused_correlator_train, fused_knn,
-                   fused_sa, fused_sa_train, fused_sinkhorn, sampling)
+from ..ops import (fused_correlator, fused_correlator_train, fused_fp,
+                   fused_knn, fused_sa, fused_sa_train, fused_sinkhorn,
+                   sampling)
 from . import build, cases
 
 NPOINT = 512
@@ -362,6 +377,54 @@ def time_knn(emit=print, seed: int = 0):
                     lambda: fused_knn.knn_indices_tiled(**kw)))))
 
 
+def time_fp(emit=print, streams: int = 8, seed: int = 0):
+    """B2 at each FP level (`streams` x 512 points) and at fp1 of an
+    8192-point cloud under 512 centers: ms a call at every launch shape,
+    the kernel's own and its skeleton's."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    pc, mask, _, _ = cases.clouds(seed, streams, 512)
+    runs = [(f"{streams}x512.{level}", cases.fp_case(level, pc, mask, gen))
+            for level in cases.FP_LEVELS]
+    runs.append(("1x512.fp1", cases.fp_case("fp1", pc[:1], mask[:1], gen)))
+    spc, smask, _, _ = cases.stretch_clouds(seed, 8192)
+    runs.append(("8192x512.fp1", cases.fp_case("fp1", spc, smask, gen,
+                                                npoint=NPOINT)))
+    shapes = [None] + list(fused_fp.KERNEL_SHAPES)
+    for config, kw in runs:
+        kw = cases.to_device(kw, dev)
+        ms = {str(shape): device_ms(lambda: fused_fp.fused_three_interpolate(
+            **kw, shape=shape)) for shape in shapes}
+        ms["None.skeleton"] = measured_ms(
+            ["RATRACK_SKELETON"],
+            lambda: fused_fp.fused_three_interpolate(**kw))
+        emit(json.dumps(dict(kernel="three_interpolate", config=config,
+                             ms=ms)))
+
+
+def time_select(emit=print, seed: int = 0):
+    """B3's selection launch (ops.fused_correlator.launch_knn, k = 16) for
+    both stages at 8 streams x 512 points, 1 x 512 and 1 x 4096: ms a call
+    at every tile of queries, the kernel's own and the skeleton's."""
+    dev = torch.device("cuda")
+    for streams, n in ((8, 512), (1, 512), (1, 4096)):
+        pc1, m1, pc2, m2 = (cases.clouds(seed, streams, n) if n == 512
+                            else cases.stretch_clouds(seed, n))
+        for stage in (1, 2):
+            q, p, mask = [t.to(dev).contiguous() for t in (
+                (pc1, pc2, m2) if stage == 1 else (pc1, pc1, m1))]
+            ms = {str(queries): device_ms(
+                lambda: fused_correlator.launch_knn(q, p, mask, 16,
+                                                    queries=queries))
+                for queries in (None,) + fused_correlator.KNN_QUERIES}
+            ms["None.skeleton"] = measured_ms(
+                ["RATRACK_SKELETON"],
+                lambda: fused_correlator.launch_knn(q, p, mask, 16))
+            emit(json.dumps(dict(kernel="knn_select",
+                                 config=f"{streams}x{n}.stage{stage}",
+                                 ms=ms)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fps", action="store_true", help="only kernel B6")
@@ -374,9 +437,13 @@ def main() -> None:
     ap.add_argument("--sa-eval", action="store_true",
                     help="only kernels B1 / B1'")
     ap.add_argument("--knn", action="store_true", help="only kernel B5")
+    ap.add_argument("--fp", action="store_true", help="only kernel B2")
+    ap.add_argument("--select", action="store_true",
+                    help="only B3's selection launch")
     args = ap.parse_args()
     every = not (args.fps or args.sa or args.corr or args.apply
-                 or args.sinkhorn or args.sa_eval or args.knn)
+                 or args.sinkhorn or args.sa_eval or args.knn or args.fp
+                 or args.select)
     if not torch.cuda.is_available():
         raise SystemExit("tune: no CUDA device")
     print(subprocess.run(
@@ -398,6 +465,10 @@ def main() -> None:
         time_sa_eval()
     if args.knn or every:
         time_knn()
+    if args.fp or every:
+        time_fp()
+    if args.select or every:
+        time_select()
 
 
 if __name__ == "__main__":

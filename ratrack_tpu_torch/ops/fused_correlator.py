@@ -34,6 +34,8 @@ from .neighborhood import knn
 
 KERNEL_K = 16
 KERNEL_C = 256
+# queries a block of the kNN selection launch, for `launch_knn(queries=)`
+KNN_QUERIES = (8, 32)
 
 
 def knn_gather_apply_reference(idx, query, points, feats_p, add_q, mlp_ws,
@@ -88,14 +90,17 @@ def check_kernel_args(query, points, feats_p, add_q, mask_p, mlp_ws, mlp_bs,
         kb.require(bias, f"wn_b{i}", (shape[1],), dev, align16=True)
 
 
-def launch_knn(query, points, mask_p, k):
+def launch_knn(query, points, mask_p, k, *, queries: int | None = None):
     """The kNN selection launch -> idx (B, N, k) int32 (CUDA tensors that
-    check_kernel_args accepted)."""
+    check_kernel_args accepted). queries (a block) forces the launch
+    shape, for measuring; it changes no result."""
+    if queries is not None and queries not in KNN_QUERIES:
+        raise ValueError(f"queries {queries}: the kernel takes {KNN_QUERIES}")
     b, n, m = query.shape[0], query.shape[1], points.shape[1]
     idx = torch.empty((b, n, k), device=query.device, dtype=torch.int32)
     code = kb.load().ratrack_knn(kb.ptr(query), kb.ptr(points),
-                                 kb.ptr(mask_p), b, n, m, k, kb.ptr(idx),
-                                 kb.stream_of(query))
+                                 kb.ptr(mask_p), b, n, m, k, queries or 0,
+                                 kb.ptr(idx), kb.stream_of(query))
     kb.check(code, "knn")
     return idx
 

@@ -33,6 +33,7 @@ from ratrack_tpu_torch.kernels import cases
 from ratrack_tpu_torch.ops import (fused_correlator, fused_correlator_train,
                                    fused_fp, fused_knn, fused_sa,
                                    fused_sa_train, fused_sinkhorn, sampling)
+from ratrack_tpu_torch.ops.neighborhood import knn
 
 pytestmark = pytest.mark.cuda
 
@@ -1029,7 +1030,7 @@ def test_aggregate_and_sinkhorn_launches_per_call(device, what):
         else:
             got = _package_kernels(
                 lambda: _corr_train_kernel(**kw, w_dir=w_dir))
-    assert sorted(got) == ["aggregate_kernel", "knn_kernel"], got
+    assert sorted(got) == ["aggregate_kernel", "knn_staged_kernel"], got
 
 
 # ---- B9 / B8 forward (one cluster launch) and B10 backward (3xTF32) -------
@@ -1234,13 +1235,16 @@ def _canary_fp_and_stretch(lib, stream, guard, pc, mask, device):
     b, n = pc.shape[:2]
     kw = cases.to_device(cases.fp_case("fp1", pc, mask, _gen(75)), device)
     m, c = kw["known"].shape[1], kw["feats"].shape[-1]
-    kb.check(lib.ratrack_three_interpolate(
-        kb.ptr(kw["unknown"]), kb.ptr(kw["known"]), kb.ptr(kw["feats"]),
-        kb.ptr(mask.to(device)), b, n, m, c, fused_fp.EPS,
-        kb.ptr(guard.view((b, n, c), name="three_interpolate.out")),
-        kb.ptr(guard.view((b, n, 3), torch.int32,
-                          name="three_interpolate.idx")), stream),
-        "three_interpolate")
+    # its own launch shape and every one it offers (33 unknowns: the last
+    # tile part-full)
+    for queries, lanes in [(0, 0)] + FP_SHAPES[1:]:
+        name = f"three_interpolate[{queries},{lanes}]"
+        kb.check(lib.ratrack_three_interpolate(
+            kb.ptr(kw["unknown"]), kb.ptr(kw["known"]), kb.ptr(kw["feats"]),
+            kb.ptr(mask.to(device)), b, n, m, c, fused_fp.EPS, queries,
+            lanes, kb.ptr(guard.view((b, n, c), name=f"{name}.out")),
+            kb.ptr(guard.view((b, n, 3), torch.int32, name=f"{name}.idx")),
+            stream), name)
     xyz, dmask = pc.to(device), mask.to(device)
     # the smallest and largest shapes and the kernel's own (8, 256)
     for queries, chunk in ((8, 128), fused_knn.KERNEL_SHAPE, (32, 512)):
@@ -1293,9 +1297,12 @@ def _canary_correlator(lib, stream, guard, pc, mask, device):
         ck = cases.to_device(cases.corr_train_case(
             stage, pc, mask, pc2, mask, _gen(73)), device)
         clouds = (kb.ptr(ck["query"]), kb.ptr(ck["points"]))
-        idx = guard.view((b, n, 16), torch.int32, name=f"knn{stage}.idx")
-        kb.check(lib.ratrack_knn(*clouds, kb.ptr(ck["mask_p"]), b, n, n, 16,
-                                 kb.ptr(idx), stream), "knn")
+        # the selection at its own tile and every one it offers
+        for queries in (0,) + fused_correlator.KNN_QUERIES:
+            idx = guard.view((b, n, 16), torch.int32,
+                             name=f"knn{stage}[{queries}].idx")
+            kb.check(lib.ratrack_knn(*clouds, kb.ptr(ck["mask_p"]), b, n, n,
+                                     16, queries, kb.ptr(idx), stream), "knn")
         head = (*clouds, kb.ptr(idx), b, n, n, kb.ptr(ck["feats_p"]),
                 kb.ptr(ck["add_q"]))
         for name in ("corr_aggregate", "corr_apply"):
@@ -1447,8 +1454,9 @@ CANARY_ENTRIES = {
 
 @pytest.mark.parametrize("n_valid", [33, 1, 0])
 def test_kernels_write_only_inside_their_outputs(device, n_valid):
-    """Every C entry of the library (CANARY_ENTRIES: B1, B1', B2, B3's two
-    launches, B4 at both block shapes, B5, B6 at four launch shapes, B7
+    """Every C entry of the library (CANARY_ENTRIES: B1, B1', B2 at every
+    launch shape, B3's two launches (the selection at every tile), B4 at
+    both block shapes, B5, B6 at four launch shapes, B7
     and each of its variants, the B9 / B8 forward
     and backward, the B10 forward and backward, both correlator stages),
     called directly, with every output and scratch pointer a view inside
@@ -1673,12 +1681,26 @@ def test_measuring_builds_stay_apart_from_the_ports(device):
     _assert_knn_matches(kn, shapes=[])
 
 
-@pytest.mark.parametrize("what", ["pair", "scale", "knn"])
+@pytest.mark.parametrize("what", ["pair", "scale", "knn", "fp", "select"])
 def test_sa_and_knn_launches_per_call(device, what):
     """CUDA kernels one wrapper call launches, counted by torch.profiler
     over one call at each tile (B1, B1': one launch of the SA
-    kernel each) or at each launch shape (B5: the packing launch and the
-    selection launch each), all in one torch.profiler run."""
+    kernel each; B3's selection: one launch) or at each launch shape (B5:
+    the packing launch and the selection launch each; B2: one launch),
+    all in one torch.profiler run."""
+    if what == "fp":
+        kw = cases.to_device(cases.fp_case("fp2", *cases.clouds(88, 2)[:2],
+                                           _gen(88)), device)
+        got = _package_kernels(lambda: [fused_fp.fused_three_interpolate(
+            **kw, shape=shape) for shape in FP_SHAPES])
+        assert got == ["three_interpolate_kernel"] * len(FP_SHAPES), got
+        return
+    if what == "select":
+        pc1, m1, pc2, m2 = [t.to(device) for t in cases.clouds(88, 2)]
+        got = _package_kernels(lambda: [fused_correlator.launch_knn(
+            pc1, pc2, m2, 16, queries=q) for q in SELECT_QUERIES])
+        assert got == ["knn_staged_kernel"] * len(SELECT_QUERIES), got
+        return
     if what == "knn":
         kw = cases.to_device(cases.knn_tiled_case(
             1, *_stretch_clouds(88, 2048)), device)
@@ -1697,3 +1719,146 @@ def test_sa_and_knn_launches_per_call(device, what):
         got = _package_kernels(lambda: [fused_sa.sa_scale(
             **single, tile=tile) for tile in SA_TILES])
     assert got == ["sa_kernel"] * len(SA_TILES), got
+
+
+# ---- B2 over lane groups, B3's selection in one pass ----------------------
+
+FP_SHAPES = [None] + list(fused_fp.KERNEL_SHAPES)
+SELECT_QUERIES = (None,) + fused_correlator.KNN_QUERIES
+
+
+def _stream(device, *arrays):
+    """numpy arrays of one stream as (1, ...) tensors on `device`."""
+    return [None if a is None else
+            torch.from_numpy(np.ascontiguousarray(a))[None].to(device)
+            for a in arrays]
+
+
+def _assert_fp_shapes_match(unknown, known, feats, mask=None,
+                            shapes=FP_SHAPES):
+    ref, ridx = fused_fp.three_interpolate_reference(unknown, known, feats,
+                                                     mask)
+    for shape in shapes:
+        out, idx = fused_fp.fused_three_interpolate(
+            unknown, known, feats, mask, return_indices=True, shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(idx.long(), ridx), shape
+        _assert_close(out, ref)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("m", cases.FP_PARTITION_KNOWN + (5000,))
+def test_fp_every_shape_at_lane_group_shapes(device, m, n):
+    """The CPU tests' known counts (fewer than 3, lane groups part-filled)
+    and 5000 (two staged pieces of 4096), at every launch shape."""
+    _assert_fp_shapes_match(*_stream(device, *cases.fp_partition_case(
+        m, n, seed=m + n)))
+
+
+@pytest.mark.parametrize("n_valid", [None, 0, 1, 2])
+def test_fp_every_shape_duplicates_and_few_valid(device, n_valid):
+    """Known points repeated 1, 3 and 5 places later (ties on other lanes
+    of a group), all valid or 0, 1, 2 of them."""
+    _assert_fp_shapes_match(*_stream(device, *cases.fp_partition_case(
+        100, 256, c=128, n_valid=n_valid, duplicates=True, seed=97)))
+
+
+@pytest.mark.parametrize("n, npoint", [(4096, None), (8192, 512)])
+def test_fp_every_shape_at_the_large_shapes(device, n, npoint):
+    """One stream of 4096 unknowns over 4096 known points and the stretch
+    fp1, 8192 unknowns over 512 farthest-point centers."""
+    pc, mask, _, _ = cases.stretch_clouds(90, n)
+    kw = cases.to_device(cases.fp_case("fp1", pc, mask, _gen(90),
+                                       npoint=npoint), device)
+    _assert_fp_shapes_match(kw["unknown"], kw["known"], kw["feats"])
+
+
+def _assert_select_matches(query, points, mask, queries=SELECT_QUERIES):
+    _, ridx = knn(16, query, points, mask)
+    for q in queries:
+        idx = fused_correlator.launch_knn(query, points, mask, 16, queries=q)
+        torch.cuda.synchronize()
+        assert torch.equal(idx.long(), ridx), q
+
+
+@pytest.mark.parametrize("m", cases.SELECT_PARTITION_CANDIDATES + (5000,))
+def test_select_every_tile_at_batch_shapes(device, m):
+    """The CPU tests' candidate counts (a part-filled last batch of 16, a
+    whole 4096-point piece) and 5000 (two pieces), at every tile."""
+    _assert_select_matches(*_stream(device, *cases.select_partition_case(
+        m, seed=m)))
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 15, 16, 17])
+def test_select_every_tile_few_valid(device, n_valid):
+    _assert_select_matches(*_stream(device, *cases.select_partition_case(
+        513, n_valid=n_valid, seed=100 + n_valid)))
+
+
+@pytest.mark.parametrize("m", [33, 4096])
+def test_select_every_tile_ties_across_lanes(device, m):
+    _assert_select_matches(*_stream(device, *cases.select_partition_case(
+        m, ties=True, seed=120 + m)))
+
+
+def test_select_every_tile_at_the_path_shapes(device):
+    """Both correlator stages at 8 streams x 512 points (eval) and one
+    stream of 4096 (the largest dense cloud)."""
+    for pc1, m1, pc2, m2 in (cases.clouds(91, 8), cases.stretch_clouds(91,
+                                                                        4096)):
+        pc1, m1, pc2, m2 = [t.to(device) for t in (pc1, m1, pc2, m2)]
+        _assert_select_matches(pc1, pc2, m2)
+        _assert_select_matches(pc1, pc1, m1)
+
+
+def test_fp_and_select_repeat_run_to_run(device):
+    """B2 and B3's selection give identical results twice on the same
+    inputs, at the eval shape."""
+    pc1, m1, pc2, m2 = [t.to(device) for t in cases.clouds(92, 8)]
+    kw = cases.to_device(cases.fp_case("fp1", pc1.cpu(), m1.cpu(),
+                                       _gen(92)), device)
+    a = fused_fp.fused_three_interpolate(**kw, return_indices=True)
+    b = fused_fp.fused_three_interpolate(**kw, return_indices=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    i1 = fused_correlator.launch_knn(pc1, pc2, m2, 16)
+    i2 = fused_correlator.launch_knn(pc1, pc2, m2, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(i1, i2)
+
+
+def test_fp_and_select_measuring_builds(device):
+    """The skeleton of B3's selection stages and scans but inserts nothing
+    (every index 0); B2's scans one known point a lane (indices in range,
+    outputs finite). After the block the port's kernels select as the
+    plain versions again."""
+    pc1, m1, pc2, m2 = [t.to(device) for t in cases.clouds(93, 2)]
+    kw = cases.to_device(cases.fp_case("fp2", pc1.cpu(), m1.cpu(),
+                                       _gen(93)), device)
+    with kb.measuring("RATRACK_SKELETON"):
+        idx = fused_correlator.launch_knn(pc1, pc2, m2, 16)
+        out, fidx = fused_fp.fused_three_interpolate(**kw,
+                                                     return_indices=True)
+        torch.cuda.synchronize()
+    assert not bool(idx.any())
+    m = kw["known"].shape[1]
+    assert bool(((fidx >= 0) & (fidx < m)).all())
+    assert bool(torch.isfinite(out).all())
+    _assert_select_matches(pc1, pc2, m2, queries=[None])
+    _assert_fp_shapes_match(kw["unknown"], kw["known"], kw["feats"],
+                            shapes=[None])
+
+
+def test_fp_and_select_refuse_what_the_kernels_do_not_take(device):
+    """B2 raises on a channel count that is not a multiple of 4 (float4
+    rows) and on a launch shape it does not offer; the selection on a tile
+    it does not offer."""
+    pc1, m1, pc2, m2 = [t.to(device) for t in cases.clouds(94, 2)]
+    feats = torch.randn((2, pc1.shape[1], 6), device=device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_fp.fused_three_interpolate(pc1, pc1, feats)
+    with pytest.raises(ValueError, match="shape"):
+        fused_fp.fused_three_interpolate(pc1, pc1, feats[..., :4].contiguous(),
+                                         shape=(64, 8))
+    with pytest.raises(ValueError, match="queries"):
+        fused_correlator.launch_knn(pc1, pc2, m2, 16, queries=12)

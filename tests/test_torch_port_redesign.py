@@ -42,8 +42,28 @@ ragged last chunk, k below 16, fewer valid candidates than k, and an
 unsorted clustered cloud, against the JAX `knn_indices_tiled` in interpret
 mode with 128-candidate chunks: indices equal, keys within 1e-4 x max.
 
-The measuring builds that kernels/tune.py times B1 and B5 with (the
-skeleton, the gate off) are keyed apart from the port's own build.
+B2: a block stages the known cloud and G = 8 to 32 lanes share an
+unknown, each lane a strided share of the known points, merged by three
+(d^2, index) argmins over the group; so the cases have known counts 1, 2,
+3, 33, 100 and 1000 (fewer than 3; groups part-filled), 128 and 256
+unknowns, known points repeated 1, 3 and 5 places later (equal distances
+on other lanes of a group) and 0, 1 or 2 valid known points, against the
+JAX `fused_three_interpolate` in interpret mode in float32: values within
+1e-5 x max|jax|, indices equal to JAX `knn(3, ...)` where M >= 3.
+
+B3's selection: one pass over the staged cloud, 16 lanes a query taking
+batches of 16 candidates, so the cases have 17, 33, 513 and 4096
+candidates, 0, 1, 15, 16 and 17 valid, and points repeated 1, 5 and 17
+places later (ties across lanes and batches), against JAX `knn(16, ...)`:
+indices equal, squared distances within 1e-5 relative. Both sets of
+cases come from kernels/cases.py (`fp_partition_case`,
+`select_partition_case`), on a 1/16 grid so that every distance is exact
+in both packages; the card tests hold the kernels to the plain versions
+at the same cases.
+
+The measuring builds that kernels/tune.py times B1, B2, B3's selection
+and B5 with (the skeleton, the gate off) are keyed apart from the port's
+own build.
 """
 
 import jax
@@ -53,6 +73,8 @@ import pytest
 import torch
 
 from ratrack_tpu.ops import pallas_sa
+from ratrack_tpu.ops.neighborhood import knn as j_knn
+from ratrack_tpu.ops.pallas_fp import fused_three_interpolate as j_fp
 from ratrack_tpu.ops.pallas_correlator_train import \
     knn_weight_aggregate_reference as jcorr_reference
 from ratrack_tpu.ops.pallas_knn import knn_indices_tiled as j_knn_tiled
@@ -62,10 +84,12 @@ from ratrack_tpu_torch.kernels import build as kb
 from ratrack_tpu_torch.kernels import cases
 from ratrack_tpu_torch.ops.fused_correlator_train import \
     fused_knn_weight_aggregate_train
+from ratrack_tpu_torch.ops.fused_fp import three_interpolate_reference
 from ratrack_tpu_torch.ops.fused_knn import knn_indices_tiled
 from ratrack_tpu_torch.ops.fused_sa import fused_sa_pair, fused_sa_scale
 from ratrack_tpu_torch.ops.fused_sa_train import (fused_sa_pair_train,
                                                   fused_sa_scale_train)
+from ratrack_tpu_torch.ops.neighborhood import knn
 from ratrack_tpu_torch.ops.sampling import (furthest_point_sample,
                                             furthest_point_sample_reference)
 
@@ -445,6 +469,103 @@ def test_knn_plain_unsorted_clusters_and_few_valid_match_jax():
     few[rng.permutation(700)[:9]] = True
     valid = _assert_knn_matches_jax(q, p, few, 16)
     assert int(valid.sum()) == 150 * 9
+
+
+# ---- B2 over lane groups, B3's selection in one pass --------------------
+
+def _jnp_or_none(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t1(x):
+    """A numpy array of one stream as a (1, ...) tensor; None stays."""
+    return None if x is None else _t(x)[None]
+
+
+def _assert_fp_matches_jax(unknown, known, feats, mask):
+    want = np.asarray(j_fp(
+        jnp.asarray(unknown), jnp.asarray(known), jnp.asarray(feats),
+        _jnp_or_none(mask), compute_dtype=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST, interpret=True))
+    got, idx = three_interpolate_reference(_t1(unknown), _t1(known),
+                                           _t1(feats), _t1(mask))
+    assert idx.shape == (1, len(unknown), 3)
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    if len(known) >= 3:
+        _, w_idx = j_knn(3, jnp.asarray(unknown), jnp.asarray(known),
+                         _jnp_or_none(mask))
+        np.testing.assert_array_equal(idx[0].numpy(), np.asarray(w_idx))
+    return idx[0]
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("m", cases.FP_PARTITION_KNOWN)
+def test_fp_plain_at_lane_group_shapes_matches_jax(m, n):
+    """Known counts below 3 (the nearest repeated), and 33, 100, 1000,
+    which leave lane groups of 4 and 8 part-filled."""
+    idx = _assert_fp_matches_jax(*cases.fp_partition_case(m, n, seed=m + n))
+    if m < 3:
+        assert bool((idx[:, m:] == idx[:, :1]).all())
+
+
+def test_fp_plain_duplicated_known_points_match_jax():
+    """Known points repeated 1, 3 and 5 places later: equal distances on
+    other lanes of a group go to the lowest index."""
+    _assert_fp_matches_jax(*cases.fp_partition_case(100, 256, c=128,
+                                                     duplicates=True,
+                                                     seed=97))
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 2])
+def test_fp_plain_few_valid_known_points_match_jax(n_valid):
+    """0, 1 or 2 valid known points of 33: slots past them repeat the
+    nearest; none valid gives index 0 with uniform weights."""
+    unknown, known, feats, mask = cases.fp_partition_case(
+        33, 128, n_valid=n_valid, seed=98 + n_valid)
+    idx = _assert_fp_matches_jax(unknown, known, feats, mask)
+    if n_valid == 0:
+        assert not bool(idx.any())
+    else:
+        assert bool(mask[idx.numpy()].all())
+        assert bool((idx[:, n_valid:] == idx[:, :1]).all())
+
+
+def _assert_select_matches_jax(query, points, mask, k=16):
+    w_d, w_idx = j_knn(k, jnp.asarray(query), jnp.asarray(points),
+                       jnp.asarray(mask))
+    d, idx = knn(k, _t1(query), _t1(points), _t1(mask))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(w_idx))
+    np.testing.assert_allclose(d[0].numpy(), np.asarray(w_d), rtol=1e-5,
+                               atol=0)
+    return idx[0]
+
+
+@pytest.mark.parametrize("m", cases.SELECT_PARTITION_CANDIDATES)
+def test_knn_plain_at_select_batch_shapes_matches_jax(m):
+    """17, 33, 513 candidates (a part-filled last batch of 16) and 4096
+    (one whole staged piece), all valid."""
+    _assert_select_matches_jax(*cases.select_partition_case(m, seed=m))
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 15, 16, 17])
+def test_knn_plain_few_valid_candidates_matches_jax(n_valid):
+    """Around k = 16 valid of 513: slots past the valid count repeat the
+    nearest; none valid gives index 0."""
+    idx = _assert_select_matches_jax(*cases.select_partition_case(
+        513, n_valid=n_valid, seed=100 + n_valid))
+    if n_valid < 16:
+        assert bool((idx[:, max(n_valid, 1):] == idx[:, :1]).all())
+    if n_valid == 0:
+        assert not bool(idx.any())
+
+
+@pytest.mark.parametrize("m", [33, 4096])
+def test_knn_plain_ties_across_lanes_matches_jax(m):
+    """Points repeated 1, 5 and 17 places later (another lane of the
+    query's half warp, another batch): ties go to the lowest index."""
+    _assert_select_matches_jax(*cases.select_partition_case(
+        m, ties=True, seed=120 + m))
 
 
 # ---- measuring builds ----------------------------------------------------
