@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval, train, stretch, general-SA-level and
-serving paths on one NVIDIA GPU and check them.
+serving paths and its CLI on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -107,6 +107,23 @@ Phases, each printing one line:
                 fp1 levels select through it too); then frames/s and peak
                 memory at 8192 points x 2 streams x 8 frames and 16384 x 1
                 x 4 (one warm-up, median of 3, no gate).
+  16. cli       the port's CLI (`ratrack_tpu_torch.main.main`) in this
+                process, in a temporary directory: train with
+                configs/synth_train.yaml (4 streams x 8-frame scans at 256
+                points, cut to 2 epochs with 1 of pretraining: the
+                `cuts` field), launch counts 9 / 9 / 2 / 2 of B9 / B10 a
+                frame step and no eval kernel, the checkpoint files; eval
+                with configs/synth_eval.yaml from that best.pt (the cached
+                scan, B1 / B2 6T+3 and B3 2T a chunk, no train kernel),
+                frames/s as the CLI measures them, the seconds the loop
+                waited for the data pipeline and those the pipeline spent
+                building records, the MOT table; the eval on 6 frames of
+                each val clip on the card and with --cpu from the same
+                file: 0 result files, label and track-id mismatches, conf
+                and the segmentation / flow means within 5e-4; then one
+                train epoch and one eval over a VoD fixture tree (10
+                frames of delft_2 and of delft_10) with its MOT table and
+                the native library's route.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's), error, times
@@ -124,7 +141,7 @@ a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
-and 12-15 record their failed checks and go on, so that one run reports
+and 12-16 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
@@ -133,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -156,6 +174,9 @@ STRETCH_SCAN = ((8192, 16), (16384, 8))    # (points, frames), one stream
 TRAIN_STRETCH_SLICE_N = 8192                # one stream, one frame step
 TRAIN_STRETCH_SCAN = ((8192, 2, 8), (16384, 1, 4))  # points, streams, frames
 SERVE_SCANS = 4
+CLI_TRAIN_CUTS = {"epochs": 2, "pretrain_epochs": 1}   # of synth_train.yaml
+CLI_CUT_FRAMES = 6        # synth_frames of the eval run on card and CPU
+CLI_VOD_FRAMES = 10       # fixture frames of each VoD clip (train, val)
 SERVE_CALLS = 50
 SERVE_WARMUP = 5
 REPS = 20
@@ -223,7 +244,7 @@ TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
                       EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS)
 
 
-FAILED: list = []   # failed checks of phases 6-8 and 12-15
+FAILED: list = []   # failed checks of phases 6-8 and 12-16
 
 
 def fail(msg: str) -> None:
@@ -1507,6 +1528,200 @@ def phase_train_stretch(torch, seed: int, card: str):
         del model, scan, frames, items
 
 
+def run_cli(cfg: dict, tmp: str, name: str, cpu: bool = False):
+    """The port's CLI in this process on cfg (written as tmp/name.yaml);
+    its console output is kept out of this script's (run.log has it).
+    -> (what `main` returns, the console output)."""
+    import contextlib
+    import io
+    import yaml
+    from ratrack_tpu_torch.main import main as cli
+
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = cli(["--config", path] + (["--cpu"] if cpu else []))
+    return res, out.getvalue()
+
+
+def result_tree_diff(got_root: str, want_root: str):
+    """Two result trees compared by the rule of the CLI parity tests:
+    -> (result files in one tree only, result lines whose points differ,
+    lines with the same points and another track id, the largest conf
+    difference)."""
+    import numpy as np
+    from ratrack_tpu_torch.eval.export import parse_frame_results
+
+    def tree(root):
+        return {os.path.relpath(os.path.join(d, n), root):
+                parse_frame_results(os.path.join(d, n))
+                for d, _, names in os.walk(root) for n in names}
+
+    got, want = tree(got_root), tree(want_root)
+    files = len(set(got) ^ set(want))
+    labels = ids = 0
+    conf_err = 0.0
+    for path in set(got) & set(want):
+        labels += abs(len(got[path]) - len(want[path]))
+        for (gc, gt, gp), (wc, wt, wp) in zip(got[path], want[path]):
+            if gp.shape != wp.shape or not np.array_equal(gp, wp):
+                labels += 1
+            elif gt != wt:
+                ids += 1
+            conf_err = max(conf_err, abs(gc - wc))
+    return files, labels, ids, conf_err
+
+
+def expected_cli_eval_launches(stats: dict, t: int):
+    """Eval kernel launches of the CLI's chunked scan: a cached chunk
+    launches as expected_launches(t), an uncached one 9 B1 and 9 B2 a
+    frame (both heads and the decoder's) and 2 B3."""
+    cached = stats["cached_chunks"]
+    plain = stats["chunks"] - cached
+    want = {k: cached * v for k, v in expected_launches(t).items()}
+    want["sa_pair"] += plain * 9 * t
+    want["three_interpolate"] += plain * 9 * t
+    want["knn_weight_aggregate"] += plain * 2 * t
+    return want
+
+
+def phase_cli(torch, card: str):
+    """Phase 16: the port's CLI on the card, in this process, in a
+    temporary directory: train with configs/synth_train.yaml (cut to
+    CLI_TRAIN_CUTS), eval with configs/synth_eval.yaml from that best.pt,
+    the eval on a cut of the val frames on the card and with --cpu from the
+    same file (result trees and metric means held equal), then one train
+    epoch and one eval over a VoD fixture tree."""
+    import shutil
+    import tempfile
+    import yaml
+    from ratrack_tpu_torch.data import native
+    from ratrack_tpu_torch.data.fixture import make_vod_fixture
+    from ratrack_tpu_torch.data.pipeline import (CLIP_RANGES, TRAIN_CLIPS,
+                                                 VAL_CLIPS)
+    from ratrack_tpu_torch.eval.run import format_table
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def shipped(name):
+        with open(os.path.join(here, "configs", name)) as f:
+            return yaml.safe_load(f)
+
+    def mot(m):
+        return {k: m[k] for k in ("samota", "amota", "mota")}
+
+    tmp = tempfile.mkdtemp(prefix="ratrack_cli_")
+    try:
+        dirs = {"checkpoints_dir": os.path.join(tmp, "checkpoints"),
+                "results_dir": os.path.join(tmp, "results")}
+        train_cfg = {**shipped("synth_train.yaml"), **CLI_TRAIN_CUTS, **dirs}
+        reset_counters()
+        t0 = time.time()
+        res, _ = run_cli(train_cfg, tmp, "train")
+        launches = read_counters()
+        epochs = res["train"]
+        steps = sum(e["frames"] for e in epochs) // train_cfg["dp"]
+        if launches != expected_train_launches(steps):
+            record_failure(f"cli train launch counts {launches}, expected "
+                           f"{expected_train_launches(steps)}")
+        models = os.path.join(dirs["checkpoints_dir"],
+                              train_cfg["exp_name"], "models")
+        found = sorted(os.listdir(models))
+        want_files = ["best.pt", "last.pt"] + [
+            f"last{e}.pt" for e in range(CLI_TRAIN_CUTS["epochs"])]
+        if found != sorted(want_files):
+            record_failure(f"cli checkpoints {found}, expected {want_files}")
+        emit(phase="cli", step="train", config="configs/synth_train.yaml",
+             cuts={**CLI_TRAIN_CUTS, **{k: "<tmp>" for k in dirs}},
+             streams=train_cfg["dp"], frames_per_scan=train_cfg[
+                 "scan_frames"], points=train_cfg["n_max"],
+             frames_per_s=[e["fps"] for e in epochs],
+             frame_steps=[e["frames"] for e in epochs],
+             data_wait_s=[e["data_wait_s"] for e in epochs],
+             data_build_s=[e["data_build_s"] for e in epochs],
+             seconds_per_epoch=[e["seconds"] for e in epochs],
+             loss=[e["Loss"] for e in epochs], launches=launches,
+             checkpoints=found, seconds=time.time() - t0, card=card)
+
+        eval_cfg = {**shipped("synth_eval.yaml"), **dirs}
+        reset_counters()
+        res, _ = run_cli(eval_cfg, tmp, "eval")
+        launches = read_counters()
+        ev = res["eval"]
+        want = expected_cli_eval_launches(ev, eval_cfg["scan_frames"])
+        if launches != want:
+            record_failure(f"cli eval launch counts {launches}, expected "
+                           f"{want}")
+        if not all(math.isfinite(v) for v in {**ev["seg"],
+                                               **ev["flow"]}.values()):
+            record_failure("cli eval: metric means not finite")
+        emit(phase="cli", step="eval", config="configs/synth_eval.yaml",
+             cuts={k: "<tmp>" for k in dirs}, frames=ev["frames"],
+             frames_per_s=ev["fps"], data_wait_s=ev["data_wait_s"],
+             data_build_s=ev["data_build_s"], eval_seconds=ev["seconds"],
+             chunks=ev["chunks"], cached_chunks=ev["cached_chunks"],
+             mot=mot(ev["mot"]), seg=ev["seg"], launches=launches,
+             checkpoint=os.path.join("<tmp>", train_cfg["exp_name"],
+                                     "models", "best.pt"), card=card)
+        print(format_table(ev["mot"]), flush=True)
+
+        cut = {**eval_cfg, "synth_frames": CLI_CUT_FRAMES}
+        runs = {}
+        for device in ("cuda", "cpu"):
+            cfg = {**cut, "results_dir": os.path.join(tmp, f"res_{device}")}
+            runs[device] = run_cli(cfg, tmp, f"cut_{device}",
+                                   cpu=device == "cpu")[0]["eval"]
+        files, labels, ids, conf_err = result_tree_diff(
+            os.path.join(tmp, "res_cuda"), os.path.join(tmp, "res_cpu"))
+        mean_err = max(abs(runs["cuda"][g][k] - runs["cpu"][g][k])
+                       for g in ("seg", "flow") for k in runs["cpu"][g])
+        emit(phase="cli", step="card_vs_cpu", frames=runs["cpu"]["frames"],
+             synth_frames=CLI_CUT_FRAMES,
+             mismatches={"files": files, "labels": labels,
+                         "track_ids": ids},
+             conf_err=conf_err, metric_mean_err=mean_err,
+             cpu_frames_per_s=runs["cpu"]["fps"],
+             mot_card=mot(runs["cuda"]["mot"]),
+             mot_cpu=mot(runs["cpu"]["mot"]))
+        if files or labels or ids or conf_err > 5e-4 or mean_err > 5e-4:
+            record_failure(f"cli card vs cpu: files {files}, labels "
+                           f"{labels}, track ids {ids}, conf {conf_err}, "
+                           f"metric means {mean_err}")
+
+        root = os.path.join(tmp, "vod")
+        clips_dir = os.path.join(tmp, "clips")
+        os.makedirs(clips_dir)
+        for clip in TRAIN_CLIPS + VAL_CLIPS:
+            first = CLIP_RANGES[clip][0]
+            frames = []
+            if clip in ("delft_2", "delft_10"):
+                frames = list(range(first, first + CLI_VOD_FRAMES))
+                make_vod_fixture(root, frames)
+            with open(os.path.join(clips_dir, f"{clip}.txt"), "w") as f:
+                f.write("\n".join(str(i) for i in frames))
+        vod = {**train_cfg, "dataset": "vod", "dataset_path": root,
+               "clips_dir": clips_dir, "epochs": 1, "exp_name": "vod"}
+        t0 = time.time()
+        tr = run_cli(vod, tmp, "vod_train")[0]["train"][0]
+        ev = run_cli({**vod, "eval": True, "load_checkpoint": True},
+                     tmp, "vod_eval")[0]["eval"]
+        emit(phase="cli", step="vod_fixture", clips=["delft_2", "delft_10"],
+             frames_per_clip=CLI_VOD_FRAMES, train_frames_per_s=tr["fps"],
+             train_data_build_s=tr["data_build_s"],
+             train_seconds=tr["seconds"], train_loss=tr["Loss"],
+             eval_data_build_s=ev["data_build_s"], eval_frames=ev["frames"],
+             eval_frames_per_s=ev["fps"], mot=mot(ev["mot"]),
+             native_route=native.route(), seconds=time.time() - t0)
+        print(format_table(ev["mot"]), flush=True)
+        if ev["frames"] != CLI_VOD_FRAMES - 1:
+            record_failure(f"cli vod eval: {ev['frames']} frames, expected "
+                           f"{CLI_VOD_FRAMES - 1}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_summary(log: str):
     """[{kernel, registers, spill_stores}] from nvcc's -Xptxas -v output."""
     out, name = [], None
@@ -1573,8 +1788,9 @@ def main() -> None:
     scale_launches = phase_general_slice(torch, SEED)
     phase_serving(torch, SEED, card)
     phase_train_stretch(torch, SEED, card)
+    phase_cli(torch, card)
     if FAILED:
-        fail(f"{len(FAILED)} failed checks in phases 12-15")
+        fail(f"{len(FAILED)} failed checks in phases 12-16")
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},

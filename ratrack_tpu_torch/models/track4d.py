@@ -176,7 +176,9 @@ def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
     track4d.py:225-236). `sinkhorn_kernel` is no config key (the JAX
     package switches it with a module global). Raises on what the port
     does not implement, rather than ignore it: a Sinkhorn early exit
-    (`sinkhorn_tol` > 0) and a compute dtype other than float32."""
+    (`sinkhorn_tol` > 0), a compute dtype other than float32, and
+    `fused_sa: false` (the JAX package's switch to its unfused path; the
+    port has no such switch: on the card it always runs its kernels)."""
     if cfg.sinkhorn_tol != 0:
         raise NotImplementedError(
             f"sinkhorn_tol={cfg.sinkhorn_tol}: the Sinkhorn early exit is "
@@ -184,6 +186,10 @@ def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the port computes in float32 only")
+    if not cfg.fused_sa:
+        raise NotImplementedError(
+            "fused_sa=False: the port has no switch to its plain versions; "
+            "on the card it always runs its kernels")
     return Track4D(
         npoint=cfg.npoints, k_max=cfg.k_max, feat_dim=cfg.feat_dim,
         gru_layers=cfg.gru_layers, min_obj_points=cfg.min_obj_points,

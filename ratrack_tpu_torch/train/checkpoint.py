@@ -5,11 +5,16 @@ not carried over: `torch.save` of the state dicts, read back with
 `torch.load(weights_only=True)` into an existing TrainState, so resuming
 gives the same next step as not stopping. Names follow the JAX package's
 last / last<ep> / best convention: <root>/<name>.pt.
+
+A `.pt` file may also be a reference-format state_dict
+(`utils/convert.py::save_reference_checkpoint`); `is_train_checkpoint`
+tells the two apart by content.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 
 import torch
 
@@ -32,6 +37,23 @@ def save_train_state(root: str, name: str, ts: TrainState) -> str:
                 "step": ts.step}, tmp)
     os.replace(tmp, path)
     return path
+
+
+def latest_exists(root: str, name: str = "last") -> bool:
+    """True iff <root>/<name>.pt exists."""
+    return os.path.isfile(_path(root, name))
+
+
+def is_train_checkpoint(path: str) -> bool:
+    """True iff `path` holds one of this module's checkpoints: a dict with
+    model, optimizer, scheduler and step. False for anything else, a
+    reference state_dict or a whole-module pickle among them."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # weights_only refuses a module pickle
+        return False
+    return isinstance(ckpt, dict) and {
+        "model", "optimizer", "scheduler", "step"} <= set(ckpt)
 
 
 def restore_train_state(root: str, name: str, ts: TrainState) -> TrainState:

@@ -447,6 +447,15 @@ def test_model_from_config_builds_and_raises_on_unsupported_keys():
         model_from_config(cfg.replace(dtype="bfloat16"), device="cpu")
 
 
+def test_model_from_config_raises_on_fused_sa_false():
+    """`fused_sa: false` asks the JAX package for its unfused path; the
+    port has no such switch and says so rather than ignore the key."""
+    cfg = tconfig.Config(npoints=64, k_max=4, sinkhorn_iters=7)
+    assert model_from_config(cfg, device="cpu").npoint == 64
+    with pytest.raises(NotImplementedError, match="fused_sa"):
+        model_from_config(cfg.replace(fused_sa=False), device="cpu")
+
+
 def test_from_checkpoint_serves_the_saved_weights(world, tmp_path):
     _, _, port = world
     cfg = tconfig.Config(npoints=N, n_max=N, k_max=K, sinkhorn_iters=ITERS)
