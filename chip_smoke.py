@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval, train, stretch, general-SA-level and
-serving paths and its CLI on one NVIDIA GPU and check them.
+serving paths, its CLI and its offline scoring on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -61,6 +62,10 @@ Phases, each printing one line:
                 B1 and B2 again at 8192 points x 512 centers. Indices
                 identical, values within phase 3's tolerance (B7: u, v and
                 Z within 1e-4 on the valid block, the matching equal);
+                then the public Sinkhorn's default, the two-pass
+                log-sum-exp, on scores uniform in [0, 100) on the card
+                against the CPU: finite, and within twice the CPU float32
+                run's distance from float64 (check_safe_lse);
   10. stretch_slice Track4D(npoint=512, exact_fps, mov_budget=512,
                 sinkhorn_kernel) at 8192 points, 1 stream x 2 frames on
                 the GPU against the CPU (plain versions): phase 4's gates,
@@ -124,6 +129,17 @@ Phases, each printing one line:
                 train epoch and one eval over a VoD fixture tree (10
                 frames of delft_2 and of delft_10) with its MOT table and
                 the native library's route.
+  17. offline_eval the port's offline scoring of the results tree that
+                phase 16's VoD fixture eval wrote on the card: the Kalman
+                re-tracker (`eval.run_kf.evaluate_kf`, ego compensation
+                off and on, and `run_kf.main --json`), the conversion to
+                KITTI detections and the detection-AP tables
+                (`eval.run_ap.convert_results_tree`, `eval.detection_ap`,
+                `run_ap.main --json`): the KF table beside phase 16's
+                Sinkhorn table, the converted detections, the seconds;
+                fails on a converted-file count other than the frame
+                count, a KF metric not finite, or a CLI's JSON unequal to
+                its function's result.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's), error, times
@@ -141,7 +157,7 @@ a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
-and 12-16 record their failed checks and go on, so that one run reports
+and 12-17 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
@@ -153,9 +169,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_STREAMS = 8
@@ -244,7 +262,7 @@ TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
                       EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS)
 
 
-FAILED: list = []   # failed checks of phases 6-8 and 12-16
+FAILED: list = []   # failed checks of phases 6-8 and 12-17
 
 
 def fail(msg: str) -> None:
@@ -615,10 +633,50 @@ def phase_stretch_kernels(torch, seed: int):
                  indices_equal=True,
                  ms=device_ms(torch, lambda: sampling.furthest_point_sample(
                      **kw, shape=shape)))
+    check_safe_lse(torch, seed, meta["m"].cpu(), meta["n"].cpu())
     out = {k: summary[k] for k in STRETCH_KERNELS}
     out["sa_pair_stretch"] = summary["sa_pair"]
     out["three_interpolate_stretch"] = summary["three_interpolate"]
     return out
+
+
+def check_safe_lse(torch, seed: int, m, n):
+    """The public Sinkhorn's default, the two-pass log-sum-exp, on scores
+    uniform in [0, 100) (where the bounded form overflows) with B7's case's
+    m and n, SINKHORN_ITERS iterations, on the card and on the CPU: the
+    coupling finite on the card, and on the valid block no further from the
+    CPU's float64 run than twice the CPU float32 run is plus 1e-5 of its
+    largest entry."""
+    import numpy as np
+    from ratrack_tpu_torch.tracker.sinkhorn import \
+        log_optimal_transport_masked
+    rng = np.random.RandomState(seed + 5)
+    b, k = m.shape[0], K_MAX
+    scores = torch.from_numpy((rng.rand(b, k, k) * 100).astype(np.float32))
+
+    def coupling(x, device):
+        return log_optimal_transport_masked(
+            x.to(device), m.to(device), n.to(device), 0.9,
+            SINKHORN_ITERS).cpu().double()
+
+    card = coupling(scores, "cuda")
+    cpu32, cpu64 = coupling(scores, "cpu"), coupling(scores.double(), "cpu")
+    ar = torch.arange(k + 1)
+    rows = (ar < m.unsqueeze(1)) | (ar == k)
+    cols = (ar < n.unsqueeze(1)) | (ar == k)
+    block = rows.unsqueeze(2) & cols.unsqueeze(1)
+    card_err = (card - cpu64)[block].abs().max().item()
+    cpu_err = (cpu32 - cpu64)[block].abs().max().item()
+    tol = 2 * cpu_err + 1e-5 * cpu64[block].abs().max().item()
+    finite = bool(torch.isfinite(card).all())
+    emit(phase="stretch_kernel", check="sinkhorn_safe_lse",
+         scores="uniform [0, 100)", streams=b, k=k, iters=SINKHORN_ITERS,
+         finite=finite, card_err_vs_f64=card_err, cpu_f32_err_vs_f64=cpu_err,
+         card_err_vs_cpu_f32=(card - cpu32)[block].abs().max().item(),
+         tol=tol)
+    if not (finite and card_err <= tol):
+        fail(f"safe-LSE Sinkhorn on the card: finite {finite}, error "
+             f"{card_err} against float64 (tol {tol})")
 
 
 def counters():
@@ -1587,16 +1645,16 @@ def expected_cli_eval_launches(stats: dict, t: int):
     return want
 
 
-def phase_cli(torch, card: str):
-    """Phase 16: the port's CLI on the card, in this process, in a
-    temporary directory: train with configs/synth_train.yaml (cut to
+def phase_cli(torch, card: str, tmp: str):
+    """Phase 16: the port's CLI on the card, in this process, in the
+    temporary directory tmp: train with configs/synth_train.yaml (cut to
     CLI_TRAIN_CUTS), eval with configs/synth_eval.yaml from that best.pt,
     the eval on a cut of the val frames on the card and with --cpu from the
     same file (result trees and metric means held equal), then one train
-    epoch and one eval over a VoD fixture tree."""
-    import shutil
-    import tempfile
+    epoch and one eval over a VoD fixture tree. -> that eval's dataset
+    root, results tree, min_obj_points and MOT table, for phase 17."""
     import yaml
+    from ratrack_tpu_torch.config import Config
     from ratrack_tpu_torch.data import native
     from ratrack_tpu_torch.data.fixture import make_vod_fixture
     from ratrack_tpu_torch.data.pipeline import (CLIP_RANGES, TRAIN_CLIPS,
@@ -1612,114 +1670,184 @@ def phase_cli(torch, card: str):
     def mot(m):
         return {k: m[k] for k in ("samota", "amota", "mota")}
 
-    tmp = tempfile.mkdtemp(prefix="ratrack_cli_")
-    try:
-        dirs = {"checkpoints_dir": os.path.join(tmp, "checkpoints"),
-                "results_dir": os.path.join(tmp, "results")}
-        train_cfg = {**shipped("synth_train.yaml"), **CLI_TRAIN_CUTS, **dirs}
-        reset_counters()
-        t0 = time.time()
-        res, _ = run_cli(train_cfg, tmp, "train")
-        launches = read_counters()
-        epochs = res["train"]
-        steps = sum(e["frames"] for e in epochs) // train_cfg["dp"]
-        if launches != expected_train_launches(steps):
-            record_failure(f"cli train launch counts {launches}, expected "
-                           f"{expected_train_launches(steps)}")
-        models = os.path.join(dirs["checkpoints_dir"],
-                              train_cfg["exp_name"], "models")
-        found = sorted(os.listdir(models))
-        want_files = ["best.pt", "last.pt"] + [
-            f"last{e}.pt" for e in range(CLI_TRAIN_CUTS["epochs"])]
-        if found != sorted(want_files):
-            record_failure(f"cli checkpoints {found}, expected {want_files}")
-        emit(phase="cli", step="train", config="configs/synth_train.yaml",
-             cuts={**CLI_TRAIN_CUTS, **{k: "<tmp>" for k in dirs}},
-             streams=train_cfg["dp"], frames_per_scan=train_cfg[
-                 "scan_frames"], points=train_cfg["n_max"],
-             frames_per_s=[e["fps"] for e in epochs],
-             frame_steps=[e["frames"] for e in epochs],
-             data_wait_s=[e["data_wait_s"] for e in epochs],
-             data_build_s=[e["data_build_s"] for e in epochs],
-             seconds_per_epoch=[e["seconds"] for e in epochs],
-             loss=[e["Loss"] for e in epochs], launches=launches,
-             checkpoints=found, seconds=time.time() - t0, card=card)
+    dirs = {"checkpoints_dir": os.path.join(tmp, "checkpoints"),
+            "results_dir": os.path.join(tmp, "results")}
+    train_cfg = {**shipped("synth_train.yaml"), **CLI_TRAIN_CUTS, **dirs}
+    reset_counters()
+    t0 = time.time()
+    res, _ = run_cli(train_cfg, tmp, "train")
+    launches = read_counters()
+    epochs = res["train"]
+    steps = sum(e["frames"] for e in epochs) // train_cfg["dp"]
+    if launches != expected_train_launches(steps):
+        record_failure(f"cli train launch counts {launches}, expected "
+                       f"{expected_train_launches(steps)}")
+    models = os.path.join(dirs["checkpoints_dir"],
+                          train_cfg["exp_name"], "models")
+    found = sorted(os.listdir(models))
+    want_files = ["best.pt", "last.pt"] + [
+        f"last{e}.pt" for e in range(CLI_TRAIN_CUTS["epochs"])]
+    if found != sorted(want_files):
+        record_failure(f"cli checkpoints {found}, expected {want_files}")
+    emit(phase="cli", step="train", config="configs/synth_train.yaml",
+         cuts={**CLI_TRAIN_CUTS, **{k: "<tmp>" for k in dirs}},
+         streams=train_cfg["dp"], frames_per_scan=train_cfg[
+             "scan_frames"], points=train_cfg["n_max"],
+         frames_per_s=[e["fps"] for e in epochs],
+         frame_steps=[e["frames"] for e in epochs],
+         data_wait_s=[e["data_wait_s"] for e in epochs],
+         data_build_s=[e["data_build_s"] for e in epochs],
+         seconds_per_epoch=[e["seconds"] for e in epochs],
+         loss=[e["Loss"] for e in epochs], launches=launches,
+         checkpoints=found, seconds=time.time() - t0, card=card)
 
-        eval_cfg = {**shipped("synth_eval.yaml"), **dirs}
-        reset_counters()
-        res, _ = run_cli(eval_cfg, tmp, "eval")
-        launches = read_counters()
-        ev = res["eval"]
-        want = expected_cli_eval_launches(ev, eval_cfg["scan_frames"])
-        if launches != want:
-            record_failure(f"cli eval launch counts {launches}, expected "
-                           f"{want}")
-        if not all(math.isfinite(v) for v in {**ev["seg"],
-                                               **ev["flow"]}.values()):
-            record_failure("cli eval: metric means not finite")
-        emit(phase="cli", step="eval", config="configs/synth_eval.yaml",
-             cuts={k: "<tmp>" for k in dirs}, frames=ev["frames"],
-             frames_per_s=ev["fps"], data_wait_s=ev["data_wait_s"],
-             data_build_s=ev["data_build_s"], eval_seconds=ev["seconds"],
-             chunks=ev["chunks"], cached_chunks=ev["cached_chunks"],
-             mot=mot(ev["mot"]), seg=ev["seg"], launches=launches,
-             checkpoint=os.path.join("<tmp>", train_cfg["exp_name"],
-                                     "models", "best.pt"), card=card)
-        print(format_table(ev["mot"]), flush=True)
+    eval_cfg = {**shipped("synth_eval.yaml"), **dirs}
+    reset_counters()
+    res, _ = run_cli(eval_cfg, tmp, "eval")
+    launches = read_counters()
+    ev = res["eval"]
+    want = expected_cli_eval_launches(ev, eval_cfg["scan_frames"])
+    if launches != want:
+        record_failure(f"cli eval launch counts {launches}, expected "
+                       f"{want}")
+    if not all(math.isfinite(v) for v in {**ev["seg"],
+                                           **ev["flow"]}.values()):
+        record_failure("cli eval: metric means not finite")
+    emit(phase="cli", step="eval", config="configs/synth_eval.yaml",
+         cuts={k: "<tmp>" for k in dirs}, frames=ev["frames"],
+         frames_per_s=ev["fps"], data_wait_s=ev["data_wait_s"],
+         data_build_s=ev["data_build_s"], eval_seconds=ev["seconds"],
+         chunks=ev["chunks"], cached_chunks=ev["cached_chunks"],
+         mot=mot(ev["mot"]), seg=ev["seg"], launches=launches,
+         checkpoint=os.path.join("<tmp>", train_cfg["exp_name"],
+                                 "models", "best.pt"), card=card)
+    print(format_table(ev["mot"]), flush=True)
 
-        cut = {**eval_cfg, "synth_frames": CLI_CUT_FRAMES}
-        runs = {}
-        for device in ("cuda", "cpu"):
-            cfg = {**cut, "results_dir": os.path.join(tmp, f"res_{device}")}
-            runs[device] = run_cli(cfg, tmp, f"cut_{device}",
-                                   cpu=device == "cpu")[0]["eval"]
-        files, labels, ids, conf_err = result_tree_diff(
-            os.path.join(tmp, "res_cuda"), os.path.join(tmp, "res_cpu"))
-        mean_err = max(abs(runs["cuda"][g][k] - runs["cpu"][g][k])
-                       for g in ("seg", "flow") for k in runs["cpu"][g])
-        emit(phase="cli", step="card_vs_cpu", frames=runs["cpu"]["frames"],
-             synth_frames=CLI_CUT_FRAMES,
-             mismatches={"files": files, "labels": labels,
-                         "track_ids": ids},
-             conf_err=conf_err, metric_mean_err=mean_err,
-             cpu_frames_per_s=runs["cpu"]["fps"],
-             mot_card=mot(runs["cuda"]["mot"]),
-             mot_cpu=mot(runs["cpu"]["mot"]))
-        if files or labels or ids or conf_err > 5e-4 or mean_err > 5e-4:
-            record_failure(f"cli card vs cpu: files {files}, labels "
-                           f"{labels}, track ids {ids}, conf {conf_err}, "
-                           f"metric means {mean_err}")
+    cut = {**eval_cfg, "synth_frames": CLI_CUT_FRAMES}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg = {**cut, "results_dir": os.path.join(tmp, f"res_{device}")}
+        runs[device] = run_cli(cfg, tmp, f"cut_{device}",
+                               cpu=device == "cpu")[0]["eval"]
+    files, labels, ids, conf_err = result_tree_diff(
+        os.path.join(tmp, "res_cuda"), os.path.join(tmp, "res_cpu"))
+    mean_err = max(abs(runs["cuda"][g][k] - runs["cpu"][g][k])
+                   for g in ("seg", "flow") for k in runs["cpu"][g])
+    emit(phase="cli", step="card_vs_cpu", frames=runs["cpu"]["frames"],
+         synth_frames=CLI_CUT_FRAMES,
+         mismatches={"files": files, "labels": labels,
+                     "track_ids": ids},
+         conf_err=conf_err, metric_mean_err=mean_err,
+         cpu_frames_per_s=runs["cpu"]["fps"],
+         mot_card=mot(runs["cuda"]["mot"]),
+         mot_cpu=mot(runs["cpu"]["mot"]))
+    if files or labels or ids or conf_err > 5e-4 or mean_err > 5e-4:
+        record_failure(f"cli card vs cpu: files {files}, labels "
+                       f"{labels}, track ids {ids}, conf {conf_err}, "
+                       f"metric means {mean_err}")
 
-        root = os.path.join(tmp, "vod")
-        clips_dir = os.path.join(tmp, "clips")
-        os.makedirs(clips_dir)
-        for clip in TRAIN_CLIPS + VAL_CLIPS:
-            first = CLIP_RANGES[clip][0]
-            frames = []
-            if clip in ("delft_2", "delft_10"):
-                frames = list(range(first, first + CLI_VOD_FRAMES))
-                make_vod_fixture(root, frames)
-            with open(os.path.join(clips_dir, f"{clip}.txt"), "w") as f:
-                f.write("\n".join(str(i) for i in frames))
-        vod = {**train_cfg, "dataset": "vod", "dataset_path": root,
-               "clips_dir": clips_dir, "epochs": 1, "exp_name": "vod"}
-        t0 = time.time()
-        tr = run_cli(vod, tmp, "vod_train")[0]["train"][0]
-        ev = run_cli({**vod, "eval": True, "load_checkpoint": True},
-                     tmp, "vod_eval")[0]["eval"]
-        emit(phase="cli", step="vod_fixture", clips=["delft_2", "delft_10"],
-             frames_per_clip=CLI_VOD_FRAMES, train_frames_per_s=tr["fps"],
-             train_data_build_s=tr["data_build_s"],
-             train_seconds=tr["seconds"], train_loss=tr["Loss"],
-             eval_data_build_s=ev["data_build_s"], eval_frames=ev["frames"],
-             eval_frames_per_s=ev["fps"], mot=mot(ev["mot"]),
-             native_route=native.route(), seconds=time.time() - t0)
-        print(format_table(ev["mot"]), flush=True)
-        if ev["frames"] != CLI_VOD_FRAMES - 1:
-            record_failure(f"cli vod eval: {ev['frames']} frames, expected "
-                           f"{CLI_VOD_FRAMES - 1}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    root = os.path.join(tmp, "vod")
+    clips_dir = os.path.join(tmp, "clips")
+    os.makedirs(clips_dir)
+    for clip in TRAIN_CLIPS + VAL_CLIPS:
+        first = CLIP_RANGES[clip][0]
+        frames = []
+        if clip in ("delft_2", "delft_10"):
+            frames = list(range(first, first + CLI_VOD_FRAMES))
+            make_vod_fixture(root, frames)
+        with open(os.path.join(clips_dir, f"{clip}.txt"), "w") as f:
+            f.write("\n".join(str(i) for i in frames))
+    vod = {**train_cfg, "dataset": "vod", "dataset_path": root,
+           "clips_dir": clips_dir, "epochs": 1, "exp_name": "vod"}
+    t0 = time.time()
+    tr = run_cli(vod, tmp, "vod_train")[0]["train"][0]
+    ev = run_cli({**vod, "eval": True, "load_checkpoint": True},
+                 tmp, "vod_eval")[0]["eval"]
+    emit(phase="cli", step="vod_fixture", clips=["delft_2", "delft_10"],
+         frames_per_clip=CLI_VOD_FRAMES, train_frames_per_s=tr["fps"],
+         train_data_build_s=tr["data_build_s"],
+         train_seconds=tr["seconds"], train_loss=tr["Loss"],
+         eval_data_build_s=ev["data_build_s"], eval_frames=ev["frames"],
+         eval_frames_per_s=ev["fps"], mot=mot(ev["mot"]),
+         native_route=native.route(), seconds=time.time() - t0)
+    print(format_table(ev["mot"]), flush=True)
+    if ev["frames"] != CLI_VOD_FRAMES - 1:
+        record_failure(f"cli vod eval: {ev['frames']} frames, expected "
+                       f"{CLI_VOD_FRAMES - 1}")
+    return dict(root=root, results=vod["results_dir"],
+                min_obj_points=vod.get("min_obj_points",
+                                       Config().min_obj_points),
+                frames=ev["frames"], mot=mot(ev["mot"]))
+
+
+def captured_json(main, argv):
+    """A port CLI's `main(argv)` in this process -> the JSON object it
+    printed."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return json.loads(out.getvalue())
+
+
+def phase_offline_eval(vod: dict, tmp: str, card: str):
+    """Phase 17: the port's offline scoring of the results tree phase 16's
+    VoD fixture eval wrote on the card: the Kalman re-tracker
+    (`eval.run_kf.evaluate_kf`, ego compensation off and on, and its CLI
+    with --json), the conversion to KITTI detections with the detection-AP
+    tables (`eval.run_ap.convert_results_tree`, `eval.detection_ap.
+    load_annotations` / `official_evaluation`, and its CLI with --json).
+    Fails on a converted-file count other than the tree's frame count, a
+    KF metric that is not finite, or a CLI whose JSON differs from the
+    function's own result."""
+    from ratrack_tpu_torch.eval import detection_ap, run_ap, run_kf
+
+    t0 = time.time()
+    root, results = vod["root"], vod["results"]
+    frames = sum(name.endswith(".txt") for d, _, names in os.walk(results)
+                 for name in names)
+    common = ["--results", results, "--dataset", root, "--min-obj-points",
+              str(vod["min_obj_points"])]
+    kf = {}
+    for ego in (False, True):
+        m = run_kf.evaluate_kf(results, root, split="val",
+                               min_obj_points=vod["min_obj_points"],
+                               ego_comp=ego)
+        flat = {k: v for k, v in m.items() if not isinstance(v, dict)}
+        if not all(math.isfinite(v) for v in flat.values()):
+            record_failure(f"offline_eval: KF metrics not finite: {flat}")
+        printed = captured_json(run_kf.main, common + ["--json"]
+                                + (["--ego-comp"] if ego else []))
+        if printed != json.loads(json.dumps(flat)):
+            record_failure(f"offline_eval: run_kf --json printed {printed}, "
+                           f"evaluate_kf returned {flat}")
+        kf["ego_on" if ego else "ego_off"] = {
+            k: m[k] for k in ("samota", "amota", "mota")}
+
+    gt_dir = os.path.join(root, "lidar", "training", "label_2")
+    out_dt = os.path.join(tmp, "kitti_dets")
+    converted = run_ap.convert_results_tree(results, root, out_dt)
+    if converted != frames:
+        record_failure(f"offline_eval: {converted} converted files, the "
+                       f"results tree has {frames} frames")
+    detections = 0
+    for name in os.listdir(out_dt):
+        with open(os.path.join(out_dt, name)) as f:
+            detections += sum(1 for line in f if line.strip())
+    dt_annos, ids = detection_ap.load_annotations(out_dt)
+    gt_annos, _ = detection_ap.load_annotations(gt_dir, ids)
+    ap = detection_ap.official_evaluation(gt_annos, dt_annos)
+    printed = captured_json(run_ap.main, [
+        "--gt", gt_dir, "--results", results, "--dataset", root,
+        "--out-dt", os.path.join(tmp, "kitti_dets_cli"), "--json"])
+    if printed != json.loads(json.dumps(ap)):
+        record_failure("offline_eval: run_ap --json printed another table "
+                       "than official_evaluation returned")
+    emit(phase="offline_eval", clips=sorted(os.listdir(results)),
+         frames=frames, kf=kf, sinkhorn=vod["mot"],
+         converted_files=converted, detections=detections,
+         ap_summary=ap["summary"], seconds=time.time() - t0, card=card)
 
 
 def ptxas_summary(log: str):
@@ -1788,9 +1916,14 @@ def main() -> None:
     scale_launches = phase_general_slice(torch, SEED)
     phase_serving(torch, SEED, card)
     phase_train_stretch(torch, SEED, card)
-    phase_cli(torch, card)
+    tmp = tempfile.mkdtemp(prefix="ratrack_cli_")
+    try:
+        vod = phase_cli(torch, card, tmp)
+        phase_offline_eval(vod, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     if FAILED:
-        fail(f"{len(FAILED)} failed checks in phases 12-16")
+        fail(f"{len(FAILED)} failed checks in phases 12-17")
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},

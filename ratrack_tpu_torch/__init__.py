@@ -22,8 +22,15 @@ train/     the eval steps and scans (cached backbone or not), losses,
            Adam + StepLR, the per-frame train steps, train checkpoints.
 serve.py   RadarTracker: online multi-stream serving over the eval step.
 config.py  the YAML configuration (the JAX package's keys).
-data/      FrameBatch and the synthetic clip generator (numpy, no JAX).
-utils/     flax-variables -> state_dict converter.
+main.py    the train / eval CLI (`python -m ratrack_tpu_torch.main`).
+data/      FrameBatch, the synthetic clip generator, and the VoD layer:
+           file readers, calibration and poses, GT boxes, the native
+           loader, the record pipeline and a fixture tree (numpy).
+eval/      result export, MOT metrics, the Kalman re-tracker and VoD
+           detection AP, with their CLIs `eval.run`, `eval.run_kf` and
+           `eval.run_ap` (numpy and scipy, no tensor work).
+utils/     weight conversion: flax variables and the reference's torch
+           checkpoints to and from the port's state_dict.
 
 Tensors are points-major with a written-out stream dimension:
 (B, N, C). This package never imports JAX. Its entry points (`Track4D`,

@@ -101,8 +101,11 @@ def associate(aff, m, n, prev_track_id, next_id, alpha: float, iters: int,
     Sinkhorn iterations in kernel B7."""
     k = aff.shape[-1]
     dev = aff.device
-    z = log_optimal_transport_masked(aff, m, n, alpha, iters,
-                                     use_fused_kernel)
+    # safe_lse=False as the JAX association passes it (association.py:
+    # 147-152): aff is a sigmoid in (0, 1) and alpha the 0.9 bin, where the
+    # bounded log-sum-exp is exact enough and costs one reduction less
+    z = log_optimal_transport_masked(aff, m, n, alpha, iters, safe_lse=False,
+                                     use_fused_kernel=use_fused_kernel)
     ar = torch.arange(k, device=dev)
     row_ok = ar.unsqueeze(0) < m.unsqueeze(1)
     col_ok = ar.unsqueeze(0) < n.unsqueeze(1)

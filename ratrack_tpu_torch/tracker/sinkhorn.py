@@ -1,16 +1,27 @@
 """Masked log-space Sinkhorn optimal transport with a dustbin, batched.
 Counterpart of `ratrack_tpu/tracker/sinkhorn.py::log_optimal_transport_masked`
-on the path the association takes (safe_lse=False, tol=0): the bounded
-single-pass log-sum-exp, all `iters` iterations (500 in the model).
+with tol=0 (all `iters` iterations; 500 in the model).
 
 A fixed (K+1) x (K+1) matrix per stream: the first m rows / n columns are
 valid, the dustbin is index K, invalid entries carry -1e9 scores and
 log-marginals, whose exp underflows to exactly 0.
 
-The iterations run as the eager loop (`ops.fused_sinkhorn.
-sinkhorn_uv_reference`) or, with `use_fused_kernel`, in one launch of
-kernel B7 (`ops.fused_sinkhorn.sinkhorn_uv`). The switch is off by default,
-as `USE_FUSED_KERNEL` of the JAX module (sinkhorn.py:33).
+Two log-sum-exps, as the JAX function's `safe_lse`:
+  safe_lse=True   (the default) the two-pass, max-subtracted form
+                  (`_lse`, sinkhorn.py:41-45 of the JAX package), safe for
+                  scores of any size; a plain torch loop, as it is XLA code
+                  there.
+  safe_lse=False  the bounded single-pass form, right only where every
+                  finite score is O(1): the association, whose scores are
+                  sigmoid affinities, asks for it (association.py:147-152
+                  of the JAX package). Its iterations run as the eager loop
+                  (`ops.fused_sinkhorn.sinkhorn_uv_reference`) or, with
+                  `use_fused_kernel`, in one launch of kernel B7
+                  (`ops.fused_sinkhorn.sinkhorn_uv`). The switch is off by
+                  default, as `USE_FUSED_KERNEL` of the JAX module
+                  (sinkhorn.py:33).
+B7 computes only the bounded form, so `use_fused_kernel` with
+`safe_lse=True` raises (the JAX function takes its loop there instead).
 """
 
 from __future__ import annotations
@@ -53,16 +64,42 @@ def transport_problem(scores: torch.Tensor, m: torch.Tensor,
     return c, log_mu, log_nu, norm
 
 
+def _lse(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """log(sum(exp(a))) over dim, max-subtracted; an all-masked row's max
+    is clamped at -1e9."""
+    amax = torch.clamp_min(torch.amax(a, dim=dim, keepdim=True), NEG)
+    return amax.squeeze(dim) + torch.log(torch.sum(torch.exp(a - amax),
+                                                   dim=dim))
+
+
+def _sinkhorn_uv_safe(c, log_mu, log_nu, iters: int):
+    """The iterations of sinkhorn_uv_reference with the two-pass _lse:
+    c (B, K1, K1), log_mu / log_nu (B, K1) -> (u, v)."""
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - _lse(c + v.unsqueeze(1), dim=2)
+        v = log_nu - _lse(c + u.unsqueeze(2), dim=1)
+    return u, v
+
+
 def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
                                  n: torch.Tensor, alpha: float,
-                                 iters: int,
+                                 iters: int, *, safe_lse: bool = True,
                                  use_fused_kernel: bool = False
                                  ) -> torch.Tensor:
     """scores (B, K, K) prev x curr, m/n (B,) valid counts ->
     (B, K+1, K+1) log-coupling with the dustbin at index K.
-    use_fused_kernel: all iterations in kernel B7 (primal only: scores must
-    not require grad)."""
+    safe_lse: the two-pass log-sum-exp (see the module docstring).
+    use_fused_kernel: all iterations in kernel B7 (bounded form only, so
+    with safe_lse=False; primal only: scores must not require grad)."""
+    if use_fused_kernel and safe_lse:
+        raise ValueError("kernel B7 computes the bounded log-sum-exp only: "
+                         "pass safe_lse=False with use_fused_kernel")
     c, log_mu, log_nu, norm = transport_problem(scores, m, n, alpha)
-    solve = sinkhorn_uv if use_fused_kernel else sinkhorn_uv_reference
+    if safe_lse:
+        solve = _sinkhorn_uv_safe
+    else:
+        solve = sinkhorn_uv if use_fused_kernel else sinkhorn_uv_reference
     u, v = solve(c, log_mu, log_nu, iters)
     return c + u.unsqueeze(2) + v.unsqueeze(1) - norm.reshape(-1, 1, 1)

@@ -210,7 +210,7 @@ def test_sinkhorn_matches_jax():
     aff, m, n, _, _ = _assoc_inputs(8)
     got = log_optimal_transport_masked(
         torch.from_numpy(aff), torch.from_numpy(m), torch.from_numpy(n), 0.9,
-        500).numpy()
+        500, safe_lse=False).numpy()
     for b in range(B):
         want = np.asarray(jsinkhorn.log_optimal_transport_masked(
             jnp.asarray(aff[b]), jnp.asarray(m[b]), jnp.asarray(n[b]),

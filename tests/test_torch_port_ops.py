@@ -448,7 +448,9 @@ def test_port_imports_no_jax():
         "for name in ('device', 'ops.morton', 'ops.fused_knn', "
         "'ops.fused_sinkhorn', 'ops.sampling', 'tracker.dbscan', 'serve', "
         "'config', 'main', 'data.pipeline', 'data.native', 'eval.run', "
-        "'eval.mot_metrics', 'train.metrics', 'utils.convert'):\n"
+        "'eval.mot_metrics', 'eval.kalman', 'eval.run_kf', "
+        "'eval.detection_ap', 'eval.run_ap', 'train.metrics', "
+        "'utils.convert'):\n"
         "    assert 'ratrack_tpu_torch.' + name in sys.modules, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    env={**os.environ, "PYTHONPATH": root})
