@@ -140,6 +140,29 @@ Phases, each printing one line:
                 fails on a converted-file count other than the frame
                 count, a KF metric not finite, or a CLI's JSON unequal to
                 its function's result.
+  18. pipelined `train.make_pipelined_eval_step` (every stage that needs
+                no earlier frame once over the B x T block): (a) B1, B2
+                and B3 at its launch shape, 8 x 32 = 256 clouds of 512
+                points, against their plain versions at phase 3's gates,
+                and B7 on 256 problems of 33 x 33 x 500 iterations with
+                phase 9's gate on Z and the matching (the potentials are
+                defined up to a shift along which rounding drifts: their
+                distances from the plain version and from a float64 run
+                are reported, not gated); (b) the step over 8 streams x 4 frames on the
+                card against the card's sequential scan and against the
+                CPU pipelined step, phase 4's gates, launch counts 9 / 9 /
+                2 a block; with `sinkhorn_kernel=True` one launch of B7
+                besides them and the CPU step's tracking at phase 4's
+                gates;
+                (c) at 8 x 32: one warm-up, median of 3, frames/s, ms a
+                frame, peak memory, launch counts 9 / 9 / 2 again, and
+                the CUDA kernels launched a block (torch.profiler) beside
+                those of a 4-frame block of the cached scan, beside phase
+                5's frames/s (no gate); (d) `sinkhorn_tol=1e-4`: the
+                iterations each of the 256 streams of that block runs on
+                the card and on the CPU (min / median / max), the step's
+                and the cached scan's frames/s against tol 0, the step's
+                tracking against the CPU step's at phase 4's gates.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's), error, times
@@ -157,7 +180,7 @@ a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
-and 12-17 record their failed checks and go on, so that one run reports
+and 12-18 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
@@ -195,6 +218,7 @@ SERVE_SCANS = 4
 CLI_TRAIN_CUTS = {"epochs": 2, "pretrain_epochs": 1}   # of synth_train.yaml
 CLI_CUT_FRAMES = 6        # synth_frames of the eval run on card and CPU
 CLI_VOD_FRAMES = 10       # fixture frames of each VoD clip (train, val)
+PIPE_EXIT_TOL = 1e-4      # the early exit of phase 18 (d)
 SERVE_CALLS = 50
 SERVE_WARMUP = 5
 REPS = 20
@@ -262,7 +286,7 @@ TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
                       EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS)
 
 
-FAILED: list = []   # failed checks of phases 6-8 and 12-17
+FAILED: list = []   # failed checks of phases 6-8 and 12-18
 
 
 def fail(msg: str) -> None:
@@ -457,11 +481,87 @@ def phase_kernels(torch, seed: int):
     return summary
 
 
+def sinkhorn_run(torch, seed: int, streams: int, report=fail,
+                 gauge_free: bool = False):
+    """B7's run on `streams` problems of (K_MAX + 1) squared and
+    SINKHORN_ITERS iterations against its plain version (a failed check
+    goes to `report`). The potentials u, v are defined only up to a shift
+    (u + a, v - a), which the iterations do not contract: rounding drifts
+    along it (by 1e-4 between two float32 orders of the plain loop on 256
+    problems, and on a problem with no valid row or column, whose
+    potentials drift by a constant an iteration, by more), while Z = c + u
+    + v, what the association reads, stays within ~1e-6. With gauge_free
+    the gate holds Z alone, and the potentials' distances (kernel from
+    plain, both from a float64 run of the plain loop) are reported."""
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.ops import fused_sinkhorn
+    from ratrack_tpu_torch.tracker import associate
+
+    dev = torch.device("cuda")
+    kw, meta = cases.sinkhorn_case(seed, streams, K_MAX, SINKHORN_ITERS)
+    kw64 = {k: v.double() if torch.is_tensor(v) else v
+            for k, v in kw.items()}
+    kw, meta = cases.to_device(kw, dev), cases.to_device(meta, dev)
+
+    def check_sinkhorn(got, want):
+        """u, v on the valid rows / columns (unless gauge_free) and Z on
+        the valid block within 1e-4 absolute (the kernel sums in another
+        order than torch, a few ulps an iteration); the matching equal."""
+        k = K_MAX
+        ar = torch.arange(k + 1, device=dev)
+        rows = (ar < meta["m"].unsqueeze(1)) | (ar == k)
+        cols = (ar < meta["n"].unsqueeze(1)) | (ar == k)
+
+        def uv_err(pair, ref, sel):
+            return max((pair[0].double() - ref[0])[rows & sel]
+                       .abs().max().item(),
+                       (pair[1].double() - ref[1])[cols & sel]
+                       .abs().max().item())
+        err = 0.0 if gauge_free else uv_err(got, want, True)
+        z = [kw["c"] + u.unsqueeze(2) + v.unsqueeze(1)
+             - meta["norm"].reshape(-1, 1, 1) for u, v in (got, want)]
+        block = rows.unsqueeze(2) & cols.unsqueeze(1)
+        err = max(err, (z[0] - z[1])[block].abs().max().item())
+        if gauge_free:
+            ref64 = [x.to(dev) for x in
+                     fused_sinkhorn.sinkhorn_uv_reference(**kw64)]
+            both = ((meta["m"] > 0) & (meta["n"] > 0)).unsqueeze(1)
+            parts = {}
+            for side, sel in (("both_sides", both), ("an_empty_side", ~both)):
+                if bool(sel.any()):
+                    parts[side] = dict(
+                        problems=int(sel.sum()),
+                        kernel_vs_plain=uv_err(got, want, sel),
+                        kernel_vs_float64=uv_err(got, ref64, sel),
+                        plain_vs_float64=uv_err(want, ref64, sel))
+            emit(phase="pipelined", part="sinkhorn_potentials",
+                 problems=streams, z_max_abs_err=err, **parts)
+        prev = torch.arange(k, device=dev, dtype=torch.int32).expand(
+            streams, k).contiguous()
+        nxt = torch.full((streams,), k, device=dev, dtype=torch.int32)
+        a, b = [associate(meta["scores"], meta["m"], meta["n"], prev, nxt,
+                          0.9, SINKHORN_ITERS, 0.01, use_fused_kernel=fused)
+                for fused in (True, False)]
+        same = (torch.equal(a.matched_prev, b.matched_prev)
+                and torch.equal(a.track_id, b.track_id))
+        finite = bool(torch.isfinite(got[0]).all()
+                      and torch.isfinite(got[1]).all())
+        if not (err <= 1e-4 and same and finite):
+            report(f"sinkhorn_uv[{streams}]: max abs err {err} (tol 1e-4), "
+                   f"matching equal {same}, finite {finite}")
+        return err, 1e-4
+    return dict(
+        kernel="sinkhorn_uv", config=f"{streams}x{K_MAX + 1}",
+        run_k=lambda: fused_sinkhorn.sinkhorn_uv(**kw),
+        run_p=lambda: fused_sinkhorn.sinkhorn_uv_reference(**kw),
+        check=check_sinkhorn,
+        work=lambda got: cases.sinkhorn_work(kw, *got))
+
+
 def phase_stretch_kernels(torch, seed: int):
     from ratrack_tpu_torch.kernels import cases
     from ratrack_tpu_torch.ops import (fused_correlator, fused_fp, fused_knn,
-                                       fused_sa, fused_sinkhorn, sampling)
-    from ratrack_tpu_torch.tracker import associate
+                                       fused_sa, sampling)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed + 2)
@@ -561,43 +661,7 @@ def phase_stretch_kernels(torch, seed: int):
             check=check_fps(f"furthest_point_sample[{name}]"),
             work=lambda got, kw=kw: cases.fps_work(kw, got)))
 
-    kw, meta = cases.sinkhorn_case(seed, N_STREAMS, K_MAX, SINKHORN_ITERS)
-    kw, meta = cases.to_device(kw, dev), cases.to_device(meta, dev)
-
-    def check_sinkhorn(got, want):
-        """u, v on the valid rows / columns and Z on the valid block within
-        1e-4 absolute (the kernel sums in another order than torch, a few
-        ulps an iteration); the matching equal."""
-        k = K_MAX
-        ar = torch.arange(k + 1, device=dev)
-        rows = (ar < meta["m"].unsqueeze(1)) | (ar == k)
-        cols = (ar < meta["n"].unsqueeze(1)) | (ar == k)
-        err = max((got[0] - want[0])[rows].abs().max().item(),
-                  (got[1] - want[1])[cols].abs().max().item())
-        z = [kw["c"] + u.unsqueeze(2) + v.unsqueeze(1)
-             - meta["norm"].reshape(-1, 1, 1) for u, v in (got, want)]
-        block = rows.unsqueeze(2) & cols.unsqueeze(1)
-        err = max(err, (z[0] - z[1])[block].abs().max().item())
-        prev = torch.arange(k, device=dev, dtype=torch.int32).expand(
-            N_STREAMS, k).contiguous()
-        nxt = torch.full((N_STREAMS,), k, device=dev, dtype=torch.int32)
-        a, b = [associate(meta["scores"], meta["m"], meta["n"], prev, nxt,
-                          0.9, SINKHORN_ITERS, 0.01, use_fused_kernel=fused)
-                for fused in (True, False)]
-        same = (torch.equal(a.matched_prev, b.matched_prev)
-                and torch.equal(a.track_id, b.track_id))
-        finite = bool(torch.isfinite(got[0]).all()
-                      and torch.isfinite(got[1]).all())
-        if not (err <= 1e-4 and same and finite):
-            fail(f"sinkhorn_uv: max abs err {err} (tol 1e-4), matching "
-                 f"equal {same}, finite {finite}")
-        return err, 1e-4
-    runs.append(dict(
-        kernel="sinkhorn_uv", config=f"{N_STREAMS}x{K_MAX + 1}",
-        run_k=lambda: fused_sinkhorn.sinkhorn_uv(**kw),
-        run_p=lambda: fused_sinkhorn.sinkhorn_uv_reference(**kw),
-        check=check_sinkhorn,
-        work=lambda got: cases.sinkhorn_work(kw, *got)))
+    runs.append(sinkhorn_run(torch, seed, N_STREAMS))
 
     # B1 and B2 where N != M: the cloud against its 512 sampled centers
     # (B1's two sa1 calls a stretch frame summed into the kernels line)
@@ -633,7 +697,8 @@ def phase_stretch_kernels(torch, seed: int):
                  indices_equal=True,
                  ms=device_ms(torch, lambda: sampling.furthest_point_sample(
                      **kw, shape=shape)))
-    check_safe_lse(torch, seed, meta["m"].cpu(), meta["n"].cpu())
+    meta = cases.sinkhorn_case(seed, N_STREAMS, K_MAX, SINKHORN_ITERS)[1]
+    check_safe_lse(torch, seed, meta["m"], meta["n"])
     out = {k: summary[k] for k in STRETCH_KERNELS}
     out["sa_pair_stretch"] = summary["sa_pair"]
     out["three_interpolate_stretch"] = summary["three_interpolate"]
@@ -768,6 +833,38 @@ def stretch_model(torch, seed: int, device, sinkhorn_kernel: bool = True):
                    device=device)
 
 
+def tracking_gap(torch, got, want, pc1):
+    """cls and flow max abs error and label / track id mismatches between
+    two (B, T, ...) output dicts."""
+    got = {k: got[k].cpu() for k in ("cls", "warp", "labels", "track_id")}
+    want = {k: want[k].cpu() for k in got}
+    pc1 = pc1.cpu()
+    return dict(
+        cls_max_abs_err=(got["cls"] - want["cls"]).abs().max().item(),
+        flow_max_abs_err=((got["warp"] - pc1) - (want["warp"] - pc1))
+        .abs().max().item(),
+        label_mismatch=int((got["labels"] != want["labels"]).sum()),
+        label_total=got["labels"].numel(),
+        track_id_mismatch=int((got["track_id"] != want["track_id"]).sum()),
+        track_id_total=got["track_id"].numel(),
+        finite=bool(torch.isfinite(got["cls"]).all()
+                    and torch.isfinite(got["warp"]).all()))
+
+
+def gate_tracking(name, gap, report=record_failure):
+    """Phase 4's gates on a tracking_gap: finite, cls and flow within 1e-3,
+    labels and track ids mismatching on at most 1%."""
+    if not gap["finite"]:
+        report(f"{name}: outputs not finite")
+    if gap["cls_max_abs_err"] > 1e-3 or gap["flow_max_abs_err"] > 1e-3:
+        report(f"{name}: cls err {gap['cls_max_abs_err']} / flow err "
+               f"{gap['flow_max_abs_err']} > 1e-3")
+    if (gap["label_mismatch"] > 0.01 * gap["label_total"]
+            or gap["track_id_mismatch"] > 0.01 * gap["track_id_total"]):
+        report(f"{name}: mismatches: labels {gap['label_mismatch']}, "
+               f"track ids {gap['track_id_mismatch']}")
+
+
 def compare_slice(torch, phase, model, frames_cpu, want_launches, streams,
                   t, n_max):
     """The cached eval scan of `model` (on the CPU, plain versions) over
@@ -792,36 +889,19 @@ def compare_slice(torch, phase, model, frames_cpu, want_launches, streams,
     launches = read_counters()
     if launches != want_launches:
         fail(f"{phase} launch counts {launches}, expected {want_launches}")
-    gpu = {k: v.cpu() for k, v in gpu.items()}
-
-    pc1 = frames_cpu.pc1
-    flow_cpu, flow_gpu = cpu["warp"] - pc1, gpu["warp"] - pc1
     for k, shape in (("cls", (streams, t, n_max)),
                      ("warp", (streams, t, n_max, 3)),
                      ("labels", (streams, t, n_max)),
                      ("track_id", (streams, t, K_MAX))):
         if tuple(gpu[k].shape) != shape:
             fail(f"{phase} {k} shape {tuple(gpu[k].shape)}, expected {shape}")
-    if not (torch.isfinite(gpu["cls"]).all() and
-            torch.isfinite(gpu["warp"]).all()):
-        fail(f"{phase} outputs not finite")
-    cls_err = (gpu["cls"] - cpu["cls"]).abs().max().item()
-    flow_err = (flow_gpu - flow_cpu).abs().max().item()
-    label_bad = int((gpu["labels"] != cpu["labels"]).sum())
-    tid_bad = int((gpu["track_id"] != cpu["track_id"]).sum())
-    n_clustered = int((cpu["labels"] >= 0).sum())
-    n_tracks = int((cpu["track_id"] >= 0).sum())
+    gap = tracking_gap(torch, gpu, cpu, frames_cpu.pc1)
     emit(phase=phase, streams=streams, frames=t, points=n_max,
-         cls_max_abs_err=cls_err, flow_max_abs_err=flow_err,
-         label_mismatch=label_bad, label_total=gpu["labels"].numel(),
-         clustered_points=n_clustered, track_id_mismatch=tid_bad,
-         track_id_total=gpu["track_id"].numel(), live_tracks=n_tracks,
+         **{k: v for k, v in gap.items() if k != "finite"},
+         clustered_points=int((cpu["labels"] >= 0).sum()),
+         live_tracks=int((cpu["track_id"] >= 0).sum()),
          launches=launches, cpu_seconds=cpu_s)
-    if cls_err > 1e-3 or flow_err > 1e-3:
-        fail(f"{phase} cls err {cls_err} / flow err {flow_err} > 1e-3")
-    if (label_bad > 0.01 * gpu["labels"].numel()
-            or tid_bad > 0.01 * gpu["track_id"].numel()):
-        fail(f"{phase} mismatches: labels {label_bad}, track ids {tid_bad}")
+    gate_tracking(phase, gap, fail)
 
 
 def phase_slice(torch, seed: int):
@@ -1850,6 +1930,218 @@ def phase_offline_eval(vod: dict, tmp: str, card: str):
          ap_summary=ap["summary"], seconds=time.time() - t0, card=card)
 
 
+def expected_pipelined_launches():
+    # one block, whatever T: 3 PNHeads (pc1, pc2, the decoder's mse) x 3 SA
+    # and 3 FP levels, 2 correlator stages
+    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS},
+            "sa_pair": 9, "three_interpolate": 9, "knn_weight_aggregate": 2}
+
+
+def cuda_kernels_of(torch, fn):
+    """(CUDA kernels fn() launches, device busy share of its wall time),
+    by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    return sum(e.count for e in kernels), busy_s / wall
+
+
+def pipelined_kernel_runs(torch, seed: int, streams: int):
+    """Phase 3's runs of B1, B2 and B3 (and B3's selection launch) at
+    `streams` clouds, weighted per block."""
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.ops import fused_correlator, fused_fp, fused_sa
+    from ratrack_tpu_torch.ops.neighborhood import knn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    pc1, m1, pc2, m2 = cases.clouds(seed, streams, N_MAX)
+    runs = []
+    # the block's three PNHeads: pc1 and pc2 share the pn_head's levels
+    for head, weight in (("pn_head", 2), ("mse", 1)):
+        for level in cases.SA_LEVELS:
+            kw = cases.to_device(cases.sa_case(level, head, pc1, m1, gen),
+                                 dev)
+            runs.append(sa_run(torch, cases, fused_sa, f"{head}.{level}", kw,
+                               weight))
+        for level in cases.FP_LEVELS:
+            kw = cases.to_device(cases.fp_case(level, pc1, m1, gen), dev)
+            runs.append(fp_run(torch, cases, fused_fp, f"{head}.{level}", kw,
+                               weight))
+    for stage in (1, 2):
+        kw = cases.to_device(cases.corr_case(stage, pc1, m1, pc2, m2, gen),
+                             dev)
+        runs.append(dict(
+            kernel="knn_weight_aggregate", config=f"stage{stage}",
+            run_k=lambda kw=kw: fused_correlator.fused_knn_weight_aggregate(
+                **kw, return_indices=True),
+            run_p=lambda kw=kw:
+            fused_correlator.knn_weight_aggregate_reference(**kw),
+            check=check_out_idx(torch, f"knn_weight_aggregate[stage{stage}]"),
+            work=lambda got, kw=kw: cases.corr_work(kw, got[0])))
+        runs.append(select_run(torch, cases, fused_correlator, knn,
+                               f"stage{stage}", kw))
+    return runs
+
+
+def phase_pipelined(torch, seed: int, card: str, eval_fps: float):
+    """Phase 18: the pipelined eval step (see the module docstring)."""
+    from ratrack_tpu_torch.data import FrameBatch
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.tracker import sinkhorn
+    from ratrack_tpu_torch.train import (make_pipelined_eval_step,
+                                         make_scan_eval_step,
+                                         make_scan_eval_step_cached)
+
+    dev = torch.device("cuda")
+    # (a) the kernels at the block's launch shape
+    streams = N_STREAMS * SCAN_T
+    summary = new_summary(EVAL_KERNELS + ("knn_select", "sinkhorn_uv"))
+    runs = pipelined_kernel_runs(torch, seed, streams)
+    runs.append(sinkhorn_run(torch, seed, streams, record_failure,
+                             gauge_free=True))
+    run_kernel_cases(torch, "pipelined_kernel", runs, summary)
+    del runs        # their tensors would count in (c)'s peak memory
+    for name, entry in summary.items():
+        bound_ms, bound_by = roofline(entry["bytes"], entry["mm_ops"],
+                                      entry["ops"])
+        emit(phase="pipelined", part="kernels_a_block", kernel=name,
+             streams=streams, points=N_MAX, max_abs_err=entry["max_abs_err"],
+             ms=entry["ms"], plain_ms=entry["plain_ms"],
+             library_ms=entry["library_ms"], bound_ms=bound_ms,
+             bound_by=bound_by)
+
+    # (b) 8 x SLICE_T: card against the card's sequential scan and the CPU
+    def model_on(device, **kw):
+        return Track4D(npoint=N_MAX, k_max=K_MAX,
+                       sinkhorn_iters=SINKHORN_ITERS,
+                       generator=torch.Generator().manual_seed(seed),
+                       device=device, **kw)
+    frames_cpu = make_frames(torch, seed, SLICE_T, "cpu")
+    t0 = time.perf_counter()
+    _, cpu = make_pipelined_eval_step(model_on("cpu"))(
+        init_state(N_STREAMS, K_MAX, device="cpu"), frames_cpu)
+    cpu_s = time.perf_counter() - t0
+    model = model_on(dev)
+    frames = FrameBatch(*[x.to(dev) for x in frames_cpu])
+    step = make_pipelined_eval_step(model)
+    reset_counters()
+    _, gpu = step(init_state(N_STREAMS, K_MAX, device=dev), frames)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    _, seq = make_scan_eval_step(model)(
+        init_state(N_STREAMS, K_MAX, device=dev), frames)
+    if launches != expected_pipelined_launches():
+        record_failure(f"pipelined launch counts {launches}, expected "
+                       f"{expected_pipelined_launches()}")
+    vs_scan = tracking_gap(torch, gpu, seq, frames_cpu.pc1)
+    vs_cpu = tracking_gap(torch, gpu, cpu, frames_cpu.pc1)
+    gate_tracking("pipelined vs the card's scan", vs_scan)
+    gate_tracking("pipelined vs the CPU step", vs_cpu)
+    # the same block with sinkhorn_kernel: its B * T matchings in one B7
+    reset_counters()
+    _, gpu_b7 = make_pipelined_eval_step(model_on(dev, sinkhorn_kernel=True))(
+        init_state(N_STREAMS, K_MAX, device=dev), frames)
+    torch.cuda.synchronize()
+    launches_b7 = read_counters()
+    if launches_b7 != {**expected_pipelined_launches(), "sinkhorn_uv": 1}:
+        record_failure(f"pipelined sinkhorn_kernel launch counts "
+                       f"{launches_b7}, expected one sinkhorn_uv besides "
+                       f"{expected_pipelined_launches()}")
+    vs_cpu_b7 = tracking_gap(torch, gpu_b7, cpu, frames_cpu.pc1)
+    gate_tracking("pipelined with B7 vs the CPU step", vs_cpu_b7)
+    emit(phase="pipelined", part="check", streams=N_STREAMS, frames=SLICE_T,
+         points=N_MAX, vs_card_scan=vs_scan, vs_cpu_pipelined=vs_cpu,
+         live_tracks=int((cpu["track_id"] >= 0).sum()), launches=launches,
+         sinkhorn_kernel_vs_cpu_pipelined=vs_cpu_b7,
+         sinkhorn_kernel_launches=launches_b7, cpu_seconds=cpu_s)
+    del cpu, gpu, seq, gpu_b7
+
+    # (c) 8 x 32: frames/s, peak memory, launches a block
+    frames = make_frames(torch, seed + 100, SCAN_T, dev)
+    state0 = init_state(N_STREAMS, K_MAX, device=dev)
+    times, launches, out, peak = timed_scans(torch, step, state0, frames)
+    if launches != expected_pipelined_launches():
+        record_failure(f"pipelined 8 x {SCAN_T} launch counts {launches}")
+    if not torch.isfinite(out["cls"]).all():
+        record_failure("pipelined 8 x 32 outputs not finite")
+    dt = statistics.median(times)
+    n_frames = N_STREAMS * SCAN_T
+    kernels_block, busy = cuda_kernels_of(torch, lambda: step(state0, frames))
+    short = FrameBatch(*[x[:, :SLICE_T] for x in frames])
+    cached = make_scan_eval_step_cached(model)
+    kernels_cached, busy_cached = cuda_kernels_of(
+        torch, lambda: cached(state0, short))
+    emit(phase="pipelined", part="throughput", streams=N_STREAMS,
+         frames_per_stream=SCAN_T, points=N_MAX,
+         sinkhorn_iters=SINKHORN_ITERS, frames_per_s=n_frames / dt,
+         ms_per_frame=1000.0 * dt / n_frames, scan_seconds=times,
+         peak_memory_gib=peak / 2 ** 30, launches=launches,
+         cuda_kernels_a_block=kernels_block,
+         cuda_kernels_a_frame_step=kernels_block / SCAN_T,
+         device_busy_share=busy,
+         cached_scan_cuda_kernels_a_frame_step=kernels_cached / SLICE_T,
+         cached_scan_device_busy_share=busy_cached,
+         cached_scan_frames_per_s=eval_fps, card=card)
+    fps0 = n_frames / dt
+
+    # (d) the early exit: iterations a stream, card against the CPU
+    exit_model = model_on(dev, sinkhorn_tol=PIPE_EXIT_TOL)
+    times, _, out, _ = timed_scans(torch, make_pipelined_eval_step(exit_model),
+                                   state0, frames)
+    fps_exit = n_frames / statistics.median(times)
+    c_times, _, _, _ = timed_scans(torch,
+                                   make_scan_eval_step_cached(exit_model),
+                                   state0, frames)
+    scores = out["aff"].reshape(-1, K_MAX, K_MAX)
+    m, n = out["m"].reshape(-1), out["n"].reshape(-1)
+    counts = {}
+    for where in ("cpu", dev):
+        c, log_mu, log_nu, _ = sinkhorn.transport_problem(
+            scores.to(where), m.to(where), n.to(where), exit_model.sinkhorn_alpha)
+        counts[str(where)] = sinkhorn.sinkhorn_uv_early_exit(
+            c, log_mu, log_nu, SINKHORN_ITERS, PIPE_EXIT_TOL,
+            safe_lse=False)[2].cpu()
+    card_n, cpu_n = counts[str(dev)], counts["cpu"]
+    both = ((m > 0) & (n > 0)).cpu()
+
+    def stats(x):
+        x = x.float()
+        return ([x.min().item(), x.median().item(), x.max().item()]
+                if x.numel() else None)
+    apart = int(((card_n - cpu_n).abs() > 1)[both].sum())
+    if apart > 0.01 * int(both.sum()) or int(card_n.max()) > SINKHORN_ITERS:
+        record_failure(f"early exit: {apart} streams more than one iteration "
+                       f"from the CPU's count")
+    frames_cpu32 = FrameBatch(*[x[:, :SLICE_T].cpu() for x in frames])
+    _, cpu_exit = make_pipelined_eval_step(
+        model_on("cpu", sinkhorn_tol=PIPE_EXIT_TOL))(
+        init_state(N_STREAMS, K_MAX, device="cpu"), frames_cpu32)
+    _, gpu_exit = make_pipelined_eval_step(exit_model)(
+        state0, FrameBatch(*[x[:, :SLICE_T] for x in frames]))
+    exit_gap = tracking_gap(torch, gpu_exit, cpu_exit, frames_cpu32.pc1)
+    gate_tracking("pipelined early exit vs the CPU step", exit_gap)
+    emit(phase="pipelined", part="early_exit", tol=PIPE_EXIT_TOL,
+         streams=int(m.numel()), iters_card_min_median_max=stats(card_n),
+         iters_cpu_min_median_max=stats(cpu_n),
+         iters_card_with_a_row_and_a_column=stats(card_n[both]),
+         streams_without_a_row_or_a_column=int((~both).sum()),
+         streams_more_than_one_apart=apart,
+         frames_per_s=fps_exit, frames_per_s_tol0=fps0,
+         cached_scan_frames_per_s=N_STREAMS * SCAN_T
+         / statistics.median(c_times),
+         cached_scan_frames_per_s_tol0=eval_fps, vs_cpu=exit_gap, card=card)
+    del out, frames
+
+
 def ptxas_summary(log: str):
     """[{kernel, registers, spill_stores}] from nvcc's -Xptxas -v output."""
     out, name = [], None
@@ -1922,8 +2214,9 @@ def main() -> None:
         phase_offline_eval(vod, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_pipelined(torch, SEED, card, eval_fps)
     if FAILED:
-        fail(f"{len(FAILED)} failed checks in phases 12-17")
+        fail(f"{len(FAILED)} failed checks in phases 12-18")
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},

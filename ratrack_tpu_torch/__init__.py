@@ -17,9 +17,11 @@ kernels/   nvcc build + ctypes loading of csrc/ into one shared library;
            seeded kernel cases for the card checks.
 models/    nn.Modules: PNHead, FeatureCorrelator, FlowDecoder, predictors,
            Affinity, Track4D (eval by default, `train()` for training).
-tracker/   DBSCAN, log-Sinkhorn with dustbin, association, track state.
-train/     the eval steps and scans (cached backbone or not), losses,
-           Adam + StepLR, the per-frame train steps, train checkpoints.
+tracker/   DBSCAN, log-Sinkhorn with dustbin (and its early exit),
+           association (match structure, id inheritance), track state.
+train/     the eval steps and scans (cached backbone or not, and the
+           pipelined step over a whole block), losses, Adam + StepLR,
+           the per-frame train steps, train checkpoints.
 serve.py   RadarTracker: online multi-stream serving over the eval step.
 config.py  the YAML configuration (the JAX package's keys).
 main.py    the train / eval CLI (`python -m ratrack_tpu_torch.main`).

@@ -8,8 +8,8 @@ two equal. It mirrors the reference's YAML -> EasyDict flow
 names, plus the padded-shape keys (point budget, track slots).
 
 Keys the port does not implement yet are kept so that every config loads;
-`models.track4d.model_from_config` raises on a value it cannot honour
-(`sinkhorn_tol` above 0, a `dtype` other than float32, `fused_sa: false`).
+`models.track4d.model_from_config` raises on a value it cannot honour (a
+`dtype` other than float32, `fused_sa: false` on the card).
 `yaml` is imported inside `load_config` only: building a `Config` by hand
 needs no YAML package.
 """
@@ -58,7 +58,7 @@ class Config:
     k_max: int = 32                # track/cluster slots per frame
     g_max: int = 32                # GT object slots per frame
     exact_fps: bool = False        # True: run true FPS even when npoint==n_max
-    fused_sa: bool = True          # False: the JAX package's unfused path (the port raises)
+    fused_sa: bool = True          # False: the JAX package's unfused path (the port raises on the card)
     dbscan_eps: float = 1.5        # track4d.py:36
     dbscan_max_iters: int = 64
     sinkhorn_iters: int = 500      # track4d.py:167

@@ -24,6 +24,15 @@ sampling in both PNHeads, kernel B6), `mov_budget` (DBSCAN over the
 track4d.py:137-143) and `sinkhorn_kernel` (the Sinkhorn iterations in
 kernel B7; off by default, as tracker/sinkhorn.py:33 of the JAX package).
 Clouds above 4096 points take the split correlator (kernels B5 and B4).
+`sinkhorn_tol` > 0 stops each stream's Sinkhorn iterations early
+(tracker/sinkhorn.py, an eager loop); B7 has no early exit, so
+`sinkhorn_kernel` with `sinkhorn_tol` > 0 raises.
+
+The per-frame step splits into stages that depend on no earlier frame
+(`frame_stage`, `output_stage`, `affinity_stage`, and
+`tracker.association.match_structure`), which the pipelined eval step
+runs over all frames of a block at once, and the two serial carries
+(`gru_stage`, `tracker.association.assign_ids`).
 
 The parameters live on `device`; None means the card
 (`device.default_device()`, which raises where there is none).
@@ -54,17 +63,23 @@ class Track4D(nn.Module):
                  feat_dim: int = 128, gru_layers: int = 5,
                  min_obj_points: int = 2, dbscan_eps: float = 1.5,
                  dbscan_max_iters: int = 64, sinkhorn_iters: int = 500,
-                 sinkhorn_alpha: float = 0.9, match_conf_thres: float = 0.01,
-                 mov_thres: float = 0.5, mov_budget: int = 0,
-                 exact_fps: bool = False, sinkhorn_kernel: bool = False,
+                 sinkhorn_tol: float = 0.0, sinkhorn_alpha: float = 0.9,
+                 match_conf_thres: float = 0.01, mov_thres: float = 0.5,
+                 mov_budget: int = 0, exact_fps: bool = False,
+                 sinkhorn_kernel: bool = False,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        if sinkhorn_kernel and sinkhorn_tol > 0:
+            raise ValueError(
+                f"sinkhorn_kernel with sinkhorn_tol={sinkhorn_tol}: kernel "
+                f"B7 runs all sinkhorn_iters iterations, it has no early exit")
         device = resolve_device(device)
         self.npoint, self.k_max = npoint, k_max
         self.feat_dim, self.gru_layers = feat_dim, gru_layers
         self.min_obj_points = min_obj_points
         self.dbscan_eps, self.dbscan_max_iters = dbscan_eps, dbscan_max_iters
         self.sinkhorn_iters, self.sinkhorn_alpha = sinkhorn_iters, sinkhorn_alpha
+        self.sinkhorn_tol = sinkhorn_tol
         self.match_conf_thres, self.mov_thres = match_conf_thres, mov_thres
         self.mov_budget, self.sinkhorn_kernel = mov_budget, sinkhorn_kernel
         self.pn_head = PNHead(npoint, 2, exact_fps)
@@ -92,6 +107,18 @@ class Track4D(nn.Module):
                        dim=-1)
         cor = self.fc_layer(frame.pc1, frame.pc2, f1, f2, m1, m2)
         return self.fd_layer.pre_gru(frame.pc1, frame.ft1, f1, cor, m1)
+
+    def frame_stage(self, frame: FrameBatch):
+        """Everything before the GRU, both heads included -> (cls (B, N),
+        prop (B, N, 128), gfeat_in (B, 128)) (track4d.py:114-119)."""
+        f1 = self.head_stage(frame.pc1, frame.ft1, frame.mask1)
+        f2 = self.head_stage(frame.pc2, frame.ft2, frame.mask2)
+        return self._frame_stage_from_heads(frame, f1, f2)
+
+    def gru_stage(self, gfeat_in, h):
+        """One GRU step, the decoder's only dependency on earlier frames:
+        (B, 128), (B, layers, 128) -> (gfeat_out, h_new)."""
+        return self.fd_layer.gru_apply(gfeat_in, h)
 
     def output_stage(self, frame: FrameBatch, cls, prop, gfeat_out,
                      frame_idx):
@@ -148,14 +175,14 @@ class Track4D(nn.Module):
                            device=frame.pc1.device, dtype=state.h.dtype)
         state = reset_where(frame.new_seq, state, fresh)
         cls, prop, gfeat_in = self._frame_stage_from_heads(frame, f1, f2)
-        gfeat_out, h_new = self.fd_layer.gru_apply(gfeat_in, state.h)
+        gfeat_out, h_new = self.gru_stage(gfeat_in, state.h)
         o = self.output_stage(frame, cls, prop, gfeat_out, state.frame_idx)
         m = state.valid.sum(dim=1).to(torch.int32)
         aff = self.affinity_stage(state.desc, o["desc"])
         res = associate(aff.detach(), m, o["n"], state.track_id,
                         state.next_id, self.sinkhorn_alpha,
                         self.sinkhorn_iters, self.match_conf_thres,
-                        self.sinkhorn_kernel)
+                        self.sinkhorn_kernel, self.sinkhorn_tol)
         new_state = TrackState(
             h=h_new.detach(), desc=o["desc"].detach(), valid=o["curr_valid"],
             track_id=res.track_id, gt_id=o["curr_gt"], next_id=res.next_id,
@@ -173,28 +200,27 @@ def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
                       generator: torch.Generator | None = None,
                       device=None) -> Track4D:
     """Track4D from a `config.Config` (JAX `model_from_config`,
-    track4d.py:225-236). `sinkhorn_kernel` is no config key (the JAX
-    package switches it with a module global). Raises on what the port
-    does not implement, rather than ignore it: a Sinkhorn early exit
-    (`sinkhorn_tol` > 0), a compute dtype other than float32, and
-    `fused_sa: false` (the JAX package's switch to its unfused path; the
-    port has no such switch: on the card it always runs its kernels)."""
-    if cfg.sinkhorn_tol != 0:
-        raise NotImplementedError(
-            f"sinkhorn_tol={cfg.sinkhorn_tol}: the Sinkhorn early exit is "
-            f"not ported; the port runs all sinkhorn_iters iterations")
+    track4d.py:225-236); `sinkhorn_tol` is the early exit.
+    `sinkhorn_kernel` is no config key (the JAX package switches it with a
+    module global). `fused_sa: false` (the JAX package's unfused eval path)
+    holds on the CPU, where every wrapper takes its plain version; on the
+    card the port always runs its kernels, so there it raises. Raises on a
+    compute dtype other than float32, which the port does not implement,
+    rather than ignore it."""
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the port computes in float32 only")
-    if not cfg.fused_sa:
+    device = resolve_device(device)
+    if not cfg.fused_sa and device.type != "cpu":
         raise NotImplementedError(
-            "fused_sa=False: the port has no switch to its plain versions; "
-            "on the card it always runs its kernels")
+            f"fused_sa=False on {device}: the port has no switch to its "
+            f"plain versions; on the card it always runs its kernels")
     return Track4D(
         npoint=cfg.npoints, k_max=cfg.k_max, feat_dim=cfg.feat_dim,
         gru_layers=cfg.gru_layers, min_obj_points=cfg.min_obj_points,
         dbscan_eps=cfg.dbscan_eps, dbscan_max_iters=cfg.dbscan_max_iters,
-        sinkhorn_iters=cfg.sinkhorn_iters, sinkhorn_alpha=cfg.sinkhorn_alpha,
+        sinkhorn_iters=cfg.sinkhorn_iters, sinkhorn_tol=cfg.sinkhorn_tol,
+        sinkhorn_alpha=cfg.sinkhorn_alpha,
         match_conf_thres=cfg.match_conf_thres, mov_thres=cfg.mov_thres,
         mov_budget=cfg.mov_budget, exact_fps=cfg.exact_fps,
         sinkhorn_kernel=sinkhorn_kernel, generator=generator, device=device)

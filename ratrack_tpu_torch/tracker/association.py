@@ -93,18 +93,30 @@ class AssocResult(NamedTuple):
     aff: torch.Tensor           # (B, K, K) raw affinity (prev x curr)
 
 
-def associate(aff, m, n, prev_track_id, next_id, alpha: float, iters: int,
-              conf_thres: float = 0.01,
-              use_fused_kernel: bool = False) -> AssocResult:
-    """Sinkhorn + mutual-max matching + ID inheritance in slot order: a new
-    id when a slot is unmatched or conf < conf_thres. use_fused_kernel: the
-    Sinkhorn iterations in kernel B7."""
+class MatchStructure(NamedTuple):
+    """Who matches whom, at what confidence: the part of the association
+    that depends on no track identity, so the pipelined eval step computes
+    it for every frame of a block at once (JAX association.py:129-135)."""
+    idx1: torch.Tensor      # (B, K) int64 best prev slot per curr slot
+    matched: torch.Tensor   # (B, K) bool mutual-max match
+    conf: torch.Tensor      # (B, K) float32 affinity at the match
+    col_ok: torch.Tensor    # (B, K) bool curr-slot validity
+
+
+def match_structure(aff, m, n, alpha: float, iters: int,
+                    sinkhorn_tol: float = 0.0, *,
+                    use_fused_kernel: bool = False) -> MatchStructure:
+    """Sinkhorn and mutual-max matching on aff (B, K, K) with m / n (B,)
+    valid rows / columns. sinkhorn_tol > 0: the early exit.
+    use_fused_kernel: the Sinkhorn iterations in kernel B7 (tol must be
+    0)."""
     k = aff.shape[-1]
     dev = aff.device
     # safe_lse=False as the JAX association passes it (association.py:
     # 147-152): aff is a sigmoid in (0, 1) and alpha the 0.9 bin, where the
     # bounded log-sum-exp is exact enough and costs one reduction less
-    z = log_optimal_transport_masked(aff, m, n, alpha, iters, safe_lse=False,
+    z = log_optimal_transport_masked(aff, m, n, alpha, iters,
+                                     tol=sinkhorn_tol, safe_lse=False,
                                      use_fused_kernel=use_fused_kernel)
     ar = torch.arange(k, device=dev)
     row_ok = ar.unsqueeze(0) < m.unsqueeze(1)
@@ -116,16 +128,34 @@ def associate(aff, m, n, prev_track_id, next_id, alpha: float, iters: int,
     mutual = torch.gather(idx0, 1, idx1) == ar
     matched = mutual & col_ok & torch.gather(row_ok, 1, idx1)
     conf = torch.gather(aff, 1, idx1.unsqueeze(1))[:, 0]
+    return MatchStructure(idx1, matched, conf, col_ok)
 
-    is_new = col_ok & (~matched | (conf < conf_thres))
-    inherit = col_ok & matched & (conf >= conf_thres)
+
+def assign_ids(ms: MatchStructure, prev_track_id, next_id, aff,
+               conf_thres: float = 0.01) -> AssocResult:
+    """ID inheritance in slot order, the serial part: a new id where a
+    slot is unmatched or conf < conf_thres, else the matched previous
+    slot's id (JAX association.py:168-186)."""
+    is_new = ms.col_ok & (~ms.matched | (ms.conf < conf_thres))
+    inherit = ms.col_ok & ms.matched & (ms.conf >= conf_thres)
     new_rank = torch.cumsum(is_new.to(torch.int32), dim=1) - 1
     track_id = torch.where(
-        inherit, torch.gather(prev_track_id, 1, idx1),
+        inherit, torch.gather(prev_track_id, 1, ms.idx1),
         torch.where(is_new, next_id.unsqueeze(1) + new_rank,
                     torch.full_like(new_rank, -1))).to(torch.int32)
-    conf_out = torch.where(inherit, conf, torch.zeros_like(conf))
-    matched_prev = torch.where(inherit, idx1,
-                               torch.full_like(idx1, -1)).to(torch.int32)
+    conf_out = torch.where(inherit, ms.conf, torch.zeros_like(ms.conf))
+    matched_prev = torch.where(inherit, ms.idx1,
+                               torch.full_like(ms.idx1, -1)).to(torch.int32)
     new_next = (next_id + is_new.sum(dim=1)).to(torch.int32)
     return AssocResult(track_id, conf_out, matched_prev, new_next, aff)
+
+
+def associate(aff, m, n, prev_track_id, next_id, alpha: float, iters: int,
+              conf_thres: float = 0.01, use_fused_kernel: bool = False,
+              sinkhorn_tol: float = 0.0) -> AssocResult:
+    """Sinkhorn + mutual-max matching + ID inheritance in slot order:
+    `assign_ids(match_structure(...))`. use_fused_kernel: the Sinkhorn
+    iterations in kernel B7; sinkhorn_tol > 0: the early exit."""
+    ms = match_structure(aff, m, n, alpha, iters, sinkhorn_tol,
+                         use_fused_kernel=use_fused_kernel)
+    return assign_ids(ms, prev_track_id, next_id, aff, conf_thres)

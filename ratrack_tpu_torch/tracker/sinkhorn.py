@@ -1,6 +1,7 @@
 """Masked log-space Sinkhorn optimal transport with a dustbin, batched.
-Counterpart of `ratrack_tpu/tracker/sinkhorn.py::log_optimal_transport_masked`
-with tol=0 (all `iters` iterations; 500 in the model).
+Counterpart of `ratrack_tpu/tracker/sinkhorn.py::log_optimal_transport_masked`.
+With tol = 0 it runs all `iters` iterations (500 in the model); with tol > 0
+each stream stops early (`sinkhorn_uv_early_exit`).
 
 A fixed (K+1) x (K+1) matrix per stream: the first m rows / n columns are
 valid, the dustbin is index K, invalid entries carry -1e9 scores and
@@ -22,13 +23,24 @@ Two log-sum-exps, as the JAX function's `safe_lse`:
                   (sinkhorn.py:33).
 B7 computes only the bounded form, so `use_fused_kernel` with
 `safe_lse=True` raises (the JAX function takes its loop there instead).
+
+The early exit (tol > 0, sinkhorn.py:127-142 of the JAX package): a stream
+iterates while it has run fewer than `iters` iterations and the last one
+moved u by more than tol (max |u_new - u| over the entries with |u_new| <
+1e8, +inf before the first). A stream that stops keeps u, v and its count
+frozen while the others go on: what `jax.vmap` of the JAX `while_loop`
+computes. The host asks after every iteration whether any stream still
+iterates. It takes either log-sum-exp. B7 has no early exit, so
+`use_fused_kernel` with tol > 0 raises rather than run the loop in its
+place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.fused_sinkhorn import sinkhorn_uv, sinkhorn_uv_reference
+from ..ops.fused_sinkhorn import (lse_bounded, sinkhorn_uv,
+                                  sinkhorn_uv_reference)
 
 NEG = -1e9
 
@@ -83,20 +95,59 @@ def _sinkhorn_uv_safe(c, log_mu, log_nu, iters: int):
     return u, v
 
 
+def sinkhorn_uv_early_exit(c, log_mu, log_nu, iters: int, tol: float, *,
+                           safe_lse: bool = True):
+    """The early-exit iterations on c (B, K1, K1), log_mu / log_nu (B, K1)
+    -> (u, v, count (B,) int32: the iterations each stream ran)."""
+    lse = _lse if safe_lse else lse_bounded
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    count = torch.zeros(log_mu.shape[:1], dtype=torch.int32,
+                        device=c.device)
+    delta = torch.full(log_mu.shape[:1], float("inf"), dtype=c.dtype,
+                       device=c.device)
+    for _ in range(iters):
+        # count < iters here, so a stream iterates while delta > tol
+        active = delta > tol
+        if not bool(active.any()):
+            break
+        u_new = log_mu - lse(c + v.unsqueeze(1), dim=2)
+        v_new = log_nu - lse(c + u_new.unsqueeze(2), dim=1)
+        moved = torch.where(u_new.abs() < 1e8, (u_new - u).abs(),
+                            torch.zeros_like(u)).amax(dim=1)
+        keep = active.unsqueeze(1)
+        u = torch.where(keep, u_new, u)
+        v = torch.where(keep, v_new, v)
+        delta = torch.where(active, moved, delta)
+        count = count + active.to(torch.int32)
+    return u, v, count
+
+
 def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
                                  n: torch.Tensor, alpha: float,
-                                 iters: int, *, safe_lse: bool = True,
+                                 iters: int, *, tol: float = 0.0,
+                                 safe_lse: bool = True,
                                  use_fused_kernel: bool = False
                                  ) -> torch.Tensor:
     """scores (B, K, K) prev x curr, m/n (B,) valid counts ->
     (B, K+1, K+1) log-coupling with the dustbin at index K.
+    tol: > 0 stops each stream early (see the module docstring); 0 runs
+    all `iters` iterations.
     safe_lse: the two-pass log-sum-exp (see the module docstring).
     use_fused_kernel: all iterations in kernel B7 (bounded form only, so
-    with safe_lse=False; primal only: scores must not require grad)."""
+    with safe_lse=False, and tol=0; primal only: scores must not require
+    grad)."""
     if use_fused_kernel and safe_lse:
         raise ValueError("kernel B7 computes the bounded log-sum-exp only: "
                          "pass safe_lse=False with use_fused_kernel")
+    if use_fused_kernel and tol > 0.0:
+        raise ValueError(f"kernel B7 has no early exit: pass tol=0 with "
+                         f"use_fused_kernel (got tol={tol})")
     c, log_mu, log_nu, norm = transport_problem(scores, m, n, alpha)
+    if tol > 0.0:
+        u, v, _ = sinkhorn_uv_early_exit(c, log_mu, log_nu, iters, tol,
+                                         safe_lse=safe_lse)
+        return c + u.unsqueeze(2) + v.unsqueeze(1) - norm.reshape(-1, 1, 1)
     if safe_lse:
         solve = _sinkhorn_uv_safe
     else:

@@ -6,12 +6,14 @@ from .losses import track4d_loss
 from .metrics import eval_motion_seg, eval_scene_flow
 from .step import (TrainConfig, TrainState, chain_contiguous,
                    create_train_state, make_eval_step, make_optimizer,
-                   make_scan_eval_step, make_scan_eval_step_cached, make_scan_train_step,
+                   make_pipelined_eval_step, make_scan_eval_step,
+                   make_scan_eval_step_cached, make_scan_train_step,
                    make_train_step, optimizer_step)
 
 __all__ = [
     "TrainConfig", "TrainState", "chain_contiguous", "create_train_state",
-    "eval_motion_seg", "eval_scene_flow", "latest_exists", "make_eval_step", "make_optimizer", "make_scan_eval_step",
+    "eval_motion_seg", "eval_scene_flow", "latest_exists", "make_eval_step", "make_optimizer",
+    "make_pipelined_eval_step", "make_scan_eval_step",
     "make_scan_eval_step_cached", "make_scan_train_step",
     "make_train_step", "optimizer_step", "restore_model",
     "restore_train_state",

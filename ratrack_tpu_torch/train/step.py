@@ -17,7 +17,9 @@ t-1's pc1 in a contiguous stream, and in eval the PNHead is a pure
 function of the cloud: the pc2 head is computed once at block entry and
 each frame's f1 is carried as the next frame's f2. `make_eval_step` and
 `make_scan_eval_step` (:206-216, :380-403) are the uncached forms: both
-heads every frame, as serving runs it.
+heads every frame, as serving runs it. `make_pipelined_eval_step`
+(:219-365) runs every stage that depends on no earlier frame once over the
+whole (B, T) block and only the GRU and the ID inheritance frame by frame.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from ..data.frames import FrameBatch
 from ..device import resolve_device
+from ..tracker.association import MatchStructure, assign_ids, match_structure
 from ..tracker.state import TrackState
 from .losses import track4d_loss
 
@@ -98,6 +101,115 @@ def make_scan_eval_step_cached(model):
                              for k, v in outs.items()}
 
     return scan_eval
+
+
+def make_pipelined_eval_step(model):
+    """-> step(track_state (B), frames (B, T, ...)) -> (new_state, outputs
+    {key: (B, T, ...)}): the eval step in four phases (JAX
+    `make_pipelined_eval_step`, step.py:219-365).
+
+    The per-frame step depends on earlier frames only through the GRU
+    carry and the track-id inheritance. Everything else (both heads, cost
+    volume, flow MLP, DBSCAN, descriptors, GT match, affinity, Sinkhorn
+    matching) depends on the frame pair alone, so it runs once over all
+    B * T frames of the block, one call each:
+      A. `frame_stage` over the B * T frames;
+      B. the GRU over T, h zeroed at `new_seq`;
+      C. `output_stage` with each frame's frame index (0 at `new_seq`, else
+         the carried count plus one), the previous frame's descriptors,
+         validity and GT ids (the block-entry state at t = 0, the frame
+         before after it, cleared at `new_seq`), `affinity_stage` and
+         `match_structure`;
+      D. `assign_ids` over T, the previous ids -1 at `new_seq`; next_id
+         carries on without reset.
+    In eval each stage is a pure function of its inputs, so the results
+    are the sequential scan's (`make_scan_eval_step`), `new_seq` resets
+    included. The outputs are the per-frame step's keys without `feats`,
+    which the JAX function leaves out too: flow, warp, cls, labels,
+    track_id, conf, aff, m, n, sizes, prev_gt_id, prev_valid, curr_gt_id,
+    curr_valid. The new state is frame T - 1's. Each kernel of the frame
+    step launches once a block, whatever T. Eval only: it raises in train
+    mode, as `Track4D.step_cached` does."""
+
+    @torch.inference_mode()
+    def step(track_state: TrackState, frames: FrameBatch):
+        if model.training:
+            raise RuntimeError("the pipelined step is eval only: in "
+                               "training the frames of a block do not share "
+                               "one set of weights")
+        ns = frames.new_seq                                     # (B, T)
+        b, t = ns.shape
+        k = model.k_max
+        fi, fis = track_state.frame_idx, []
+        for s in range(t):
+            fi = torch.where(ns[:, s], torch.zeros_like(fi), fi)
+            fis.append(fi)
+            fi = fi + 1
+        flat = FrameBatch(*[x.reshape((b * t,) + x.shape[2:])
+                            for x in frames])
+
+        # A: both heads, cost volume and decoder before the GRU, B * T
+        cls, prop, gin = model.frame_stage(flat)
+
+        # B: the GRU over T
+        gin = gin.reshape(b, t, -1)
+        h, gouts = track_state.h, []
+        for s in range(t):
+            h = torch.where(ns[:, s, None, None], torch.zeros_like(h), h)
+            gout, h = model.gru_stage(gin[:, s], h)
+            gouts.append(gout)
+        gout = torch.stack(gouts, dim=1).reshape(b * t, -1)
+
+        # C: outputs, the previous frame's objects, affinity, matching
+        o = model.output_stage(flat, cls, prop, gout,
+                               torch.stack(fis, dim=1).reshape(-1))
+        desc = o["desc"].reshape(b, t, k, -1)
+        valid = o["curr_valid"].reshape(b, t, k)
+        curr_gt = o["curr_gt"].reshape(b, t, k)
+
+        def prev(entry, x, clear):
+            p = torch.cat([entry.unsqueeze(1), x[:, :-1]], dim=1)
+            sel = ns.reshape(b, t, *([1] * (p.dim() - 2)))
+            return torch.where(sel, torch.full_like(p, clear), p)
+        prev_desc = prev(track_state.desc, desc, 0.0)
+        prev_valid = prev(track_state.valid, valid, False)
+        prev_gt = prev(track_state.gt_id, curr_gt, -1)
+        aff = model.affinity_stage(prev_desc.reshape(b * t, k, -1),
+                                   o["desc"])
+        m = prev_valid.sum(dim=-1).to(torch.int32)              # (B, T)
+        ms = match_structure(aff, m.reshape(-1), o["n"],
+                             model.sinkhorn_alpha, model.sinkhorn_iters,
+                             model.sinkhorn_tol,
+                             use_fused_kernel=model.sinkhorn_kernel)
+        ms = MatchStructure(*[x.reshape(b, t, k) for x in ms])
+        aff = aff.reshape(b, t, k, k)
+
+        # D: id inheritance over T
+        tid, next_id = track_state.track_id, track_state.next_id
+        tids, confs = [], []
+        for s in range(t):
+            tid = torch.where(ns[:, s, None], torch.full_like(tid, -1), tid)
+            res = assign_ids(MatchStructure(*[x[:, s] for x in ms]), tid,
+                             next_id, aff[:, s], model.match_conf_thres)
+            tid, next_id = res.track_id, res.next_id
+            tids.append(tid)
+            confs.append(res.conf)
+
+        new_state = TrackState(
+            h=h, desc=desc[:, -1], valid=valid[:, -1], track_id=tid,
+            gt_id=curr_gt[:, -1], next_id=next_id, frame_idx=fi)
+
+        def bt(x):
+            return x.reshape((b, t) + x.shape[1:])
+        outputs = dict(
+            flow=bt(o["flow"]), warp=bt(o["warp"]), cls=bt(cls),
+            labels=bt(o["labels"]), track_id=torch.stack(tids, dim=1),
+            conf=torch.stack(confs, dim=1), aff=aff, m=m, n=bt(o["n"]),
+            sizes=bt(o["sizes"]), prev_gt_id=prev_gt, prev_valid=prev_valid,
+            curr_gt_id=curr_gt, curr_valid=valid)
+        return new_state, outputs
+
+    return step
 
 
 @dataclass

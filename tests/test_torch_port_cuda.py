@@ -1862,3 +1862,114 @@ def test_fp_and_select_refuse_what_the_kernels_do_not_take(device):
                                          shape=(64, 8))
     with pytest.raises(ValueError, match="queries"):
         fused_correlator.launch_knn(pc1, pc2, m2, 16, queries=12)
+
+
+# ---- the pipelined eval step, the Sinkhorn early exit ---------------------
+
+def _pipelined_world(device, **kw):
+    """4 streams x 4 frames of 256 points (stream 0 starts a new sequence
+    at frame 2) and a seeded Track4D of 50 Sinkhorn iterations on the
+    card."""
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip, to_tensors
+    from ratrack_tpu_torch.models import Track4D
+
+    n, k = 256, 16
+    clips = [stack_frames(synthetic_clip(s, 4, n_max=n, g_max=k,
+                                         n_static=150, n_objects=4))
+             for s in range(4)]
+    frames = stack_frames(clips)
+    new_seq = np.asarray(frames.new_seq).copy()
+    new_seq[0, 2] = True
+    frames = frames._replace(new_seq=new_seq)
+    model = Track4D(npoint=n, k_max=k, sinkhorn_iters=50,
+                    generator=torch.Generator().manual_seed(0), device=device,
+                    **kw)
+    return model, to_tensors(frames, device), k
+
+
+def _assert_same_tracking(got, want):
+    """Phase 4's gates: cls and warp within 1e-3, at most 1% of labels and
+    track ids apart."""
+    for key in ("cls", "warp"):
+        np.testing.assert_allclose(got[key].cpu().numpy(),
+                                   want[key].cpu().numpy(), atol=1e-3)
+    for key in ("labels", "track_id"):
+        bad = (got[key].cpu() != want[key].cpu()).float().mean().item()
+        assert bad <= 0.01, (key, bad)
+
+
+def test_pipelined_step_on_the_card_matches_the_sequential_scan(device):
+    """One launch of B1 / B2 / B3 per SA level / FP level / correlator stage
+    for the whole block (9 / 9 / 2), and the sequential scan's tracking."""
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (make_pipelined_eval_step,
+                                         make_scan_eval_step)
+
+    model, frames, k = _pipelined_world(device)
+    b = frames.pc1.shape[0]
+    _, want = make_scan_eval_step(model)(init_state(b, k, device=device),
+                                         frames)
+    counters = (fused_sa.sa_pair, fused_fp.fused_three_interpolate,
+                fused_correlator.fused_knn_weight_aggregate)
+    before = [fn.launches for fn in counters]
+    _, got = make_pipelined_eval_step(model)(init_state(b, k, device=device),
+                                             frames)
+    torch.cuda.synchronize()
+    assert [fn.launches - x for fn, x in zip(counters, before)] == [9, 9, 2]
+    _assert_same_tracking(got, want)
+    assert (got["track_id"] >= 0).any()
+
+
+def test_pipelined_step_with_the_sinkhorn_kernel_launches_b7_once(device):
+    """With `sinkhorn_kernel` the block's B * T matchings are one launch of
+    B7, and the tracking is the sequential scan's with the same switch."""
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (make_pipelined_eval_step,
+                                         make_scan_eval_step)
+
+    model, frames, k = _pipelined_world(device, sinkhorn_kernel=True)
+    b = frames.pc1.shape[0]
+    _, want = make_scan_eval_step(model)(init_state(b, k, device=device),
+                                         frames)
+    before = fused_sinkhorn.sinkhorn_uv.launches
+    _, got = make_pipelined_eval_step(model)(init_state(b, k, device=device),
+                                             frames)
+    torch.cuda.synchronize()
+    assert fused_sinkhorn.sinkhorn_uv.launches - before == 1
+    _assert_same_tracking(got, want)
+
+
+@pytest.mark.parametrize("safe_lse", [True, False])
+def test_sinkhorn_early_exit_on_the_card_matches_the_cpu(device, safe_lse):
+    """The early exit (tol 1e-4) on 64 streams with m, n in 0..32: for
+    each stream with a valid row and column, the coupling's valid block
+    within 1e-4 of the CPU run and its iteration count within one of the
+    CPU's; B7 never launched (the loop is eager torch). (A stream with no row or no column has no
+    transport plan: its bin potential drifts every iteration, and no
+    output of the association reads it.)"""
+    from ratrack_tpu_torch.tracker import sinkhorn
+
+    _, raw = cases.sinkhorn_case(3, 64, 32, 500)
+    c, log_mu, log_nu, norm = sinkhorn.transport_problem(
+        raw["scores"], raw["m"], raw["n"], 0.9)
+    before = fused_sinkhorn.sinkhorn_uv.launches
+    runs = {}
+    for dev in ("cpu", device):
+        u, v, count = sinkhorn.sinkhorn_uv_early_exit(
+            c.to(dev), log_mu.to(dev), log_nu.to(dev), 500, 1e-4,
+            safe_lse=safe_lse)
+        z = sinkhorn.log_optimal_transport_masked(
+            raw["scores"].to(dev), raw["m"].to(dev), raw["n"].to(dev), 0.9,
+            500, tol=1e-4, safe_lse=safe_lse)
+        runs[str(dev)] = (z.cpu(), count.cpu())
+    assert fused_sinkhorn.sinkhorn_uv.launches == before
+    (z_cpu, n_cpu), (z_gpu, n_gpu) = runs["cpu"], runs[str(device)]
+    k = 32
+    for s, (m, n) in enumerate(zip(raw["m"].tolist(), raw["n"].tolist())):
+        if not (m and n):
+            continue
+        assert abs(int(n_cpu[s]) - int(n_gpu[s])) <= 1, s
+        rows, cols = list(range(m)) + [k], list(range(n)) + [k]
+        np.testing.assert_allclose(
+            z_gpu[s][np.ix_(rows, cols)].numpy(),
+            z_cpu[s][np.ix_(rows, cols)].numpy(), atol=1e-4, rtol=0)

@@ -727,7 +727,8 @@ def test_sinkhorn_kernel_with_the_safe_lse_raises():
 @pytest.mark.parametrize("fused", [False, True])
 def test_associate_takes_the_bounded_lse(monkeypatch, fused):
     """The association asks for safe_lse=False by keyword, as JAX's does,
-    and passes its kernel switch through."""
+    and passes its early exit's tol (0 by default) and its kernel switch
+    through."""
     seen = []
     real = association.log_optimal_transport_masked
 
@@ -742,4 +743,5 @@ def test_associate_takes_the_bounded_lse(monkeypatch, fused):
                           torch.from_numpy(n), prev,
                           torch.full((4,), K, dtype=torch.int32), 0.9, 20,
                           0.01, use_fused_kernel=fused)
-    assert seen == [(5, dict(safe_lse=False, use_fused_kernel=fused))]
+    assert seen == [(5, dict(tol=0.0, safe_lse=False,
+                             use_fused_kernel=fused))]

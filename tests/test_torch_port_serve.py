@@ -10,8 +10,9 @@ grid so that every distance is exact in both packages. Small sizes: 128
 points, 8 track slots, 20 Sinkhorn iterations, full channel widths.
 
 `ratrack_tpu_torch.config` must equal `ratrack_tpu.config` field for field
-on every configs/*.yaml, and `model_from_config` must raise on what the
-port does not implement.
+on every configs/*.yaml, and `model_from_config` must honour
+`sinkhorn_tol` and raise on what the port does not implement (a dtype
+other than float32, `fused_sa: false` on the card).
 """
 
 import dataclasses
@@ -441,19 +442,24 @@ def test_model_from_config_builds_and_raises_on_unsupported_keys():
     assert not model.training
     assert model_from_config(cfg, sinkhorn_kernel=True,
                              device="cpu").sinkhorn_kernel
-    with pytest.raises(NotImplementedError, match="sinkhorn_tol"):
-        model_from_config(cfg.replace(sinkhorn_tol=1e-3), device="cpu")
+    assert model.sinkhorn_tol == 0.0
+    assert model_from_config(cfg.replace(sinkhorn_tol=1e-3),
+                             device="cpu").sinkhorn_tol == 1e-3
     with pytest.raises(NotImplementedError, match="dtype"):
         model_from_config(cfg.replace(dtype="bfloat16"), device="cpu")
 
 
 def test_model_from_config_raises_on_fused_sa_false():
-    """`fused_sa: false` asks the JAX package for its unfused path; the
-    port has no such switch and says so rather than ignore the key."""
+    """`fused_sa: false` asks the JAX package for its unfused path. On the
+    CPU every wrapper takes its plain version, so the model builds; on the
+    card the port always runs its kernels and says so rather than ignore
+    the key."""
     cfg = tconfig.Config(npoints=64, k_max=4, sinkhorn_iters=7)
     assert model_from_config(cfg, device="cpu").npoint == 64
+    assert model_from_config(cfg.replace(fused_sa=False),
+                             device="cpu").npoint == 64
     with pytest.raises(NotImplementedError, match="fused_sa"):
-        model_from_config(cfg.replace(fused_sa=False), device="cpu")
+        model_from_config(cfg.replace(fused_sa=False), device="cuda")
 
 
 def test_from_checkpoint_serves_the_saved_weights(world, tmp_path):
