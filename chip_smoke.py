@@ -163,15 +163,52 @@ Phases, each printing one line:
                 the card and on the CPU (min / median / max), the step's
                 and the cached scan's frames/s against tol 0, the step's
                 tracking against the CPU step's at phase 4's gates.
+  19. bf16      the bfloat16 compute dtype (`Track4D(dtype=torch.bfloat16)`,
+                config `dtype: bfloat16`): (a) the bfloat16 instantiations
+                of B1 and B2 (phase 3's six configs each), B3 (both
+                stages), B1' (phase 12's scales) and B4 (both stages at
+                8192 points) against their plain versions at
+                compute_dtype=bfloat16 on the same CUDA tensors: indices
+                equal, values within one bfloat16 step of the largest
+                (2^-8 max|plain| + 1e-5), ms, plain ms and the bound with
+                products at the bfloat16 rate (989 TFLOP/s) and each
+                tensor's bytes at its own width (B2 reads bfloat16
+                features); (b) the cached scan of a bfloat16 model over 8
+                streams x 4 frames on the card against the same model on
+                the CPU: launch counts 6T+3 / 6T+3 / 2T of the bfloat16
+                B1 / B2 / B3 and none of the float32 ones; over the valid
+                points cls within 0.02 on average and 0.5 at most, flow
+                within 0.05 and 1.0 (bf16_gap_gate says why), points in
+                another cluster (labels up to renumbering) on at most 1%,
+                the raw label and track-id mismatches reported; the CPU's
+                association on the card's pipelined affinities giving the
+                card's track ids in 99% of the slots; then at 8 x 32 the
+                float32 and the bfloat16 scans in turns (a b b a; one
+                warm-up, median of 3 each): frames/s and peak memory of
+                both; (c) the pipelined step likewise
+                (9 / 9 / 2 bfloat16 launches a block), its 8 x 4 block
+                against the CPU's bfloat16 scan; (d) one frame of the
+                bfloat16 stretch model at 8192 points (B5 and the bfloat16
+                B4 twice, B6, B7) against the CPU at (b)'s gates; (e) the
+                three general SA levels in bfloat16 on the card against
+                the CPU (1 / 3 launches of the bfloat16 B1', 1 of B1);
+                (f) `serve.RadarTracker` over the bfloat16 model, 8
+                streams x 4 scans on the card against the CPU: 9 / 9 / 2
+                bfloat16 launches a step, flow within 0.05 on average,
+                points in another cluster on at most 1%, the label and
+                track-id mismatches reported.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
-phase 11's 8192-point run, B1' and B8 from phase 13's), error, times
+phase 11's 8192-point run, B1' and B8 from phase 13's, the bfloat16
+instantiations from phase 19's (b), (d) and (e)), error, times
 summed over the calls one frame step of that path makes (6 B1, 6 B2, 2 B3;
 9 B9, 2 B10; 2 B5, 2 B4, 6 B6, 1 B7; for B1' the 4 and for B8 the 6
-scales that phase 13's three levels launch one by one), the roofline
+scales that phase 13's three levels launch one by one; the bfloat16
+rows as their float32 ones), the roofline
 bound of the same work (the largest of bytes / 3.35 TB/s, matrix-product
 operations / 165 TFLOP/s, the card's fastest float32-accurate product:
-3xTF32, a third of the 495 TF32 rate, and the other float32 operations /
+3xTF32, a third of the 495 TF32 rate, or for the bfloat16 rows / 989
+TFLOP/s, and the other float32 operations /
 67 TFLOP/s, counted by kernels/cases.py::*_work) and, where one PyTorch
 call computes the same function, that call's time; for B1 also its
 two sa1 calls of a stretch frame (8192 points x 512 centers: stretch_ms,
@@ -180,7 +217,7 @@ a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
-and 12-18 record their failed checks and go on, so that one run reports
+and 12-19 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
@@ -229,6 +266,7 @@ FPS_SHAPES = ((1024, 1), (128, 1), (128, 2), (128, 8))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 PRODUCT_OPS_PER_S = 495e12 / 3  # float32-accurate products: 3xTF32
+BF16_PRODUCT_OPS_PER_S = 989e12  # products of bfloat16 operands
 
 KERNELS = {
     "sa_pair": dict(
@@ -278,15 +316,27 @@ KERNELS = {
         source="ratrack_tpu_torch/csrc/sinkhorn.cu",
         replaces="ratrack_tpu/ops/pallas_sinkhorn.py:44 (_kernel)"),
 }
+# the bfloat16-operand instantiations (phase 19), by the float32 kernel
+# they instantiate
+BF16_OF = {"sa_pair_bf16": "sa_pair", "sa_scale_bf16": "sa_scale",
+           "three_interpolate_bf16": "three_interpolate",
+           "knn_weight_aggregate_bf16": "knn_weight_aggregate",
+           "knn_gather_apply_bf16": "knn_gather_apply"}
+KERNELS.update({name: dict(
+    source=KERNELS[base]["source"],
+    replaces=KERNELS[base]["replaces"][:-1] + ", compute_dtype=bfloat16)")
+    for name, base in BF16_OF.items()})
+BF16_KERNELS = tuple(BF16_OF)
 EVAL_KERNELS = ("sa_pair", "three_interpolate", "knn_weight_aggregate")
 STRETCH_KERNELS = ("knn_tiled", "knn_gather_apply", "furthest_point_sample",
                    "sinkhorn_uv")
 SCALE_KERNELS = ("sa_scale", "sa_scale_train_fwd", "sa_scale_train_bwd")
 TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
-                      EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS)
+                      EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
+                      + BF16_KERNELS)
 
 
-FAILED: list = []   # failed checks of phases 6-8 and 12-18
+FAILED: list = []   # failed checks of phases 6-8 and 12-19
 
 
 def fail(msg: str) -> None:
@@ -323,9 +373,12 @@ def device_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def compare(torch, name, got, want, got_idx, want_idx):
+def compare(torch, name, got, want, got_idx, want_idx, rel=1e-4):
+    """A kernel against its plain version: indices equal, values within
+    rel * max|plain| + 1e-5 (phase 3's 1e-4; 2^-8 for a bfloat16
+    instantiation, see variant), finite."""
     err = (got - want).abs().max().item()
-    tol = 1e-4 * want.abs().max().item() + 1e-5
+    tol = rel * want.abs().max().item() + 1e-5
     idx_equal = bool(torch.equal(got_idx.long(), want_idx.long()))
     finite = bool(torch.isfinite(got).all().item())
     if not (err <= tol and idx_equal and finite):
@@ -339,12 +392,13 @@ def new_summary(names):
                     bytes=0, mm_ops=0, ops=0) for k in names}
 
 
-def roofline(nbytes, mm_ops, ops):
+def roofline(nbytes, mm_ops, ops, product_rate=PRODUCT_OPS_PER_S):
     """(bound_ms, bound_by): the least time the card could take to move
-    nbytes, to do mm_ops matrix-product operations at the 3xTF32 rate or
-    to do ops other float32 operations, whichever is longest."""
+    nbytes, to do mm_ops matrix-product operations at product_rate (the
+    3xTF32 rate; the bfloat16 rate for the bfloat16 instantiations) or to
+    do ops other float32 operations, whichever is longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(mm_ops / PRODUCT_OPS_PER_S, ops / FP32_OPS_PER_S)
+    t_ops = max(mm_ops / product_rate, ops / FP32_OPS_PER_S)
     return (1000.0 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -373,7 +427,8 @@ def run_kernel_cases(torch, phase, runs, summary):
             torch.cuda.synchronize()
             err, tol = r["check"](got, want)
             work = r["work"](got)
-            bound_ms, bound_by = roofline(*work)
+            bound_ms, bound_by = roofline(
+                *work, r.get("product_rate", PRODUCT_OPS_PER_S))
             ms = device_ms(torch, r["run_k"])
             plain_ms = device_ms(torch, r["run_p"])
             library_ms = (device_ms(torch, r["library"])
@@ -390,39 +445,69 @@ def run_kernel_cases(torch, phase, runs, summary):
             del got, want
 
 
-def check_sa(torch, name):
+def variant(torch, kw):
+    """(kernel-name suffix, relative tolerance, product rate) of a kernel
+    case: its bfloat16 instantiation's where kw asks for bfloat16 operands
+    (within one bfloat16 step of the largest plain value: both multiply
+    the same rounded operands exactly, but a float32 sum in another order
+    can round a later layer's operand to the neighbouring bfloat16)."""
+    if kw.get("compute_dtype") == torch.bfloat16:
+        return "_bf16", 2.0 ** -8, BF16_PRODUCT_OPS_PER_S
+    return "", 1e-4, PRODUCT_OPS_PER_S
+
+
+def check_sa(torch, name, rel=1e-4):
     def check(got, want):
         errs = [compare(torch, f"{name}.{t}", got[i], want[i], got[i + 2],
-                        want[i + 2]) for i, t in enumerate("ab")]
+                        want[i + 2], rel) for i, t in enumerate("ab")]
         return max(e for e, _ in errs), min(t for _, t in errs)
     return check
 
 
-def check_out_idx(torch, name):
+def check_out_idx(torch, name, rel=1e-4):
     return lambda got, want: compare(torch, name, got[0], want[0], got[1],
-                                     want[1])
+                                     want[1], rel)
 
 
 def sa_run(torch, cases, fused_sa, name, kw, weight=1):
-    return dict(kernel="sa_pair", config=name, weight=weight,
+    sfx, rel, rate = variant(torch, kw)
+    return dict(kernel="sa_pair" + sfx, config=name, weight=weight,
                 run_k=lambda: fused_sa.sa_pair(**kw, return_indices=True),
                 run_p=lambda: fused_sa.sa_pair_reference(**kw),
-                check=check_sa(torch, f"sa_pair[{name}]"),
-                work=lambda got: cases.sa_pair_work(kw, *got))
+                check=check_sa(torch, f"sa_pair{sfx}[{name}]", rel),
+                work=lambda got: cases.sa_pair_work(kw, *got),
+                product_rate=rate)
 
 
 def fp_run(torch, cases, fused_fp, name, kw, weight=1):
-    return dict(kernel="three_interpolate", config=name, weight=weight,
+    sfx, rel, rate = variant(torch, kw)
+    return dict(kernel="three_interpolate" + sfx, config=name,
+                weight=weight,
                 run_k=lambda: fused_fp.fused_three_interpolate(
                     **kw, return_indices=True),
                 run_p=lambda: fused_fp.three_interpolate_reference(**kw),
-                check=check_out_idx(torch, f"three_interpolate[{name}]"),
+                check=check_out_idx(torch, f"three_interpolate{sfx}[{name}]",
+                                    rel),
                 work=lambda got: cases.three_interpolate_work(kw, got[0]),
+                product_rate=rate,
                 # one library call for the 3-NN selection: top-3 of the
                 # dense distance matrix
                 library=lambda: torch.topk(
                     torch.cdist(kw["unknown"], kw["known"]), 3, dim=-1,
                     largest=False))
+
+
+def corr_run(torch, cases, fused_correlator, stage, kw):
+    """B3 (both launches) against its plain version."""
+    sfx, rel, rate = variant(torch, kw)
+    name = f"knn_weight_aggregate{sfx}"
+    return dict(
+        kernel=name, config=f"stage{stage}",
+        run_k=lambda: fused_correlator.fused_knn_weight_aggregate(
+            **kw, return_indices=True),
+        run_p=lambda: fused_correlator.knn_weight_aggregate_reference(**kw),
+        check=check_out_idx(torch, f"{name}[stage{stage}]", rel),
+        work=lambda got: cases.corr_work(kw, got[0]), product_rate=rate)
 
 
 def select_run(torch, cases, fused_correlator, knn, name, kw):
@@ -466,14 +551,7 @@ def phase_kernels(torch, seed: int):
     for stage in (1, 2):
         kw = cases.to_device(cases.corr_case(stage, pc1, m1, pc2, m2, gen),
                              dev)
-        runs.append(dict(
-            kernel="knn_weight_aggregate", config=f"stage{stage}",
-            run_k=lambda kw=kw: fused_correlator.fused_knn_weight_aggregate(
-                **kw, return_indices=True),
-            run_p=lambda kw=kw:
-            fused_correlator.knn_weight_aggregate_reference(**kw),
-            check=check_out_idx(torch, f"knn_weight_aggregate[stage{stage}]"),
-            work=lambda got, kw=kw: cases.corr_work(kw, got[0])))
+        runs.append(corr_run(torch, cases, fused_correlator, stage, kw))
         runs.append(select_run(torch, cases, fused_correlator, knn,
                                f"stage{stage}", kw))
     summary = new_summary(EVAL_KERNELS + ("knn_select",))
@@ -765,7 +843,14 @@ def counters():
             "knn_weight_aggregate_train_fwd":
                 fused_correlator_train.knn_weight_aggregate_train_fwd,
             "knn_weight_aggregate_train_bwd":
-                fused_correlator_train.knn_weight_aggregate_train_bwd}
+                fused_correlator_train.knn_weight_aggregate_train_bwd,
+            # the bfloat16 instantiations count on their own
+            "sa_pair_bf16": fused_sa.sa_pair.bf16,
+            "sa_scale_bf16": fused_sa.sa_scale.bf16,
+            "three_interpolate_bf16": fused_fp.fused_three_interpolate.bf16,
+            "knn_weight_aggregate_bf16":
+                fused_correlator.fused_knn_weight_aggregate.bf16,
+            "knn_gather_apply_bf16": fused_correlator.knn_gather_apply.bf16}
 
 
 def reset_counters():
@@ -780,7 +865,8 @@ def read_counters():
 def expected_launches(t: int):
     # per frame: pn_head(pc1) + decoder mse = 6 SA pairs and 6 FP; 2
     # correlator stages; plus the pc2 head once at block entry (3 + 3)
-    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS},
+    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
+               + BF16_KERNELS},
             "sa_pair": 6 * t + 3, "three_interpolate": 6 * t + 3,
             "knn_weight_aggregate": 2 * t}
 
@@ -789,7 +875,7 @@ def expected_stretch_launches(t: int):
     # as expected_launches, with the split correlator (a tiled kNN and an
     # apply per stage) in place of B3, a farthest point sampling per SA
     # level and one Sinkhorn launch per frame
-    return {**{k: 0 for k in TRAIN_KERNELS + SCALE_KERNELS},
+    return {**{k: 0 for k in TRAIN_KERNELS + SCALE_KERNELS + BF16_KERNELS},
             "knn_weight_aggregate": 0,
             "sa_pair": 6 * t + 3, "three_interpolate": 6 * t + 3,
             "knn_tiled": 2 * t, "knn_gather_apply": 2 * t,
@@ -799,7 +885,8 @@ def expected_stretch_launches(t: int):
 def expected_train_launches(t: int):
     # per frame step: 3 PNHeads (pc1, pc2, the decoder's mse) x 3 SA
     # levels, forward and backward; 2 correlator stages; no eval kernel
-    return {**{k: 0 for k in EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS},
+    return {**{k: 0 for k in EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
+               + BF16_KERNELS},
             "sa_pair_train_fwd": 9 * t, "sa_pair_train_bwd": 9 * t,
             "knn_weight_aggregate_train_fwd": 2 * t,
             "knn_weight_aggregate_train_bwd": 2 * t}
@@ -1409,14 +1496,17 @@ def phase_scale_kernels(torch, seed: int):
     return summary
 
 
-def general_level(torch, level: str, seed: int, dtype, device):
+def general_level(torch, level: str, seed: int, dtype, device,
+                  compute_dtype=None):
     """A `SetAbstractionMSG` of cases.GENERAL_LEVELS with seeded weights and
-    batch norm statistics, in eval mode, on `device` in `dtype`."""
+    batch norm statistics, in eval mode, on `device` in `dtype`, computing
+    in compute_dtype (None: float32)."""
     from ratrack_tpu_torch.kernels import cases
     from ratrack_tpu_torch.models import SetAbstractionMSG, init_parameters
     radii, nsamples, mlps, c_feat = cases.GENERAL_LEVELS[level]
     gen = torch.Generator().manual_seed(seed)
-    mod = SetAbstractionMSG(N_MAX, radii, nsamples, mlps, 3 + c_feat)
+    mod = SetAbstractionMSG(N_MAX, radii, nsamples, mlps, 3 + c_feat,
+                            dtype=compute_dtype or torch.float32)
     init_parameters(mod, gen)
     with torch.no_grad():
         for name, buf in mod.named_buffers():
@@ -1933,7 +2023,8 @@ def phase_offline_eval(vod: dict, tmp: str, card: str):
 def expected_pipelined_launches():
     # one block, whatever T: 3 PNHeads (pc1, pc2, the decoder's mse) x 3 SA
     # and 3 FP levels, 2 correlator stages
-    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS},
+    return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
+               + BF16_KERNELS},
             "sa_pair": 9, "three_interpolate": 9, "knn_weight_aggregate": 2}
 
 
@@ -1978,14 +2069,7 @@ def pipelined_kernel_runs(torch, seed: int, streams: int):
     for stage in (1, 2):
         kw = cases.to_device(cases.corr_case(stage, pc1, m1, pc2, m2, gen),
                              dev)
-        runs.append(dict(
-            kernel="knn_weight_aggregate", config=f"stage{stage}",
-            run_k=lambda kw=kw: fused_correlator.fused_knn_weight_aggregate(
-                **kw, return_indices=True),
-            run_p=lambda kw=kw:
-            fused_correlator.knn_weight_aggregate_reference(**kw),
-            check=check_out_idx(torch, f"knn_weight_aggregate[stage{stage}]"),
-            work=lambda got, kw=kw: cases.corr_work(kw, got[0])))
+        runs.append(corr_run(torch, cases, fused_correlator, stage, kw))
         runs.append(select_run(torch, cases, fused_correlator, knn,
                                f"stage{stage}", kw))
     return runs
@@ -2142,6 +2226,383 @@ def phase_pipelined(torch, seed: int, card: str, eval_fps: float):
     del out, frames
 
 
+# ---- phase 19: bfloat16 -------------------------------------------------
+
+def bf16_kernel_runs(torch, seed: int):
+    """Phase 19 (a): the runs of B1, B1', B2, B3 and B4 in bfloat16, each
+    at the shapes of its float32 row (phases 3, 12 and 9), weighted per
+    frame step as there."""
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.ops import fused_correlator, fused_fp, fused_sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 19)
+    pc1, m1, pc2, m2 = cases.clouds(seed, N_STREAMS, N_MAX)
+    spc1, sm1, spc2, sm2 = cases.stretch_clouds(seed, STRETCH_N)
+    rel, rate = variant(torch, {"compute_dtype": torch.bfloat16})[1:]
+
+    def bf16(kw):
+        return cases.to_device(cases.bf16_case(kw), dev)
+
+    runs = []
+    for head in ("pn_head", "mse"):
+        for level in cases.SA_LEVELS:
+            runs.append(sa_run(torch, cases, fused_sa, f"{head}.{level}",
+                               bf16(cases.sa_case(level, head, pc1, m1,
+                                                  gen))))
+        for level in cases.FP_LEVELS:
+            runs.append(fp_run(torch, cases, fused_fp, f"{head}.{level}",
+                               bf16(cases.fp_case(level, pc1, m1, gen))))
+    for stage in (1, 2):
+        runs.append(corr_run(torch, cases, fused_correlator, stage, bf16(
+            cases.corr_case(stage, pc1, m1, pc2, m2, gen))))
+    # B1' as phase 12 weighs it: mixed_depth's two scales take one B1
+    for level in cases.GENERAL_LEVELS:
+        for i, kw in enumerate(cases.sa_scale_cases(level, pc1, m1, gen)):
+            kw, name = bf16(kw), f"{level}.{i}"
+            runs.append(dict(
+                kernel="sa_scale_bf16", config=name,
+                weight=int(level != "mixed_depth"),
+                run_k=lambda kw=kw: fused_sa.sa_scale(**kw,
+                                                      return_indices=True),
+                run_p=lambda kw=kw: fused_sa.sa_scale_reference(**kw),
+                check=check_out_idx(torch, f"sa_scale_bf16[{name}]", rel),
+                work=lambda got, kw=kw: cases.sa_scale_work(kw, *got),
+                product_rate=rate))
+    for stage in (1, 2):
+        kw = bf16(cases.apply_case(stage, spc1, sm1, spc2, sm2, gen))
+        name = f"knn_gather_apply_bf16[{STRETCH_N}.stage{stage}]"
+        runs.append(dict(
+            kernel="knn_gather_apply_bf16", config=f"{STRETCH_N}.stage{stage}",
+            run_k=lambda kw=kw: fused_correlator.knn_gather_apply(**kw),
+            run_p=lambda kw=kw: fused_correlator.knn_gather_apply_reference(
+                **kw),
+            check=lambda got, want, kw=kw, name=name: compare(
+                torch, name, got, want, kw["idx"], kw["idx"], rel),
+            work=lambda got, kw=kw: cases.corr_work(kw, got, select=False),
+            product_rate=rate))
+    return runs
+
+
+def as_bf16(launches: dict) -> dict:
+    """A float32 path's expected launch counts for its bfloat16 model: each
+    float32 kernel's count moved to its bfloat16 instantiation."""
+    out = dict(launches)
+    for bf, base in BF16_OF.items():
+        out[bf], out[base] = out[base], 0
+    return out
+
+
+def partition_mismatch(labels_a, labels_b):
+    """Points of (..., N) label arrays whose cluster differs up to
+    renumbering: each cluster of a is mapped to the cluster of b that holds
+    most of its points (noise, -1, to noise), and a point counts where its
+    mapped label is not its label in b."""
+    a = labels_a.reshape(-1, labels_a.shape[-1]).long()
+    b = labels_b.reshape(-1, labels_b.shape[-1]).long()
+    bad = 0
+    for la, lb in zip(a, b):
+        k = int(max(la.max(), lb.max())) + 2
+        pairs = ((la + 1) * k + lb + 1).bincount(minlength=k * k)
+        best = pairs.reshape(k, k).argmax(1) - 1
+        best[0] = -1
+        bad += int((best[la + 1] != lb).sum())
+    return bad
+
+
+def bf16_gap(torch, got, want, pc1, mask):
+    """tracking_gap of two (B, T, ...) bfloat16 runs, with the mean cls and
+    flow errors over the valid points and the points clustered apart
+    (labels up to renumbering, partition_mismatch)."""
+    def cast(out):
+        return {k: out[k].float() if out[k].is_floating_point() else out[k]
+                for k in ("cls", "warp", "labels", "track_id")}
+    got = {k: v.cpu() for k, v in cast(got).items()}
+    want = {k: v.cpu() for k, v in cast(want).items()}
+    valid = mask.cpu()
+    d_cls = (got["cls"] - want["cls"]).abs()[valid]
+    d_flow = (got["warp"] - want["warp"]).abs()[valid]
+    return dict(tracking_gap(torch, got, want, pc1),
+                cls_mean_abs_err=d_cls.mean().item(),
+                flow_mean_abs_err=d_flow.mean().item(),
+                clustered_apart=partition_mismatch(got["labels"],
+                                                   want["labels"]))
+
+
+def association_replay(torch, model, out, new_seq):
+    """Track ids the CPU's association gives on a pipelined step's own
+    (B, T) affinities and counts (`match_structure`, then `assign_ids`
+    frame by frame, as the step's phases C and D), against the ids the
+    step returned -> mismatching slots. It holds the card's association
+    exactly, apart from the affinities that bfloat16 rounds differently on
+    the card and on the CPU."""
+    from ratrack_tpu_torch.tracker import association as assoc
+    aff = out["aff"].cpu()
+    b, t, k, _ = aff.shape
+    ms = assoc.match_structure(
+        aff.reshape(b * t, k, k), out["m"].cpu().reshape(-1),
+        out["n"].cpu().reshape(-1), model.sinkhorn_alpha,
+        model.sinkhorn_iters, model.sinkhorn_tol)
+    ms = assoc.MatchStructure(*[x.reshape(b, t, k) for x in ms])
+    tid = torch.full((b, k), -1, dtype=torch.int32)
+    next_id = torch.zeros((b,), dtype=torch.int32)
+    bad = 0
+    for s in range(t):
+        tid = torch.where(new_seq[:, s, None].cpu(), torch.full_like(tid, -1),
+                          tid)
+        res = assoc.assign_ids(assoc.MatchStructure(*[x[:, s] for x in ms]),
+                               tid, next_id, aff[:, s],
+                               model.match_conf_thres)
+        tid, next_id = res.track_id, res.next_id
+        bad += int((tid != out["track_id"][:, s].cpu()).sum())
+    return bad
+
+
+def bf16_gap_gate(name, gap, report=record_failure):
+    """Phase 19's gates on a bf16_gap: finite; over the valid points cls
+    within 0.02 on average and 0.5 at most, flow within 0.05 on average and
+    1.0 at most (the JAX package's own two bfloat16 paths differ by 0.009 /
+    0.195 and 0.023 / 0.375 on tests/test_torch_port_bf16.py's model: a
+    bfloat16 step in the heads moves random weights' large logits); points
+    clustered apart on at most 1% (phase 4's budget). The raw label and
+    track-id mismatches are reported, not gated: a bfloat16 step in an
+    affinity moves a match where two candidates are that close, and the
+    ids of every later frame follow (association_replay holds the card's
+    association on its own affinities instead)."""
+    if not gap["finite"]:
+        report(f"{name}: outputs not finite")
+    if (gap["cls_mean_abs_err"] > 0.02 or gap["cls_max_abs_err"] > 0.5
+            or gap["flow_mean_abs_err"] > 0.05
+            or gap["flow_max_abs_err"] > 1.0):
+        report(f"{name}: cls err {gap['cls_mean_abs_err']} mean / "
+               f"{gap['cls_max_abs_err']} max, flow err "
+               f"{gap['flow_mean_abs_err']} / {gap['flow_max_abs_err']}")
+    if gap["clustered_apart"] > 0.01 * gap["label_total"]:
+        report(f"{name}: {gap['clustered_apart']} points clustered apart")
+
+
+def paired_scans(torch, steps, state0, frames):
+    """Each (name, step) timed in turns (a b b a: one warm-up, median of 3
+    each time) -> {name: dict(frames_per_s of both turns, peak_memory_gib,
+    launches of the first turn)}."""
+    n_frames = frames.pc1.shape[0] * frames.pc1.shape[1]
+    out = {name: dict(frames_per_s=[]) for name, _ in steps}
+    for name, step in steps + steps[::-1]:
+        times, launches, _, peak = timed_scans(torch, step, state0, frames)
+        entry = out[name]
+        entry["frames_per_s"].append(n_frames / statistics.median(times))
+        entry.setdefault("peak_memory_gib", peak / 2 ** 30)
+        entry.setdefault("launches", launches)
+    return out
+
+
+def phase_bf16(torch, seed: int, card: str):
+    """Phase 19: the bfloat16 compute dtype. (a) the bfloat16 kernels
+    against their plain versions; (b) the cached scan at 8 x 4 against the
+    CPU and at 8 x 32 beside float32; (c) the pipelined step likewise;
+    (d) one stretch frame at 8192 points through B4 against the CPU; (e)
+    the three general SA levels against the CPU (B1'); (f) serve.
+    RadarTracker against the CPU. Returns (summary, launch counts of the
+    bfloat16 kernels on their paths)."""
+    from ratrack_tpu_torch.data import FrameBatch
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (make_pipelined_eval_step,
+                                         make_scan_eval_step_cached)
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    summary = new_summary(BF16_KERNELS)
+    run_kernel_cases(torch, "bf16_kernel", bf16_kernel_runs(torch, seed),
+                     summary)
+    for name, entry in summary.items():
+        bound_ms, bound_by = roofline(entry["bytes"], entry["mm_ops"],
+                                      entry["ops"], BF16_PRODUCT_OPS_PER_S)
+        emit(phase="bf16", part="kernels_a_frame_step", kernel=name,
+             max_abs_err=entry["max_abs_err"], ms=entry["ms"],
+             plain_ms=entry["plain_ms"], library_ms=entry["library_ms"],
+             bound_ms=bound_ms, bound_by=bound_by, card=card)
+    kept = {}
+
+    def model_on(device, dtype, **kw):
+        return Track4D(npoint=N_MAX, k_max=K_MAX,
+                       sinkhorn_iters=SINKHORN_ITERS, dtype=dtype,
+                       generator=torch.Generator().manual_seed(seed),
+                       device=device, **kw)
+
+    # (b) and (c) at 8 x 4: the card against the CPU's bfloat16 scan
+    frames_cpu = make_frames(torch, seed, SLICE_T, "cpu")
+    t0 = time.perf_counter()
+    _, cpu = make_scan_eval_step_cached(model_on("cpu", bf))(
+        init_state(N_STREAMS, K_MAX, device="cpu"), frames_cpu)
+    cpu_s = time.perf_counter() - t0
+    model = model_on(dev, bf)
+    frames = FrameBatch(*[x.to(dev) for x in frames_cpu])
+    checks = {}
+    for part, make in (("scan", make_scan_eval_step_cached),
+                       ("pipelined", make_pipelined_eval_step)):
+        reset_counters()
+        _, gpu = make(model)(init_state(N_STREAMS, K_MAX, device=dev),
+                             frames)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        want = as_bf16(expected_launches(SLICE_T) if part == "scan"
+                       else expected_pipelined_launches())
+        if launches != want:
+            record_failure(f"bf16 {part} launch counts {launches}, "
+                           f"expected {want}")
+        if gpu["cls"].dtype != bf:
+            record_failure(f"bf16 {part}: cls is {gpu['cls'].dtype}")
+        gap = bf16_gap(torch, gpu, cpu, frames_cpu.pc1, frames_cpu.mask1)
+        bf16_gap_gate(f"bf16 {part} vs the CPU bf16 scan", gap)
+        if part == "pipelined":
+            gap["association_replay_mismatch"] = bad = association_replay(
+                torch, model, gpu, frames.new_seq)
+            if bad > 0.01 * gpu["track_id"].numel():
+                record_failure(f"bf16 pipelined: the CPU's association on "
+                               f"the card's affinities differs in {bad} "
+                               f"track-id slots")
+        checks[part] = dict(gap, launches={k: v for k, v in
+                                           launches.items() if v})
+    emit(phase="bf16", part="check", streams=N_STREAMS, frames=SLICE_T,
+         points=N_MAX, vs_cpu_bf16_scan=checks,
+         clustered_points=int((cpu["labels"] >= 0).sum()),
+         live_tracks=int((cpu["track_id"] >= 0).sum()), cpu_seconds=cpu_s)
+    kept.update({k: v for k, v in checks["scan"]["launches"].items()})
+    del cpu, gpu
+
+    # (b), (c) at 8 x 32, float32 and bfloat16 in turns
+    frames = make_frames(torch, seed + 100, SCAN_T, dev)
+    state0 = init_state(N_STREAMS, K_MAX, device=dev)
+    f32 = model_on(dev, torch.float32)
+    for part, make in (("scan", make_scan_eval_step_cached),
+                       ("pipelined", make_pipelined_eval_step)):
+        res = paired_scans(torch, [("float32", make(f32)),
+                                   ("bfloat16", make(model))], state0, frames)
+        if res["bfloat16"]["launches"] != as_bf16(
+                expected_launches(SCAN_T) if part == "scan"
+                else expected_pipelined_launches()):
+            record_failure(f"bf16 {part} 8 x {SCAN_T} launch counts "
+                           f"{res['bfloat16']['launches']}")
+        emit(phase="bf16", part=f"{part}_throughput", streams=N_STREAMS,
+             frames_per_stream=SCAN_T, points=N_MAX,
+             sinkhorn_iters=SINKHORN_ITERS,
+             **{dt: {k: v for k, v in r.items() if k != "launches"}
+                for dt, r in res.items()},
+             bfloat16_launches={k: v for k, v in
+                                res["bfloat16"]["launches"].items() if v},
+             card=card)
+    del frames, f32, model
+
+    # (d) one stretch frame at 8192 points: B5 and B4 on the split path
+    smodel = Track4D(npoint=STRETCH_NPOINT, k_max=K_MAX,
+                     sinkhorn_iters=SINKHORN_ITERS, exact_fps=True,
+                     mov_budget=512, sinkhorn_kernel=True, dtype=bf,
+                     generator=torch.Generator().manual_seed(seed),
+                     device="cpu")
+    sframes = stretch_frames(torch, seed, 1, "cpu", STRETCH_N)
+    scan = make_scan_eval_step_cached(smodel)
+    t0 = time.perf_counter()
+    _, cpu = scan(init_state(1, K_MAX, device="cpu"), sframes)
+    cpu_s = time.perf_counter() - t0
+    smodel.to(dev)
+    reset_counters()
+    _, gpu = scan(init_state(1, K_MAX, device=dev),
+                  FrameBatch(*[x.to(dev) for x in sframes]))
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = as_bf16(expected_stretch_launches(1))
+    if launches != want:
+        record_failure(f"bf16 stretch launch counts {launches}, expected "
+                       f"{want}")
+    gap = bf16_gap(torch, gpu, cpu, sframes.pc1, sframes.mask1)
+    bf16_gap_gate("bf16 stretch frame vs the CPU", gap)
+    emit(phase="bf16", part="stretch_frame", points=STRETCH_N, streams=1,
+         frames=1, vs_cpu=gap, launches={k: v for k, v in launches.items()
+                                         if v}, cpu_seconds=cpu_s)
+    kept["knn_gather_apply_bf16"] = launches["knn_gather_apply_bf16"]
+    del smodel, cpu, gpu
+
+    # (e) the general SA levels in bfloat16: B1' on the card
+    pc1, m1, _, _ = cases.clouds(seed, N_STREAMS, N_MAX)
+    gen = torch.Generator().manual_seed(seed + 4)
+    c_feat = cases.GENERAL_LEVELS["one_scale"][3]
+    feats = torch.randn((N_STREAMS, N_MAX, c_feat), generator=gen)
+    kept["sa_scale_bf16"] = 0
+    for level, (radii, *_rest) in cases.GENERAL_LEVELS.items():
+        out = {}
+        for device in ("cpu", dev):
+            mod = general_level(torch, level, seed + 5, torch.float32,
+                                device, compute_dtype=bf)
+            reset_counters()
+            with torch.no_grad():
+                out[str(device)] = mod(pc1.to(device), feats.to(device),
+                                       m1.to(device))[1].float().cpu()
+            torch.cuda.synchronize()
+        launches = read_counters()
+        n_scales = len(radii)
+        want = as_bf16({**{k: 0 for k in counters()},
+                        **({"sa_pair": 1} if n_scales == 2
+                           else {"sa_scale": n_scales})})
+        if launches != want:
+            record_failure(f"bf16 general level {level}: launch counts "
+                           f"{launches}, expected {want}")
+        kept["sa_scale_bf16"] += launches["sa_scale_bf16"]
+        got, ref = out[str(dev)], out["cpu"]
+        err = (got - ref).abs().max().item()
+        tol = 2.0 ** -8 * ref.abs().max().item() + 1e-5
+        if not err <= tol:
+            record_failure(f"bf16 general level {level}: err {err} > {tol}")
+        emit(phase="bf16", part="general_level", level=level,
+             scales=n_scales, max_abs_err=err, tol=tol,
+             launches={k: v for k, v in launches.items() if v})
+
+    # (f) serving a bfloat16 model: RadarTracker on the card and the CPU
+    import numpy as np
+    from ratrack_tpu_torch.serve import RadarTracker
+    scans = [serve_scans(seed + 400 + s, SERVE_SCANS)
+             for s in range(N_STREAMS)]
+    served = {}
+    for device in ("cpu", dev):
+        svc = RadarTracker(model_on(device, bf), n_max=N_MAX,
+                           max_streams=N_STREAMS)
+        sids = [svc.open_stream() for _ in range(N_STREAMS)]
+        reset_counters()
+        outs = []
+        for t in range(SERVE_SCANS + 1):
+            for sid in sids:
+                svc.submit(sid, scans[sid][t])
+            res = svc.step()
+            outs += [res[sid] for sid in sids] if t > 0 else []
+        served[str(device)] = outs
+    launches = read_counters()
+    want = as_bf16({**{k: 0 for k in counters()}, "sa_pair": 9 * SERVE_SCANS,
+                    "three_interpolate": 9 * SERVE_SCANS,
+                    "knn_weight_aggregate": 2 * SERVE_SCANS})
+    if launches != want:
+        record_failure(f"bf16 serving launch counts {launches}, expected "
+                       f"{want}")
+    got, ref = served[str(dev)], served["cpu"]
+    labels = [torch.from_numpy(np.stack([o.labels for o in outs]))
+              for outs in (got, ref)]
+    flow_err = [float(np.abs(g.flow - c.flow)[:g.n_points].mean())
+                for g, c in zip(got, ref)]
+    gap = dict(
+        label_mismatch=int((labels[0] != labels[1]).sum()),
+        clustered_apart=partition_mismatch(*labels),
+        track_id_mismatch=sum(int((g.track_id != c.track_id).sum())
+                              for g, c in zip(got, ref)),
+        flow_mean_abs_err=float(np.mean(flow_err)),
+        finite=all(np.isfinite(g.flow).all() for g in got))
+    if (not gap["finite"] or gap["flow_mean_abs_err"] > 0.05
+            or gap["clustered_apart"] > 0.01 * labels[0].numel()):
+        record_failure(f"bf16 serving vs the CPU: {gap}")
+    emit(phase="bf16", part="serving", streams=N_STREAMS, scans=SERVE_SCANS,
+         vs_cpu=gap, launches={k: v for k, v in launches.items() if v})
+    return summary, {k: kept.get(k, 0) for k in BF16_KERNELS}
+
+
 def ptxas_summary(log: str):
     """[{kernel, registers, spill_stores}] from nvcc's -Xptxas -v output."""
     out, name = [], None
@@ -2215,20 +2676,24 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_pipelined(torch, SEED, card, eval_fps)
+    bf16_summary, bf16_launches = phase_bf16(torch, SEED, card)
+    summary.update(bf16_summary)
     if FAILED:
-        fail(f"{len(FAILED)} failed checks in phases 12-18")
+        fail(f"{len(FAILED)} failed checks in phases 12-19")
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},
-                **scale_launches}
+                **scale_launches, **bf16_launches}
     if not all(launches.values()):
         fail(f"a kernel was never launched on its path: {launches}")
 
     kernels = []
     for name, meta in KERNELS.items():
         entry = summary[name]
-        bound_ms, bound_by = roofline(entry["bytes"], entry["mm_ops"],
-                                      entry["ops"])
+        bound_ms, bound_by = roofline(
+            entry["bytes"], entry["mm_ops"], entry["ops"],
+            BF16_PRODUCT_OPS_PER_S if name in BF16_KERNELS
+            else PRODUCT_OPS_PER_S)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],

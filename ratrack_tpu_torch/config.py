@@ -8,8 +8,10 @@ two equal. It mirrors the reference's YAML -> EasyDict flow
 names, plus the padded-shape keys (point budget, track slots).
 
 Keys the port does not implement yet are kept so that every config loads;
-`models.track4d.model_from_config` raises on a value it cannot honour (a
-`dtype` other than float32, `fused_sa: false` on the card).
+`models.track4d.model_from_config` raises on a value it cannot honour
+(`fused_sa: false` on the card). `dtype` is "float32" or "bfloat16" (the
+two the JAX model_from_config tells apart, track4d.py:235); any other value
+raises here.
 `yaml` is imported inside `load_config` only: building a `Config` by hand
 needs no YAML package.
 """
@@ -19,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 from typing import Any
+
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +73,7 @@ class Config:
     mov_budget: int = 0            # >0: DBSCAN over top-K moving pts only
     gru_layers: int = 5            # model_utils.py:279
     feat_dim: int = 128
-    dtype: str = "float32"         # compute dtype for MLPs (the port: float32 only)
+    dtype: str = "float32"         # compute dtype: float32 | bfloat16 (eval)
     dp: int = 1                    # data-parallel mesh size (clips axis)
     scan_frames: int = 0           # >0: scan over this many frames/step
     prefetch_depth: int = 4        # host-side block prefetch queue depth
@@ -77,6 +81,10 @@ class Config:
     synth_frames: int = 6          # synthetic dataset: frames per clip
     profile_dir: str = ""          # non-empty: dump a profiler trace here
     vis_dir: str = ""              # non-empty: eval renders BEV PNGs here
+
+    def __post_init__(self) -> None:
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype {self.dtype!r}: one of {DTYPES}")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,11 +1,37 @@
 // Shared helpers of the ratrack_tpu_torch kernels (sm_90a, float32).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace ratrack {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// Operand types of the eval kernels' products (the JAX kernels'
+// compute_dtype): float, or __nv_bfloat16, whose operands are rounded to
+// bfloat16 (to nearest even) and held as float. A product of two such
+// operands is exact in float32 (8-bit significands), and so in TF32.
+template <typename Op>
+constexpr bool kBf16 = std::is_same<Op, __nv_bfloat16>::value;
+
+// x as an Op operand: itself for float, rounded to bfloat16 for bfloat16.
+template <typename Op>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (kBf16<Op>) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+template <typename Op>
+__device__ __forceinline__ float4 as_operand(float4 v) {
+  return make_float4(as_operand<Op>(v.x), as_operand<Op>(v.y),
+                     as_operand<Op>(v.z), as_operand<Op>(v.w));
+}
 // Distance of a masked-out candidate, as in the JAX kernels (_BIG).
 constexpr float kBig = 1e10f;
 

@@ -20,8 +20,10 @@ constexpr int kWnHidden = 8;
 __device__ __forceinline__ float leaky(float x) { return x > 0.0f ? x : 0.1f * x; }
 
 // WeightNet hidden layers of one direction d: h1 = relu(d @ w0 + b0),
-// h2 = relu(h1 @ w1 + b1), 3 -> 8 -> 8. The forward and the backward
-// call the same code, so both see the same values.
+// h2 = relu(h1 @ w1 + b1), 3 -> 8 -> 8, each product of Op operands (the
+// eval kernels' operand type; float in train). The forward and the
+// backward call the same code, so both see the same values.
+template <typename Op = float>
 __device__ __forceinline__ void weightnet_hidden(
     const float (&d)[3], const float* w0, const float* b0, const float* w1,
     const float* b1, float (&h1)[kWnHidden], float (&h2)[kWnHidden]) {
@@ -29,14 +31,18 @@ __device__ __forceinline__ void weightnet_hidden(
   for (int o = 0; o < kWnHidden; ++o) {
     float a = 0.0f;
 #pragma unroll
-    for (int t = 0; t < 3; ++t) a = fmaf(d[t], w0[t * kWnHidden + o], a);
+    for (int t = 0; t < 3; ++t)
+      a = fmaf(as_operand<Op>(d[t]), as_operand<Op>(w0[t * kWnHidden + o]),
+               a);
     h1[o] = fmaxf(a + b0[o], 0.0f);
   }
 #pragma unroll
   for (int o = 0; o < kWnHidden; ++o) {
     float a = 0.0f;
 #pragma unroll
-    for (int t = 0; t < kWnHidden; ++t) a = fmaf(h1[t], w1[t * kWnHidden + o], a);
+    for (int t = 0; t < kWnHidden; ++t)
+      a = fmaf(as_operand<Op>(h1[t]), as_operand<Op>(w1[t * kWnHidden + o]),
+               a);
     h2[o] = fmaxf(a + b1[o], 0.0f);
   }
 }

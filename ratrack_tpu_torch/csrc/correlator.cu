@@ -67,6 +67,20 @@
 // last are stashed (three (B*N*16, 256) float32 tensors, ~200 MB at the
 // main-path shape) for the backward in correlator_train.cu, which uses
 // the same 3xTF32 products. Eval passes no W_dir and no stash.
+//
+// Operand type (template parameter kOps): the TPU kernels at
+// compute_dtype=bfloat16 multiply bfloat16-rounded operands with float32
+// accumulation in every product (the pair layers, the WeightNet), and
+// leave bias, activations and the weighted slot sum in float32. Their
+// gathers differ, and each instantiation does as its kernel: kOpBf16Rows
+// (B3, entry ratrack_corr_aggregate_bf16) rounds the gathered feats_p rows
+// and the neighbours' coordinates to bfloat16 (pallas_correlator.py:91-92,
+// so a direction is bf16(x_j) - q_i), kOpBf16 (B4, ratrack_corr_apply_bf16
+// and _rows_bf16) gathers in float32 (pallas_correlator.py:368-371). A
+// product of bfloat16-rounded operands is exact in TF32, so the pair
+// layers take one TF32 mma.sync per k8 step instead of three, each added
+// into the sum by a float32 add as in 3xTF32. kOpF32 is the float32
+// kernel unchanged.
 
 #include "corr_common.cuh"
 #include "knn_common.cuh"
@@ -78,6 +92,14 @@ using namespace ratrack::corr;
 namespace knn = ratrack::knn;
 
 constexpr int kPiece = 4096;   // candidates staged at a time (64 KB)
+
+// Operand types of the aggregate kernel (see the header).
+constexpr int kOpF32 = 0;       // float32 products (3xTF32)
+constexpr int kOpBf16 = 1;      // bfloat16 operands, rows gathered in float32
+constexpr int kOpBf16Rows = 2;  // bfloat16 operands and gathered rows
+template <int kOps>
+using OpOf = typename std::conditional<kOps == kOpF32, float,
+                                       __nv_bfloat16>::type;
 
 // Dynamic shared memory of a launch over m candidates: one piece, padded
 // to whole steps.
@@ -219,25 +241,38 @@ struct Agg {
 // (enough to flip the sign of near-zero activations, whose leaky' the
 // backward takes from the stash); each k8 step's three products start
 // from zero and are added into the accumulator by a float32 add instead.
-template <int kMt>
+// With bfloat16 operands (Op) each A and B element is rounded to bfloat16
+// as it is loaded, which is a TF32 value (lo = 0): one product a k8 step.
+template <int kMt, typename Op>
 __device__ __forceinline__ void mma_ktile(float (&acc)[kMt][8][4],
                                           const float* as, const float* bs,
                                           int g, int t) {
+  constexpr bool kOne = ratrack::kBf16<Op>;
 #pragma unroll
   for (int kk = 0; kk < kWBK; kk += 8) {
     unsigned ah[kMt][4], al[kMt][4];
 #pragma unroll
     for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        split_tf32(as[(mt * 16 + g + (q & 1) * 8) * kLdH + kk + t + (q >> 1) * 4],
-                   ah[mt][q], al[mt][q]);
+      for (int q = 0; q < 4; ++q) {
+        const float x =
+            as[(mt * 16 + g + (q & 1) * 8) * kLdH + kk + t + (q >> 1) * 4];
+        if constexpr (kOne)
+          ah[mt][q] = __float_as_uint(ratrack::as_operand<Op>(x));
+        else
+          split_tf32(x, ah[mt][q], al[mt][q]);
+      }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       unsigned bh[2], bl[2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        split_tf32(bs[(kk + t + q * 4) * kLdW + nt * 8 + g], bh[q], bl[q]);
+      for (int q = 0; q < 2; ++q) {
+        const float x = bs[(kk + t + q * 4) * kLdW + nt * 8 + g];
+        if constexpr (kOne)
+          bh[q] = __float_as_uint(ratrack::as_operand<Op>(x));
+        else
+          split_tf32(x, bh[q], bl[q]);
+      }
       // a k8 step's three products (the small terms first) from zero,
       // then one float32 add into the accumulator, rounded to nearest
       float d[kMt][4];
@@ -245,10 +280,12 @@ __device__ __forceinline__ void mma_ktile(float (&acc)[kMt][8][4],
       for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) d[mt][q] = 0.0f;
+      if constexpr (!kOne) {
 #pragma unroll
-      for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], al[mt], bh);
+        for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], al[mt], bh);
 #pragma unroll
-      for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], ah[mt], bl);
+        for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], ah[mt], bl);
+      }
 #pragma unroll
       for (int mt = 0; mt < kMt; ++mt) mma_tf32(d[mt], ah[mt], bh);
 #pragma unroll
@@ -260,7 +297,7 @@ __device__ __forceinline__ void mma_ktile(float (&acc)[kMt][8][4],
   }
 }
 
-template <int kMt>
+template <int kMt, int kOps>
 __global__ void __launch_bounds__(kAggThreads, Agg<kMt>::kMinBlocks)
 aggregate_kernel(const float* __restrict__ query,
                  const float* __restrict__ points, const int* __restrict__ idx,
@@ -269,6 +306,8 @@ aggregate_kernel(const float* __restrict__ query,
                  TrainExtras tx, float* __restrict__ out) {
   constexpr int kRowsB = Agg<kMt>::kRowsB, kQB = Agg<kMt>::kQB;
   constexpr int kStages = Agg<kMt>::kStages;
+  using Op = OpOf<kOps>;
+  constexpr bool kRoundRows = kOps == kOpBf16Rows;
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);       // (kRowsB, kLdH)
   float* ring = hs + kRowsB * kLdH;                  // kStages x (kWBK, kLdW)
@@ -317,10 +356,16 @@ aggregate_kernel(const float* __restrict__ query,
       j = idx[(size_t)gq * kK + tid % kK];
       const float* q = query + (size_t)gq * 3;
       const float* p = points + ((size_t)bi * m + j) * 3;
-      d[0] = p[0] - q[0];
-      d[1] = p[1] - q[1];
-      d[2] = p[2] - q[2];
-      weightnet_hidden(d, wn.w0, wn.b0, wn.w1, wn.b1, h1, h2);
+      if constexpr (kRoundRows) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          d[i] = ratrack::as_operand<Op>(p[i]) - q[i];
+      } else {
+        d[0] = p[0] - q[0];
+        d[1] = p[1] - q[1];
+        d[2] = p[2] - q[2];
+      }
+      weightnet_hidden<Op>(d, wn.w0, wn.b0, wn.w1, wn.b1, h1, h2);
     }
     sj[tid] = j;
 #pragma unroll
@@ -339,6 +384,7 @@ aggregate_kernel(const float* __restrict__ query,
     if (gq < total) {
       const int bi = (int)(gq / n);
       v = reinterpret_cast<const float4*>(feats_p + ((size_t)bi * m + sj[r]) * kC)[c4];
+      if constexpr (kRoundRows) v = ratrack::as_operand<Op>(v);
       if (add_q != nullptr) {
         const float4 a = reinterpret_cast<const float4*>(add_q + (size_t)gq * kC)[c4];
         v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
@@ -377,7 +423,7 @@ aggregate_kernel(const float* __restrict__ query,
       __syncthreads();   // K-tile T has landed; T - 1 is consumed
       if (T + kStages - 1 < ntiles) load_w(T + kStages - 1);
       cp_commit();
-      mma_ktile<kMt>(acc, hs + wm * kLdH + kt * kWBK,
+      mma_ktile<kMt, Op>(acc, hs + wm * kLdH + kt * kWBK,
                      ring + (T % kStages) * kWBK * kLdW + wc, g, t);
     }
     const float* bias = l == 0 ? mlp.b[0] : mlp.b[1];
@@ -456,10 +502,13 @@ aggregate_kernel(const float* __restrict__ query,
 #pragma unroll
       for (int u = 0; u < kWnHidden; ++u) {
         const float2 wo = *reinterpret_cast<const float2*>(wn.w2 + u * kC + c);
+        const float wx = ratrack::as_operand<Op>(wo.x);
+        const float wy = ratrack::as_operand<Op>(wo.y);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          a[h][0] = fmaf(gr[h][u], wo.x, a[h][0]);
-          a[h][1] = fmaf(gr[h][u], wo.y, a[h][1]);
+          const float gu = ratrack::as_operand<Op>(gr[h][u]);
+          a[h][0] = fmaf(gu, wx, a[h][0]);
+          a[h][1] = fmaf(gu, wy, a[h][1]);
         }
       }
       float s0 = fmaxf(a[0][0] + bo.x, 0.0f) * acc[mt][nt][0];
@@ -490,16 +539,16 @@ struct AggArgs {
   float* out;
 };
 
-template <int kMt>
+template <int kMt, int kOps>
 int launch_shape(const AggArgs& a, cudaStream_t st) {
   const size_t smem = Agg<kMt>::smem(a.mlp.n);
   const cudaError_t err = cudaFuncSetAttribute(
-      aggregate_kernel<kMt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      aggregate_kernel<kMt, kOps>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)a.nb * a.n;
   const int grid = (int)((total + Agg<kMt>::kQB - 1) / Agg<kMt>::kQB);
-  aggregate_kernel<kMt><<<grid, kAggThreads, smem, st>>>(
+  aggregate_kernel<kMt, kOps><<<grid, kAggThreads, smem, st>>>(
       a.query, a.points, a.idx, a.nb, a.n, a.m, a.feats_p, a.add_q, a.mlp,
       a.wn, a.tx, a.out);
   return (int)cudaGetLastError();
@@ -512,6 +561,7 @@ int launch_shape(const AggArgs& a, cudaStream_t st) {
 int default_block_rows(int n_mlp) { return n_mlp > 0 ? 128 : 64; }
 
 // block_rows: 64 or 128 pair rows a block, or 0 for default_block_rows.
+template <int kOps>
 int launch_aggregate(const float* query, const float* points, const int* idx,
                      int nb, int n, int m, const float* feats_p,
                      const float* add_q, const float* const* mlp_w,
@@ -531,8 +581,8 @@ int launch_aggregate(const float* query, const float* points, const int* idx,
   a.wn = {wn_w0, wn_b0, wn_w1, wn_b1, wn_w2, wn_b2};
   if (block_rows == 0) block_rows = default_block_rows(n_mlp);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (block_rows == 128) return launch_shape<4>(a, st);
-  if (block_rows == 64) return launch_shape<2>(a, st);
+  if (block_rows == 128) return launch_shape<4, kOps>(a, st);
+  if (block_rows == 64) return launch_shape<2, kOps>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -556,48 +606,56 @@ extern "C" int ratrack_knn(const float* query, const float* points,
   }
 }
 
+#define RATRACK_AGG_ARGS                                                     \
+  const float *query, const float *points, const int *idx, int nb, int n,    \
+      int m, const float *feats_p, const float *add_q,                       \
+      const float *const *mlp_w, const float *const *mlp_b, int n_mlp,       \
+      const float *wn_w0, const float *wn_b0, const float *wn_w1,            \
+      const float *wn_b1, const float *wn_w2, const float *wn_b2
+#define RATRACK_AGG_CALL(OPS, BLOCK_ROWS)                                    \
+  launch_aggregate<OPS>(query, points, idx, nb, n, m, feats_p, add_q, mlp_w, \
+                        mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,     \
+                        wn_b2, kEvalOnly, BLOCK_ROWS, out, stream)
+
+// Eval: no W_dir, no stash.
+static const TrainExtras kEvalOnly = {nullptr, {nullptr, nullptr, nullptr}};
+
 // Channel width and neighbour count are fixed at 256 and 16 (the model's
 // FeatureCorrelator); the Python wrapper rejects anything else.
-extern "C" int ratrack_corr_aggregate(
-    const float* query, const float* points, const int* idx, int nb, int n,
-    int m, const float* feats_p, const float* add_q,
-    const float* const* mlp_w, const float* const* mlp_b, int n_mlp,
-    const float* wn_w0, const float* wn_b0, const float* wn_w1,
-    const float* wn_b1, const float* wn_w2, const float* wn_b2, float* out,
-    void* stream) {
-  const TrainExtras none = {nullptr, {nullptr, nullptr, nullptr}};
-  return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
-                          mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
-                          wn_b2, none, 0, out, stream);
+extern "C" int ratrack_corr_aggregate(RATRACK_AGG_ARGS, float* out,
+                                      void* stream) {
+  return RATRACK_AGG_CALL(kOpF32, 0);
+}
+
+// B3's aggregate launch with bfloat16 operands and gathered rows.
+extern "C" int ratrack_corr_aggregate_bf16(RATRACK_AGG_ARGS, float* out,
+                                           void* stream) {
+  return RATRACK_AGG_CALL(kOpBf16Rows, 0);
 }
 
 // Kernel B4: one stage over the caller's neighbour indices idx (B, N, 16),
 // each in [0, M); no selection launch.
-extern "C" int ratrack_corr_apply(
-    const float* query, const float* points, const int* idx, int nb, int n,
-    int m, const float* feats_p, const float* add_q,
-    const float* const* mlp_w, const float* const* mlp_b, int n_mlp,
-    const float* wn_w0, const float* wn_b0, const float* wn_w1,
-    const float* wn_b1, const float* wn_w2, const float* wn_b2, float* out,
-    void* stream) {
-  return ratrack_corr_aggregate(query, points, idx, nb, n, m, feats_p, add_q,
-                                mlp_w, mlp_b, n_mlp, wn_w0, wn_b0, wn_w1,
-                                wn_b1, wn_w2, wn_b2, out, stream);
+extern "C" int ratrack_corr_apply(RATRACK_AGG_ARGS, float* out,
+                                  void* stream) {
+  return RATRACK_AGG_CALL(kOpF32, 0);
+}
+
+// Kernel B4 with bfloat16 operands (rows gathered in float32).
+extern "C" int ratrack_corr_apply_bf16(RATRACK_AGG_ARGS, float* out,
+                                       void* stream) {
+  return RATRACK_AGG_CALL(kOpBf16, 0);
 }
 
 // B4 with its block shape forced: block_rows = 64 or 128 pair rows a
 // block (0: the default), for measuring the shapes against each other.
-extern "C" int ratrack_corr_apply_rows(
-    const float* query, const float* points, const int* idx, int nb, int n,
-    int m, const float* feats_p, const float* add_q,
-    const float* const* mlp_w, const float* const* mlp_b, int n_mlp,
-    const float* wn_w0, const float* wn_b0, const float* wn_w1,
-    const float* wn_b1, const float* wn_w2, const float* wn_b2,
-    int block_rows, float* out, void* stream) {
-  const TrainExtras none = {nullptr, {nullptr, nullptr, nullptr}};
-  return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
-                          mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
-                          wn_b2, none, block_rows, out, stream);
+extern "C" int ratrack_corr_apply_rows(RATRACK_AGG_ARGS, int block_rows,
+                                       float* out, void* stream) {
+  return RATRACK_AGG_CALL(kOpF32, block_rows);
+}
+
+extern "C" int ratrack_corr_apply_rows_bf16(RATRACK_AGG_ARGS, int block_rows,
+                                            float* out, void* stream) {
+  return RATRACK_AGG_CALL(kOpBf16, block_rows);
 }
 
 // Train forward of one stage (kernel B10, with correlator_train.cu): the
@@ -613,7 +671,8 @@ extern "C" int ratrack_corr_train_fwd(
   if (n_mlp < 0 || n_mlp > kMaxMlp) return (int)cudaErrorInvalidValue;
   TrainExtras tx = {w_dir, {nullptr, nullptr, nullptr}};
   for (int l = 0; l <= n_mlp; ++l) tx.h[l] = stash[l];
-  return launch_aggregate(query, points, idx, nb, n, m, feats_p, add_q, mlp_w,
-                          mlp_b, n_mlp, wn_w0, wn_b0, wn_w1, wn_b1, wn_w2,
-                          wn_b2, tx, 0, out, stream);
+  return launch_aggregate<kOpF32>(query, points, idx, nb, n, m, feats_p,
+                                  add_q, mlp_w, mlp_b, n_mlp, wn_w0, wn_b0,
+                                  wn_w1, wn_b1, wn_w2, wn_b2, tx, 0, out,
+                                  stream);
 }

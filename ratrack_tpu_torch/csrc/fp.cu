@@ -28,6 +28,12 @@
 // Measuring build (kernels/build.py): RATRACK_SKELETON scans one known
 // point a lane instead of M / G, the launch's floor (staging, merge and
 // the weighted sum), whose outputs are not the function's.
+// Operand type (entry ratrack_three_interpolate_bf16): the TPU kernel at
+// compute_dtype=bfloat16 reads the known features as bfloat16
+// (pallas_fp.py:65, :84) and gathers them exactly; this instantiation
+// reads bfloat16 rows (4 channels a uint2) and widens each to float, and
+// the selection, the weights and the weighted sum stay float32, as does
+// the output. The float4 instantiation is the float32 kernel unchanged.
 
 #include "common.cuh"
 
@@ -43,6 +49,16 @@ constexpr bool kSkeleton = true;   // a measuring build: one point a lane
 constexpr bool kSkeleton = false;
 #endif
 
+// Four channels of a feature row: a float4, or four bfloat16 in a uint2
+// (the first in the low half of .x), widened exactly.
+__device__ __forceinline__ float4 to_float4(float4 v) { return v; }
+__device__ __forceinline__ float4 to_float4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ float4 weighted3(float4 a, float wa, float4 b,
                                             float wb, float4 c, float wc) {
   auto one = [&](float x, float y, float z) {
@@ -53,11 +69,12 @@ __device__ __forceinline__ float4 weighted3(float4 a, float wa, float4 b,
                      one(a.z, b.z, c.z), one(a.w, b.w, c.w));
 }
 
-template <int kQ, int kG>
+// Row4: float4 (float32 features) or uint2 (bfloat16 features).
+template <int kQ, int kG, typename Row4>
 __global__ void __launch_bounds__(kQ * kG)
 three_interpolate_kernel(const float* __restrict__ unknown,
                          const float* __restrict__ known,
-                         const float4* __restrict__ feats,
+                         const Row4* __restrict__ feats,
                          const unsigned char* __restrict__ mask, int n, int m,
                          int c4, float eps, float4* __restrict__ out,
                          int* __restrict__ idx_out) {
@@ -128,29 +145,30 @@ three_interpolate_kernel(const float* __restrict__ unknown,
   const float norm = __fadd_rn(__fadd_rn(rc[0], rc[1]), rc[2]);
   const float w0 = __fdiv_rn(rc[0], norm), w1 = __fdiv_rn(rc[1], norm),
               w2 = __fdiv_rn(rc[2], norm);
-  const float4* f0 = feats + ((size_t)bi * m + sj[0]) * c4;
-  const float4* f1 = feats + ((size_t)bi * m + sj[1]) * c4;
-  const float4* f2 = feats + ((size_t)bi * m + sj[2]) * c4;
+  const Row4* f0 = feats + ((size_t)bi * m + sj[0]) * c4;
+  const Row4* f1 = feats + ((size_t)bi * m + sj[1]) * c4;
+  const Row4* f2 = feats + ((size_t)bi * m + sj[2]) * c4;
   float4* o = out + ((size_t)bi * n + qi) * c4;
   for (int e = g; e < c4; e += kG)
-    o[e] = weighted3(f0[e], w0, f1[e], w1, f2[e], w2);
+    o[e] = weighted3(to_float4(f0[e]), w0, to_float4(f1[e]), w1,
+                     to_float4(f2[e]), w2);
   if (idx_out != nullptr && g < 3)
     idx_out[((size_t)bi * n + qi) * 3 + g] =
         g == 0 ? sj[0] : (g == 1 ? sj[1] : sj[2]);
 }
 
-template <int kQ, int kG>
-int launch_shape(const float* unknown, const float* known, const float* feats,
+template <int kQ, int kG, typename Row4>
+int launch_shape(const float* unknown, const float* known, const void* feats,
                  const unsigned char* mask, int nb, int n, int m, int c,
                  float eps, float* out, int* idx_out, cudaStream_t st) {
   const size_t smem = sizeof(float4) * (size_t)(m < kPiece ? m : kPiece);
   const cudaError_t err = cudaFuncSetAttribute(
-      three_interpolate_kernel<kQ, kG>,
+      three_interpolate_kernel<kQ, kG, Row4>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + kQ - 1) / kQ, nb);
-  three_interpolate_kernel<kQ, kG><<<grid, kQ * kG, smem, st>>>(
-      unknown, known, reinterpret_cast<const float4*>(feats), mask, n, m,
+  three_interpolate_kernel<kQ, kG, Row4><<<grid, kQ * kG, smem, st>>>(
+      unknown, known, reinterpret_cast<const Row4*>(feats), mask, n, m,
       c / 4, eps, reinterpret_cast<float4*>(out), idx_out);
   return (int)cudaGetLastError();
 }
@@ -168,20 +186,16 @@ void default_shape(int nb, int n, int* queries, int* lanes) {
   *lanes = unknowns <= 1024 ? 32 : (unknowns < 8192 ? 16 : 8);
 }
 
-}  // namespace
-
 // queries (unknowns a block) and lanes (an unknown), one of the pairs
 // below (default_shape's three and a neighbour of two of them, 128 or 256
-// threads a block), or 0 and 0 for default_shape. c
-// must be a multiple of 4 and feats and out 16-byte aligned (float4
-// rows).
-extern "C" int ratrack_three_interpolate(const float* unknown,
-                                         const float* known,
-                                         const float* feats,
-                                         const unsigned char* mask, int nb,
-                                         int n, int m, int c, float eps,
-                                         int queries, int lanes, float* out,
-                                         int* idx_out, void* stream) {
+// threads a block), or 0 and 0 for default_shape. c must be a multiple
+// of 4 and feats and out 16-byte aligned (rows of 4 channels).
+template <typename Row4>
+int three_interpolate_entry(const float* unknown, const float* known,
+                            const void* feats, const unsigned char* mask,
+                            int nb, int n, int m, int c, float eps,
+                            int queries, int lanes, float* out, int* idx_out,
+                            void* stream) {
   if (nb < 1 || nb > 65535 || n < 1 || m < 1 || c < 4 || c % 4 != 0 ||
       (reinterpret_cast<size_t>(feats) & 15) != 0 ||
       (reinterpret_cast<size_t>(out) & 15) != 0)
@@ -190,8 +204,8 @@ extern "C" int ratrack_three_interpolate(const float* unknown,
   const cudaStream_t st = (cudaStream_t)stream;
 #define RATRACK_FP_SHAPE(Q, G)                                             \
   if (queries == Q && lanes == G)                                          \
-    return launch_shape<Q, G>(unknown, known, feats, mask, nb, n, m, c, eps, \
-                              out, idx_out, st);
+    return launch_shape<Q, G, Row4>(unknown, known, feats, mask, nb, n, m, \
+                                    c, eps, out, idx_out, st);
   RATRACK_FP_SHAPE(16, 8)
   RATRACK_FP_SHAPE(32, 8)
   RATRACK_FP_SHAPE(8, 16)
@@ -199,4 +213,29 @@ extern "C" int ratrack_three_interpolate(const float* unknown,
   RATRACK_FP_SHAPE(4, 32)
 #undef RATRACK_FP_SHAPE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Kernel B2 on float32 features.
+extern "C" int ratrack_three_interpolate(const float* unknown,
+                                         const float* known,
+                                         const float* feats,
+                                         const unsigned char* mask, int nb,
+                                         int n, int m, int c, float eps,
+                                         int queries, int lanes, float* out,
+                                         int* idx_out, void* stream) {
+  return three_interpolate_entry<float4>(unknown, known, feats, mask, nb, n,
+                                         m, c, eps, queries, lanes, out,
+                                         idx_out, stream);
+}
+
+// Kernel B2 on bfloat16 features (see the header); arguments as above.
+extern "C" int ratrack_three_interpolate_bf16(
+    const float* unknown, const float* known, const void* feats,
+    const unsigned char* mask, int nb, int n, int m, int c, float eps,
+    int queries, int lanes, float* out, int* idx_out, void* stream) {
+  return three_interpolate_entry<uint2>(unknown, known, feats, mask, nb, n, m,
+                                        c, eps, queries, lanes, out, idx_out,
+                                        stream);
 }

@@ -52,6 +52,18 @@
 // fixed order, so neither the tile nor the chunking changes a result, and
 // the one-scale instance runs the same per-scale body: a pair equals two
 // one-scale launches bit for bit. One kernel launch a call.
+//
+// Operand type (template parameter Op, entries ratrack_sa_pair_bf16 and
+// ratrack_sa_scale_bf16 for __nv_bfloat16): what the TPU kernel computes
+// at compute_dtype=bfloat16. Each gathered P1 row is rounded to bfloat16
+// (pallas_sa.py:177-182, 242-253), except a no-hit center's row, which
+// pools relu(P1[0] - CW[i]) from the float32 row (pallas_sa.py:139-142);
+// each folded layer multiplies bfloat16-rounded activations and weights
+// (the activation tiles are stored rounded, the staged weights rounded
+// once in shared memory) with float32 accumulation; bias, ReLU and the
+// max stay float32, and so does the output. Products of bfloat16-rounded
+// operands are exact in float32, so the register tiles stay as they are.
+// The float instantiation is the float32 kernel unchanged.
 
 #include "common.cuh"
 #include "corr_common.cuh"
@@ -152,7 +164,8 @@ __device__ __forceinline__ void sink_pool(const Sink& o, int r, int c,
 }
 
 // relu(hin @ W + b) over rows [0, nr) (rounded up to 4) into `o`: a
-// thread per 4 x 4 output tile.
+// thread per 4 x 4 output tile; an activation tile receives Op operands.
+template <typename Op>
 __device__ void layer_registers(const float* hin, int pci, const float* w,
                                 const float* bias, int pco, const Sink& o) {
   const int nr = o.nr;
@@ -193,7 +206,8 @@ __device__ void layer_registers(const float* hin, int pci, const float* w,
           fmaxf(acc[i][0] + bv.x, 0.0f), fmaxf(acc[i][1] + bv.y, 0.0f),
           fmaxf(acc[i][2] + bv.z, 0.0f), fmaxf(acc[i][3] + bv.w, 0.0f));
       if (o.pool == nullptr) {
-        *reinterpret_cast<float4*>(o.hout + (r0 + i) * so + c0) = v;
+        *reinterpret_cast<float4*>(o.hout + (r0 + i) * so + c0) =
+            ratrack::as_operand<Op>(v);
       } else {
         sink_pool(o, r0 + i, c0, v.x);
         sink_pool(o, r0 + i, c0 + 1, v.y);
@@ -214,14 +228,33 @@ struct Work {
   int* rowct;    // (tile * ns) tile-local center of each row
 };
 
+// The staged weights W_l (not the biases) as Op operands, each thread
+// the elements it copied in stage_weights, once its copies have landed.
+template <typename Op>
+__device__ __forceinline__ void round_weights(const Scale& s, float* dst) {
+  if constexpr (ratrack::kBf16<Op>) {
+    int off = 0;
+#pragma unroll
+    for (int l = 0; l < kMaxRest; ++l) {
+      if (l >= s.n_rest) break;
+      const int nw = s.pdims[l] * w_stride(s.pdims[l + 1]);
+      for (int e = threadIdx.x; e < nw; e += kThreads)
+        dst[off + e] = ratrack::as_operand<Op>(dst[off + e]);
+      off += nw + s.pdims[l + 1];
+    }
+  }
+}
+
 // One scale over the block's nc centers: compaction, row chunks through
 // the layers, max-pool, outputs.
-__device__ __forceinline__ void run_scale(const Scale& s, const float* sw,
+template <typename Op>
+__device__ __forceinline__ void run_scale(const Scale& s, float* sw,
                                           const int* slots, const int* hits,
                                           int nc, int bi, int c_first, int n,
                                           int m, const Work& wk) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   ratrack::corr::cp_wait<0>();   // this thread's weight copies
+  round_weights<Op>(s, sw);       // seen by all after the barrier below
   if (warp == 0) {   // exclusive prefix sum of max(hits, 1)
     int carry = 0;
     for (int base = 0; base < nc; base += 32) {
@@ -277,6 +310,12 @@ __device__ __forceinline__ void run_scale(const Scale& s, const float* sw,
         for (int u = 0; u < kBatch; ++u) {
           const int e = e0 + u * kThreads, r = e / q4, c = (e % q4) * 4;
           if (e >= items) break;
+          // a gathered row is an Op operand; a no-hit center's is not
+          bool gathered = false;
+          if constexpr (ratrack::kBf16<Op>) {
+            gathered = hits[wk.rowct[r0 + r]] > 0;
+            if (gathered) av[u] = ratrack::as_operand<Op>(av[u]);
+          }
           float4 v = make_float4(fmaxf(__fsub_rn(av[u].x, bv[u].x), 0.0f),
                                  fmaxf(__fsub_rn(av[u].y, bv[u].y), 0.0f),
                                  fmaxf(__fsub_rn(av[u].z, bv[u].z), 0.0f),
@@ -286,14 +325,17 @@ __device__ __forceinline__ void run_scale(const Scale& s, const float* sw,
             const float* ci = cwb + (size_t)wk.rowct[r0 + r] * c1;
             float t4[4];
 #pragma unroll
-            for (int w = 0; w < 4; ++w)
-              t4[w] = c + w < c1
-                          ? fmaxf(__fsub_rn(pj[c + w], ci[c + w]), 0.0f)
-                          : 0.0f;
+            for (int w = 0; w < 4; ++w) {
+              float pv = c + w < c1 ? pj[c + w] : 0.0f;
+              if (gathered) pv = ratrack::as_operand<Op>(pv);
+              t4[w] = c + w < c1 ? fmaxf(__fsub_rn(pv, ci[c + w]), 0.0f)
+                                 : 0.0f;
+            }
             v = make_float4(t4[0], t4[1], t4[2], t4[3]);
           }
           if (s.n_rest > 0) {
-            *reinterpret_cast<float4*>(wk.act0 + r * s1 + c) = v;
+            *reinterpret_cast<float4*>(wk.act0 + r * s1 + c) =
+                ratrack::as_operand<Op>(v);
           } else {   // layer 1 is the last: pool it
             const Sink o{nullptr, wk.pool, wk.rowct + r0, c1, nr};
             sink_pool(o, r, c, v.x);
@@ -315,7 +357,7 @@ __device__ __forceinline__ void run_scale(const Scale& s, const float* sw,
       const float* bl = wp + pci * w_stride(pco);
       const Sink o{hout, l + 1 == s.n_rest ? wk.pool : nullptr,
                    wk.rowct + r0, cout, nr};
-      layer_registers(hin, pci, wp, bl, pco, o);
+      layer_registers<Op>(hin, pci, wp, bl, pco, o);
       __syncthreads();
       wp = bl + pco;
       float* tmp = hin;
@@ -459,8 +501,8 @@ __device__ void ball_query_tile(const float* xb, const unsigned char* mb,
 }
 
 // kTwo: both scales of a level (B1); otherwise scale a alone (B1'), sb
-// unread. Grid: (center tiles, streams).
-template <bool kTwo>
+// unread. Op: the products' operand type. Grid: (center tiles, streams).
+template <bool kTwo, typename Op>
 __global__ void __launch_bounds__(kThreads)
 sa_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
           const unsigned char* __restrict__ mask, int n, int m, int tile,
@@ -493,8 +535,9 @@ sa_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
   ball_query_tile(xb, mb, n, centers + ((size_t)bi * m + c_first) * 3, nc,
                   sa.r2, sa.ns, kTwo ? sb.r2 : -1.0f, ns_b, slots_a, slots_b,
                   hits, tile, reinterpret_cast<float4*>(wk.act0));
-  run_scale(sa, swa, slots_a, hits, nc, bi, c_first, n, m, wk);
-  if (kTwo) run_scale(sb, swb, slots_b, hits + tile, nc, bi, c_first, n, m, wk);
+  run_scale<Op>(sa, swa, slots_a, hits, nc, bi, c_first, n, m, wk);
+  if (kTwo)
+    run_scale<Op>(sb, swb, slots_b, hits + tile, nc, bi, c_first, n, m, wk);
 }
 
 // Centers a block unless forced (read off kernels/tune.py --sa-eval): 16
@@ -533,7 +576,7 @@ bool make_scale(Scale* s, const float* p1, const float* cw,
   return true;
 }
 
-template <bool kTwo>
+template <bool kTwo, typename Op>
 int launch_sa(const float* xyz, const float* centers,
               const unsigned char* mask, int nb, int n, int m, Scale& sa,
               Scale& sb, int tile, void* stream) {
@@ -551,18 +594,17 @@ int launch_sa(const float* xyz, const float* centers,
       sizeof(int) * (tile * (sa.ns + ns_b) + 2 * tile + tile + 1 +
                      2 * tile * ns_max);
   cudaError_t err = cudaFuncSetAttribute(
-      sa_kernel<kTwo>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sa_kernel<kTwo, Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((m + tile - 1) / tile, nb);
-  sa_kernel<kTwo><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  sa_kernel<kTwo, Op><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       xyz, centers, mask, n, m, tile, act, sa, sb);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// tile: centers a block (8, 16 or 32; 0: default_tile).
-extern "C" int ratrack_sa_pair(
+template <typename Op>
+int sa_pair_entry(
     const float* xyz, const float* centers, const unsigned char* mask, int nb,
     int n, int m,
     const float* p1a, const float* cwa, const float* const* wa,
@@ -578,11 +620,12 @@ extern "C" int ratrack_sa_pair(
       !make_scale(&sb, p1b, cwb, wb, bb, dims_b, n_rest_b, r2b, nsb, out_b,
                   idx_b))
     return (int)cudaErrorInvalidValue;
-  return launch_sa<true>(xyz, centers, mask, nb, n, m, sa, sb, tile, stream);
+  return launch_sa<true, Op>(xyz, centers, mask, nb, n, m, sa, sb, tile,
+                             stream);
 }
 
-// Kernel B1': one scale of a level; tile as ratrack_sa_pair.
-extern "C" int ratrack_sa_scale(
+template <typename Op>
+int sa_scale_entry(
     const float* xyz, const float* centers, const unsigned char* mask, int nb,
     int n, int m, const float* p1, const float* cw, const float* const* w,
     const float* const* b, const int* dims, int n_rest, float r2, int ns,
@@ -591,7 +634,51 @@ extern "C" int ratrack_sa_scale(
   if (nb < 1 || nb > 65535 || n < 1 || m < 1 ||
       !make_scale(&s, p1, cw, w, b, dims, n_rest, r2, ns, out, idx))
     return (int)cudaErrorInvalidValue;
-  return launch_sa<false>(xyz, centers, mask, nb, n, m, s, s, tile, stream);
+  return launch_sa<false, Op>(xyz, centers, mask, nb, n, m, s, s, tile,
+                              stream);
+}
+
+}  // namespace
+
+#define RATRACK_SA_PAIR_ARGS                                                  \
+  const float *xyz, const float *centers, const unsigned char *mask, int nb,  \
+      int n, int m, const float *p1a, const float *cwa,                      \
+      const float *const *wa, const float *const *ba, const int *dims_a,     \
+      int n_rest_a, float r2a, int nsa, float *out_a, int *idx_a,            \
+      const float *p1b, const float *cwb, const float *const *wb,            \
+      const float *const *bb, const int *dims_b, int n_rest_b, float r2b,    \
+      int nsb, float *out_b, int *idx_b, int tile, void *stream
+#define RATRACK_SA_PAIR_CALL                                                  \
+  xyz, centers, mask, nb, n, m, p1a, cwa, wa, ba, dims_a, n_rest_a, r2a, nsa, \
+      out_a, idx_a, p1b, cwb, wb, bb, dims_b, n_rest_b, r2b, nsb, out_b,     \
+      idx_b, tile, stream
+#define RATRACK_SA_SCALE_ARGS                                                 \
+  const float *xyz, const float *centers, const unsigned char *mask, int nb,  \
+      int n, int m, const float *p1, const float *cw, const float *const *w, \
+      const float *const *b, const int *dims, int n_rest, float r2, int ns,  \
+      float *out, int *idx, int tile, void *stream
+#define RATRACK_SA_SCALE_CALL                                                 \
+  xyz, centers, mask, nb, n, m, p1, cw, w, b, dims, n_rest, r2, ns, out, idx, \
+      tile, stream
+
+// tile: centers a block (8, 16 or 32; 0: default_tile).
+extern "C" int ratrack_sa_pair(RATRACK_SA_PAIR_ARGS) {
+  return sa_pair_entry<float>(RATRACK_SA_PAIR_CALL);
+}
+
+// Kernel B1 with bfloat16 operands (see the header).
+extern "C" int ratrack_sa_pair_bf16(RATRACK_SA_PAIR_ARGS) {
+  return sa_pair_entry<__nv_bfloat16>(RATRACK_SA_PAIR_CALL);
+}
+
+// Kernel B1': one scale of a level; tile as ratrack_sa_pair.
+extern "C" int ratrack_sa_scale(RATRACK_SA_SCALE_ARGS) {
+  return sa_scale_entry<float>(RATRACK_SA_SCALE_CALL);
+}
+
+// Kernel B1' with bfloat16 operands.
+extern "C" int ratrack_sa_scale_bf16(RATRACK_SA_SCALE_ARGS) {
+  return sa_scale_entry<__nv_bfloat16>(RATRACK_SA_SCALE_CALL);
 }
 
 extern "C" const char* ratrack_error_string(int code) {

@@ -40,6 +40,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu; every launcher returns cudaGetLastError().
+# An entry ending in _bf16 is the bfloat16-operand instantiation of the
+# entry without the suffix, with its arguments.
 SIGNATURES = {
     "ratrack_sa_pair": [_P, _P, _P, _I, _I, _I,
                         _P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
@@ -72,6 +74,10 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
+SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (
+    "ratrack_sa_pair", "ratrack_sa_scale", "ratrack_three_interpolate",
+    "ratrack_corr_aggregate", "ratrack_corr_apply",
+    "ratrack_corr_apply_rows")})
 
 # Macros of a measuring build (kernels/tune.py), never of the port's:
 # RATRACK_SKELETON makes B1 / B1' skip their layers (outputs 0), B5 and

@@ -39,6 +39,10 @@ packages.
 of the case read once, every output written once) and the float32
 operations it needs on these inputs, the matrix products' (every x @ W
 multiply-add, 2 K N a row) apart from the rest, for the roofline bound.
+`bf16_case` turns an eval kernel's case into its bfloat16 instantiation's
+(compute_dtype, and B2's known features in bfloat16, as the bfloat16 model
+passes them), so the bytes count each tensor at its own width; the
+products then have bfloat16 operands.
 
 Used by chip_smoke.py and tests/test_torch_port_cuda.py to hold every
 kernel against its plain version on the same tensors.
@@ -330,6 +334,18 @@ def sinkhorn_case(seed: int, batch: int = 8, k: int = 32,
     c, log_mu, log_nu, norm = transport_problem(scores, m, n, alpha)
     return (dict(c=c, log_mu=log_mu, log_nu=log_nu, iters=iters),
             dict(scores=scores, m=m, n=n, norm=norm))
+
+
+def bf16_case(kw: dict) -> dict:
+    """The case `kw` of an eval kernel (sa_case, sa_scale_cases, fp_case,
+    corr_case, apply_case) for its bfloat16 instantiation: compute_dtype
+    bfloat16 and the known features of B2 in bfloat16. The other inputs
+    stay float32, as the bfloat16 model passes them (the layer-1 hoists
+    and the coordinates)."""
+    out = dict(kw, compute_dtype=torch.bfloat16)
+    if "feats" in out:
+        out["feats"] = out["feats"].to(torch.bfloat16)
+    return out
 
 
 def to_device(case: dict, device) -> dict:

@@ -114,13 +114,15 @@ def _stream_factory(cfg, split):
 def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """{name: tensor} -> {name: numpy array} with one wait for the device:
     every copy is queued without blocking, then the stream is waited on
-    once."""
+    once. bfloat16 outputs (a bfloat16 model's cls, flow, conf) arrive as
+    float32, which holds them exactly."""
     host = {k: v.detach().to("cpu", non_blocking=True)
             for k, v in tensors.items()}
     devices = {v.device for v in tensors.values() if v.is_cuda}
     for d in devices:
         torch.cuda.current_stream(d).synchronize()
-    return {k: v.numpy() for k, v in host.items()}
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in host.items()}
 
 
 def _timed(iterable, waited: List[float]):
@@ -450,11 +452,14 @@ def _run(cfg, log, models_dir, exp_dir, device):
     from .models import model_from_config
     from .train import checkpoint as ckpt
     from .train.step import (create_train_state, make_eval_step,
-                             make_scan_train_step, make_train_step)
+                             make_scan_train_step, make_train_step,
+                             require_float32_training)
 
     model = model_from_config(
         cfg, generator=torch.Generator().manual_seed(cfg.seed),
         device=device)
+    if not cfg.eval:
+        require_float32_training(model)
     stream = _build_stream(cfg, "val" if cfg.eval else "train")
     steps_per_epoch = len(stream)
     # in batched mode one optimizer step covers dp frames, so the LR

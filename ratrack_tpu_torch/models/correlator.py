@@ -19,6 +19,10 @@ Eval above SPLIT_ABOVE points takes the split formulation
 the apply over its indices (kernel B4), and one unsort of the result. The
 sort changes only which of several equidistant neighbours is taken (the
 lowest sorted index).
+
+Compute dtype (`dtype`): the hoists take the features in the parameters'
+dtype, float32 (correlator.py:84-89), the kernels take `dtype` as their
+operand type, and the cost volume leaves in `dtype` (correlator.py:135).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from ..ops.fused_correlator_train import fused_knn_weight_aggregate_train
 from ..ops.fused_knn import knn_indices_tiled
 from ..ops.morton import invert_perm, morton_perm
 from ..ops.sampling import gather
-from .layers import PointwiseMLP, WeightNet
+from .layers import PointwiseMLP, WeightNet, cast_to
 
 # clouds above this many points take the split formulation in eval
 SPLIT_ABOVE = 4096
@@ -46,13 +50,15 @@ class FeatureCorrelator(nn.Module):
 
     def __init__(self, nsample: int = 16,
                  mlp: Sequence[int] = (256, 256, 256), d1: int = 256,
-                 d2: int = 256, spatial_sort: bool = True):
+                 d2: int = 256, spatial_sort: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nsample, self.d1, self.d2 = nsample, d1, d2
-        self.spatial_sort = spatial_sort
-        self.mlp = PointwiseMLP(d1 + d2 + 3, mlp, bn=False, act="leaky_relu")
-        self.weightnet1 = WeightNet(mlp[-1])
-        self.weightnet2 = WeightNet(mlp[-1])
+        self.spatial_sort, self.dtype = spatial_sort, dtype
+        self.mlp = PointwiseMLP(d1 + d2 + 3, mlp, bn=False, act="leaky_relu",
+                                dtype=dtype)
+        self.weightnet1 = WeightNet(mlp[-1], dtype=dtype)
+        self.weightnet2 = WeightNet(mlp[-1], dtype=dtype)
 
     def forward(self, pc1, pc2, f1, f2, mask1=None, mask2=None):
         """pc (B, N, 3), f1 (B, N, d1), f2 (B, N, d2) -> (B, N, mlp[-1])."""
@@ -73,21 +79,24 @@ class FeatureCorrelator(nn.Module):
             return fused_knn_weight_aggregate_train(
                 pc1, pc1, cost, None, mask1, [], [], wn2_ws, wn2_bs,
                 k=self.nsample)
-        add_q = (f1 @ w_f1 - pc1 @ w_dir).contiguous()
-        feats_p = (f2 @ w_f2 + pc2 @ w_dir + dense[0].bias).contiguous()
+        add_q = (f1.to(w1.dtype) @ w_f1 - pc1 @ w_dir).contiguous()
+        feats_p = (f2.to(w1.dtype) @ w_f2 + pc2 @ w_dir
+                   + dense[0].bias).contiguous()
         if pc1.shape[1] > SPLIT_ABOVE:
-            return self._split(pc1, pc2, feats_p, add_q, mask1, mask2,
+            cost = self._split(pc1, pc2, feats_p, add_q, mask1, mask2,
                                mlp_ws, mlp_bs, wn1_ws, wn1_bs, wn2_ws, wn2_bs)
+            return cast_to(cost, self.dtype)
+        dt = self.dtype
         cost = fused_knn_weight_aggregate(
             pc1, pc2, feats_p, add_q, mask2, mlp_ws, mlp_bs, wn1_ws, wn1_bs,
-            k=self.nsample)
-        return fused_knn_weight_aggregate(
+            k=self.nsample, compute_dtype=dt)
+        return cast_to(fused_knn_weight_aggregate(
             pc1, pc1, cost, None, mask1, [], [], wn2_ws, wn2_bs,
-            k=self.nsample)
+            k=self.nsample, compute_dtype=dt), dt)
 
     def _split(self, pc1, pc2, feats_p, add_q, mask1, mask2, mlp_ws, mlp_bs,
                wn1_ws, wn1_bs, wn2_ws, wn2_bs):
-        k = self.nsample
+        k, dt = self.nsample, self.dtype
         if self.spatial_sort:
             perm1, perm2 = morton_perm(pc1, mask1), morton_perm(pc2, mask2)
             pc1, add_q = gather(pc1, perm1), gather(add_q, perm1)
@@ -98,10 +107,10 @@ class FeatureCorrelator(nn.Module):
                 mask2 = torch.gather(mask2, 1, perm2)
         cost = knn_gather_apply(
             knn_indices_tiled(pc1, pc2, mask2, k=k), pc1, pc2, feats_p,
-            add_q, mlp_ws, mlp_bs, wn1_ws, wn1_bs, k=k)
+            add_q, mlp_ws, mlp_bs, wn1_ws, wn1_bs, k=k, compute_dtype=dt)
         cost = knn_gather_apply(
             knn_indices_tiled(pc1, pc1, mask1, k=k), pc1, pc1, cost, None,
-            [], [], wn2_ws, wn2_bs, k=k)
+            [], [], wn2_ws, wn2_bs, k=k, compute_dtype=dt)
         if self.spatial_sort:
             cost = gather(cost, invert_perm(perm1))
         return cost

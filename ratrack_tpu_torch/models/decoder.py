@@ -8,6 +8,10 @@ Channel flow (fc_inch = 256):
   embeddings = [ft1 (2) | pc1_feats (256) | cor (256)] = 514 -> PNHead -> 128
   gfeat      = masked max over points (128) -> 5-layer GRU(128) -> 128
   flow       = FlowPredictor([prop | gfeat] = 256) -> (B, N, 3)
+
+In bfloat16 (`dtype`) cls, prop and flow are bfloat16; the embeddings and
+[prop | gfeat] are float32, as the concatenations promote them in JAX
+(ft1 and the GRU output are float32), and the GRU output is float32.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import PointwiseMLP, StackedGRU
+from .layers import Dense, PointwiseMLP, StackedGRU
 from .pnhead import PNHead
 
 
@@ -33,10 +37,11 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 class FlowPredictor(nn.Module):
     """MLP [128, 64, 32] (BN + ReLU) -> Linear(-> 3, no bias)."""
 
-    def __init__(self, c_in: int = 256, mlp: Sequence[int] = (128, 64, 32)):
+    def __init__(self, c_in: int = 256, mlp: Sequence[int] = (128, 64, 32),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = PointwiseMLP(c_in, mlp, bn=True)
-        self.out = nn.Linear(mlp[-1], 3, bias=False)
+        self.mlp = PointwiseMLP(c_in, mlp, bn=True, dtype=dtype)
+        self.out = Dense(mlp[-1], 3, bias=False, dtype=dtype)
 
     def forward(self, feat, mask=None):
         return self.out(self.mlp(feat, mask))
@@ -45,11 +50,12 @@ class FlowPredictor(nn.Module):
 class ClsPredictor(nn.Module):
     """MLP -> Linear(-> 3, no bias) -> Linear(3 -> 1) -> sigmoid."""
 
-    def __init__(self, c_in: int = 256, mlp: Sequence[int] = (128, 64, 32)):
+    def __init__(self, c_in: int = 256, mlp: Sequence[int] = (128, 64, 32),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = PointwiseMLP(c_in, mlp, bn=True)
-        self.conv_out = nn.Linear(mlp[-1], 3, bias=False)
-        self.linear = nn.Linear(3, 1)
+        self.mlp = PointwiseMLP(c_in, mlp, bn=True, dtype=dtype)
+        self.conv_out = Dense(mlp[-1], 3, bias=False, dtype=dtype)
+        self.linear = Dense(3, 1, dtype=dtype)
 
     def forward(self, feat, mask=None):
         h = self.linear(self.conv_out(self.mlp(feat, mask)))
@@ -61,13 +67,14 @@ class FlowDecoder(nn.Module):
     `pre_gru` / `post_gru` and the serial `gru_apply`."""
 
     def __init__(self, npoint: int, feat_dim: int = 128, gru_layers: int = 5,
-                 exact_fps: bool = False):
+                 exact_fps: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.feat_dim = feat_dim
-        self.cp = ClsPredictor()
-        self.mse = PNHead(npoint, 2 + 256 + 256, exact_fps)
-        self.gru = StackedGRU(feat_dim, gru_layers)
-        self.fp = FlowPredictor()
+        self.cp = ClsPredictor(dtype=dtype)
+        self.mse = PNHead(npoint, 2 + 256 + 256, exact_fps, dtype=dtype)
+        self.gru = StackedGRU(feat_dim, gru_layers, dtype=dtype)
+        self.fp = FlowPredictor(dtype=dtype)
 
     def pre_gru(self, pc1, ft1, pc1_feats, cor_feats, mask1):
         """-> (cls (B, N), prop (B, N, 128), gfeat_in (B, 128))."""

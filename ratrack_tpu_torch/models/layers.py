@@ -12,6 +12,14 @@ the JAX train step vmaps the model over clip streams (train/step.py:88-100),
 so a (B, ..., C) tensor reduces over every axis but B and C. The running
 statistics then take the mean over streams of the per-stream updates
 (step.py:98-99).
+
+Compute dtype (`dtype`, float32 or bfloat16), as the flax modules' `dtype`
+(layers.py:64, :89-91, :116, :147-148, :165-166): parameters stay
+float32; a `Dense` casts its input, weight and bias to `dtype`, rounds the
+product to `dtype` and then adds the bias in `dtype` (flax's two roundings);
+batch norm computes in float32 and returns `dtype`. With dtype float32
+nothing is cast: every op is the float32 module's, and a module converted
+to float64 (the CPU yardsticks) computes in float64.
 """
 
 from __future__ import annotations
@@ -25,6 +33,31 @@ from torch import nn
 from ..ops.fused_sa import fold_bn_params
 
 
+def cast_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A kernel's output in the module's compute dtype (the JAX modules'
+    out.astype(self.dtype)): cast for bfloat16; with float32 x keeps its
+    dtype, so a float64 run stays float64."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+class Dense(nn.Linear):
+    """nn.Linear that computes in `dtype` (flax `Dense(dtype=)`): float32
+    parameters, input and weight cast to `dtype`, the product rounded to
+    `dtype`, then the bias added in `dtype`. float32 is nn.Linear itself."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:    # the parameters' dtype (float64 runs too)
+            return super().forward(x)
+        y = x.to(dt) @ self.weight.to(dt).t()
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
 class MaskedBatchNorm(nn.Module):
     """Batch norm over the channel axis with an optional validity mask.
 
@@ -36,9 +69,10 @@ class MaskedBatchNorm(nn.Module):
 
     MOMENTUM = 0.1
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dtype = eps, dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -46,7 +80,10 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
-        """x (B, ..., C), mask (B, ...) bool or None."""
+        """x (B, ..., C), mask (B, ...) bool or None; computed in at least
+        float32, returned in the module's dtype (bfloat16) or x's."""
+        out_dtype = x.dtype if self.dtype == torch.float32 else self.dtype
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -66,7 +103,7 @@ class MaskedBatchNorm(nn.Module):
             self.update_running_stats(mean, var, count)
             mean, var = mean.reshape(shape), var.reshape(shape)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * inv + self.bias
+        return ((x - mean) * inv + self.bias).to(out_dtype)
 
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor,
@@ -92,7 +129,8 @@ class PointwiseMLP(nn.Module):
     SharedMLP: Conv2d 1x1 without bias when BN follows, BN, ReLU)."""
 
     def __init__(self, in_dim: int, features: Sequence[int], bn: bool = True,
-                 act: str = "relu", last_act: bool = True):
+                 act: str = "relu", last_act: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if act not in ("relu", "leaky_relu"):
             raise ValueError(f"unknown activation {act!r}")
@@ -100,9 +138,10 @@ class PointwiseMLP(nn.Module):
         self.bn, self.act, self.last_act = bn, act, last_act
         prev = in_dim
         for i, f in enumerate(self.features):
-            self.add_module(f"dense_{i}", nn.Linear(prev, f, bias=not bn))
+            self.add_module(f"dense_{i}", Dense(prev, f, bias=not bn,
+                                                dtype=dtype))
             if bn:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(f))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(f, dtype=dtype))
             prev = f
 
     def forward(self, x: torch.Tensor,
@@ -153,11 +192,12 @@ class WeightNet(nn.Module):
     """Direction -> aggregation weights: 3 -> 8 -> 8 -> out, ReLU after
     every layer (reference WeightNet, bn=False)."""
 
-    def __init__(self, out_dim: int, hidden: Sequence[int] = (8, 8)):
+    def __init__(self, out_dim: int, hidden: Sequence[int] = (8, 8),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense_0 = nn.Linear(3, hidden[0])
-        self.dense_1 = nn.Linear(hidden[0], hidden[1])
-        self.dense_out = nn.Linear(hidden[1], out_dim)
+        self.dense_0 = Dense(3, hidden[0], dtype=dtype)
+        self.dense_1 = Dense(hidden[0], hidden[1], dtype=dtype)
+        self.dense_out = Dense(hidden[1], out_dim, dtype=dtype)
 
     def forward(self, d: torch.Tensor) -> torch.Tensor:
         d = torch.relu(self.dense_0(d))
@@ -174,12 +214,15 @@ class WeightNet(nn.Module):
 class GRUCell(nn.Module):
     """GRU cell with torch gate order r | z | n:
     r = sig(W_ir x + b_ir + W_hr h + b_hr), z likewise,
-    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), h' = (1 - z) n + z h."""
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), h' = (1 - z) n + z h.
+    The gates run in `dtype`; h' takes the dtype (1 - z) n and z h promote
+    to, float32 where h is float32 (layers.py:165-172)."""
 
-    def __init__(self, in_dim: int, hidden: int):
+    def __init__(self, in_dim: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ih = nn.Linear(in_dim, 3 * hidden)
-        self.hh = nn.Linear(hidden, 3 * hidden)
+        self.ih = Dense(in_dim, 3 * hidden, dtype=dtype)
+        self.hh = Dense(hidden, 3 * hidden, dtype=dtype)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         i_r, i_z, i_n = self.ih(x).chunk(3, dim=-1)
@@ -194,11 +237,13 @@ class StackedGRU(nn.Module):
     """`num_layers` stacked GRU cells for one time step (reference
     nn.GRU(128, 128, num_layers=5) driven with seq_len=1)."""
 
-    def __init__(self, hidden: int, num_layers: int = 5):
+    def __init__(self, hidden: int, num_layers: int = 5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         for layer in range(num_layers):
-            self.add_module(f"cell_{layer}", GRUCell(hidden, hidden))
+            self.add_module(f"cell_{layer}",
+                            GRUCell(hidden, hidden, dtype=dtype))
 
     def forward(self, x: torch.Tensor, h: torch.Tensor):
         """x (B, H), h (B, layers, H) -> (top output (B, H), h')."""

@@ -16,6 +16,11 @@ npoint * nsample. FP through the plain three_nn / three_interpolate with
 autograd, as the JAX train path (pnhead.py:197-207). The routing is the JAX
 module's (pnhead.py:79-97, 126-144, 155-172), without its size gates:
 those are limits of the TPU kernels' fast memory, not of the function.
+
+Compute dtype (`dtype`): the kernels take it as their operand type
+(`compute_dtype`); their float32 outputs are cast to `dtype`, as the JAX
+module casts (pnhead.py:93-95, :200-203), and the Dense layers and MLPs
+compute in it (layers.Dense). The layer-1 hoist stays float32.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from ..ops.fused_sa_train import (fused_sa_pair_train,
                                   fused_sa_scale_train)
 from ..ops.sampling import (furthest_point_sample, gather, identity_gather,
                             identity_sample)
-from .layers import PointwiseMLP
+from .layers import Dense, PointwiseMLP, cast_to
 
 
 class SetAbstractionMSG(nn.Module):
@@ -43,15 +48,18 @@ class SetAbstractionMSG(nn.Module):
 
     def __init__(self, npoint: int, radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
-                 c_in: int, exact_fps: bool = False):
+                 c_in: int, exact_fps: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not len(radii) == len(nsamples) == len(mlps) >= 1:
             raise ValueError(f"one radius, nsample and MLP per scale; got "
                              f"{len(radii)}, {len(nsamples)}, {len(mlps)}")
         self.npoint, self.exact_fps = npoint, exact_fps
         self.radii, self.nsamples = tuple(radii), tuple(nsamples)
+        self.dtype = dtype
         for s, mlp in enumerate(mlps):
-            self.add_module(f"mlp_{s}", PointwiseMLP(c_in, mlp, bn=True))
+            self.add_module(f"mlp_{s}",
+                            PointwiseMLP(c_in, mlp, bn=True, dtype=dtype))
 
     @property
     def scale_mlps(self):
@@ -84,13 +92,16 @@ class SetAbstractionMSG(nn.Module):
             outs = fused_sa_pair(
                 xyz, new_xyz, features, mask, *folded[0], *folded[1],
                 radius_a=self.radii[0], radius_b=self.radii[1],
-                nsample_a=self.nsamples[0], nsample_b=self.nsamples[1])
+                nsample_a=self.nsamples[0], nsample_b=self.nsamples[1],
+                compute_dtype=self.dtype)
         else:
             outs = [fused_sa_scale(xyz, new_xyz, features, mask, ws, bs,
-                                   radius=r, nsample=ns)
+                                   radius=r, nsample=ns,
+                                   compute_dtype=self.dtype)
                     for (ws, bs), r, ns in zip(folded, self.radii,
                                                self.nsamples)]
-        return new_xyz, torch.cat(list(outs), dim=-1)
+        return new_xyz, torch.cat([cast_to(o, self.dtype) for o in outs],
+                                  dim=-1)
 
     def _forward_train(self, xyz, features, mask):
         new_xyz = self.centers(xyz, mask).contiguous()
@@ -115,9 +126,11 @@ class SetAbstractionMSG(nn.Module):
 class FeaturePropagation(nn.Module):
     """3-NN inverse-distance interpolation, concat skip features, MLP."""
 
-    def __init__(self, c_in: int, mlp: Sequence[int]):
+    def __init__(self, c_in: int, mlp: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mlp = PointwiseMLP(c_in, mlp, bn=True)
+        self.dtype = dtype
+        self.mlp = PointwiseMLP(c_in, mlp, bn=True, dtype=dtype)
 
     def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats,
                 unknown_mask=None):
@@ -126,8 +139,9 @@ class FeaturePropagation(nn.Module):
             interp, _ = three_interpolate_reference(unknown_xyz, known_xyz,
                                                     known_feats)
         else:
-            interp = fused_three_interpolate(unknown_xyz, known_xyz,
-                                             known_feats)
+            interp = cast_to(fused_three_interpolate(
+                unknown_xyz, known_xyz, known_feats,
+                compute_dtype=self.dtype), self.dtype)
         if unknown_feats is not None:
             interp = torch.cat([interp, unknown_feats], dim=-1)
         return self.mlp(interp, unknown_mask)
@@ -148,21 +162,25 @@ class PNHead(nn.Module):
     the cloud's valid points (pnhead.py:263-265).
     """
 
-    def __init__(self, npoint: int, c_feat: int, exact_fps: bool = False):
+    def __init__(self, npoint: int, c_feat: int, exact_fps: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        dt = dict(dtype=dtype)
         self.sa1 = SetAbstractionMSG(npoint, (2.0, 4.0), (4, 8),
                                      ((16, 16, 32), (16, 16, 32)), 3 + c_feat,
-                                     exact_fps)
+                                     exact_fps, **dt)
         self.sa2 = SetAbstractionMSG(npoint, (4.0, 8.0), (8, 16),
-                                     ((32, 32), (32, 64)), 3 + 32, exact_fps)
+                                     ((32, 32), (32, 64)), 3 + 32, exact_fps,
+                                     **dt)
         self.sa3 = SetAbstractionMSG(npoint, (8.0, 16.0), (16, 32),
-                                     ((64, 64), (64, 64)), 3 + 64, exact_fps)
-        self.linear1 = nn.Linear(64, 32)
-        self.linear2 = nn.Linear(96, 64)
-        self.linear3 = nn.Linear(128, 64)
-        self.fp3 = FeaturePropagation(64 + 64, [128])
-        self.fp2 = FeaturePropagation(128 + 32, [128])
-        self.fp1 = FeaturePropagation(128, [128])
+                                     ((64, 64), (64, 64)), 3 + 64, exact_fps,
+                                     **dt)
+        self.linear1 = Dense(64, 32, **dt)
+        self.linear2 = Dense(96, 64, **dt)
+        self.linear3 = Dense(128, 64, **dt)
+        self.fp3 = FeaturePropagation(64 + 64, [128], **dt)
+        self.fp2 = FeaturePropagation(128 + 32, [128], **dt)
+        self.fp1 = FeaturePropagation(128, [128], **dt)
 
     def forward(self, xyz, features, mask=None):
         l1_xyz, l1 = self.sa1(xyz, features, mask)

@@ -36,6 +36,13 @@ runs over all frames of a block at once, and the two serial carries
 
 The parameters live on `device`; None means the card
 (`device.default_device()`, which raises where there is none).
+
+`dtype` is the compute dtype (float32 or bfloat16), the JAX module's
+`dtype`: parameters and the tracking state stay float32, the layers compute
+in `dtype` and the kernels take it as their operand type. In bfloat16 cls,
+flow and the affinities are bfloat16 and the 139-channel `feats` float32
+(track4d.py:133); DBSCAN, the descriptors and the Sinkhorn run in float32.
+Eval only: the train step raises for a bfloat16 model (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ from .decoder import FlowDecoder, masked_max
 from .layers import init_parameters
 from .pnhead import PNHead
 
+# config `dtype` -> the compute dtype (JAX model_from_config, :235)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 class Track4D(nn.Module):
     def __init__(self, npoint: int = 512, k_max: int = 32,
@@ -67,8 +77,11 @@ class Track4D(nn.Module):
                  match_conf_thres: float = 0.01, mov_thres: float = 0.5,
                  mov_budget: int = 0, exact_fps: bool = False,
                  sinkhorn_kernel: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        if dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"dtype {dtype}: float32 or bfloat16")
         if sinkhorn_kernel and sinkhorn_tol > 0:
             raise ValueError(
                 f"sinkhorn_kernel with sinkhorn_tol={sinkhorn_tol}: kernel "
@@ -82,10 +95,12 @@ class Track4D(nn.Module):
         self.sinkhorn_tol = sinkhorn_tol
         self.match_conf_thres, self.mov_thres = match_conf_thres, mov_thres
         self.mov_budget, self.sinkhorn_kernel = mov_budget, sinkhorn_kernel
-        self.pn_head = PNHead(npoint, 2, exact_fps)
-        self.fc_layer = FeatureCorrelator(16, (256, 256, 256))
-        self.fd_layer = FlowDecoder(npoint, feat_dim, gru_layers, exact_fps)
-        self.affinity = Affinity(141)
+        self.dtype = dtype
+        self.pn_head = PNHead(npoint, 2, exact_fps, dtype=dtype)
+        self.fc_layer = FeatureCorrelator(16, (256, 256, 256), dtype=dtype)
+        self.fd_layer = FlowDecoder(npoint, feat_dim, gru_layers, exact_fps,
+                                    dtype=dtype)
+        self.affinity = Affinity(141, dtype=dtype)
         self.bin_score = nn.Parameter(torch.ones(()))
         if generator is not None:
             init_parameters(self, generator)
@@ -125,6 +140,7 @@ class Track4D(nn.Module):
         """Flow, clustering, descriptors and GT match for one frame."""
         flow = self.fd_layer.post_gru(prop, gfeat_out, frame.mask1)
         warp = frame.pc1 + flow
+        # float32 in bfloat16 too (track4d.py:133): cat promotes to warp's
         feats = torch.cat([warp, frame.pc1, flow, frame.ft1, prop], dim=-1)
         mov = (cls > self.mov_thres) & frame.mask1
         db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]],
@@ -204,12 +220,8 @@ def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
     `sinkhorn_kernel` is no config key (the JAX package switches it with a
     module global). `fused_sa: false` (the JAX package's unfused eval path)
     holds on the CPU, where every wrapper takes its plain version; on the
-    card the port always runs its kernels, so there it raises. Raises on a
-    compute dtype other than float32, which the port does not implement,
-    rather than ignore it."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the port computes in float32 only")
+    card the port always runs its kernels, so there it raises. `dtype`:
+    "float32" or "bfloat16" (config.Config refuses any other)."""
     device = resolve_device(device)
     if not cfg.fused_sa and device.type != "cpu":
         raise NotImplementedError(
@@ -223,4 +235,5 @@ def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
         sinkhorn_alpha=cfg.sinkhorn_alpha,
         match_conf_thres=cfg.match_conf_thres, mov_thres=cfg.mov_thres,
         mov_budget=cfg.mov_budget, exact_fps=cfg.exact_fps,
-        sinkhorn_kernel=sinkhorn_kernel, generator=generator, device=device)
+        sinkhorn_kernel=sinkhorn_kernel, dtype=COMPUTE_DTYPES[cfg.dtype],
+        generator=generator, device=device)

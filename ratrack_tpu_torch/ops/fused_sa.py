@@ -18,6 +18,16 @@ bounds it on the H100 and how its design answers that.
 Layer 1 of each scale's shared MLP factorises through the pair structure
 (pallas_sa.py:26-30): W1 @ [x_j - c_i, f_j] = P1_j - CW_i with
 P1 = xyz @ W_xyz + F @ W_feat + b1 and CW = centers @ W_xyz.
+
+`compute_dtype` (float32 or bfloat16) is the operand type of the kernel's
+products, as the JAX kernel's: in bfloat16 each gathered P1 row is rounded
+to bfloat16 (a center with no hit pools relu(P1[0] - CW) from the float32
+row, pallas_sa.py:139-142, 177-182), and each folded layer multiplies
+bfloat16-rounded activations and weights with float32 accumulation; the
+hoist, the ball query, bias, ReLU and the max stay float32, and the output
+is float32. The two dtypes launch two instantiations of one kernel
+template; each wrapper counts a bfloat16 launch in `.bf16.launches`, a
+float32 one in `.launches`.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ from typing import Sequence
 import torch
 
 from ..kernels import build as kb
-from .grouping import group
+from .grouping import bf16_operands, group, operand
 from .neighborhood import ball_query
 
 KERNEL_TILES = (8, 16, 32)   # centers a block, for `tile=`; None: its own
@@ -47,35 +57,46 @@ def fold_bn_params(weights, scales, biases, means, variances,
 
 
 def hoist_layer1(xyz, centers, features, w1, b1):
-    """(P1 (B, N, C1), CW (B, M, C1)) of the factorised layer 1."""
+    """(P1 (B, N, C1), CW (B, M, C1)) of the factorised layer 1, in the
+    weights' dtype (float32) whatever the features' (bfloat16 features:
+    pallas_sa.py:368-376)."""
     w_xyz, w_feat = w1[:3], w1[3:]
     p1 = xyz @ w_xyz + b1
     if features is not None:
-        p1 = p1 + features @ w_feat
+        p1 = p1 + features.to(w_feat.dtype) @ w_feat
     return p1.contiguous(), (centers @ w_xyz).contiguous()
 
 
 def sa_scale_reference(xyz, centers, mask, p1, cw, rest, *, radius: float,
-                       nsample: int):
+                       nsample: int, compute_dtype=torch.float32):
     """Plain version of the one-scale kernel: ball query with CUDA padding,
-    pair layer 1, folded layers, max over slots. Returns (out, idx); idx
-    are the (B, M, ns) slot indices."""
-    idx = ball_query(radius, nsample, xyz, centers, mask)
-    h = torch.relu(group(p1, idx) - cw.unsqueeze(2))
+    pair layer 1, folded layers, max over slots, with the operand roundings
+    of `compute_dtype` (module docstring). Returns (out, idx); idx are the
+    (B, M, ns) slot indices."""
+    dt = compute_dtype
+    idx, hit = ball_query(radius, nsample, xyz, centers, mask,
+                          return_hit=True)
+    g = group(p1, idx)
+    if dt != torch.float32:
+        g = torch.where(hit[..., None, None], operand(g, dt), g)
+    h = torch.relu(g - cw.unsqueeze(2))
     for w, b in rest:
-        h = torch.relu(h @ w + b)
+        h = torch.relu(operand(h, dt) @ operand(w, dt) + b)
     return h.amax(dim=2), idx
 
 
 def sa_pair_reference(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb,
                       rest_b, *, radius_a: float, radius_b: float,
-                      nsample_a: int, nsample_b: int):
+                      nsample_a: int, nsample_b: int,
+                      compute_dtype=torch.float32):
     """Plain version of the pair kernel: `sa_scale_reference` at both
     radii. Returns (out_a, out_b, idx_a, idx_b)."""
     out_a, idx_a = sa_scale_reference(xyz, centers, mask, p1a, cwa, rest_a,
-                                      radius=radius_a, nsample=nsample_a)
+                                      radius=radius_a, nsample=nsample_a,
+                                      compute_dtype=compute_dtype)
     out_b, idx_b = sa_scale_reference(xyz, centers, mask, p1b, cwb, rest_b,
-                                      radius=radius_b, nsample=nsample_b)
+                                      radius=radius_b, nsample=nsample_b,
+                                      compute_dtype=compute_dtype)
     return out_a, out_b, idx_a, idx_b
 
 
@@ -126,19 +147,22 @@ def _tile_arg(tile):
 
 def sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b, *,
             radius_a: float, radius_b: float, nsample_a: int, nsample_b: int,
-            return_indices: bool = False, tile: int | None = None):
+            return_indices: bool = False, tile: int | None = None,
+            compute_dtype=torch.float32):
     """Kernel B1 over (B, N, 3) points and (B, M, 3) centers.
 
     rest_a / rest_b: [(W (C_l, C_{l+1}), b (C_{l+1},)), ...] folded layers
-    after layer 1. Returns (out_a, out_b) [+ (idx_a, idx_b) int].
+    after layer 1 (float32, as P1 and CW; compute_dtype is the products'
+    operand type). Returns (out_a, out_b) float32 [+ (idx_a, idx_b) int].
     tile (centers a block) forces the kernel's launch shape, for
     measuring; it changes no result.
     """
+    bf16 = bf16_operands(compute_dtype)
     if not xyz.is_cuda:
         oa, ob, ia, ib = sa_pair_reference(
             xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b,
             radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
-            nsample_b=nsample_b)
+            nsample_b=nsample_b, compute_dtype=compute_dtype)
         return (oa, ob, ia, ib) if return_indices else (oa, ob)
 
     b, n, m = _check_clouds(xyz, centers, mask)
@@ -149,55 +173,59 @@ def sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b, *,
         "b", xyz, centers, p1b, cwb, rest_b, radius_b, nsample_b,
         return_indices)
     lib = kb.load()
+    entry = lib.ratrack_sa_pair_bf16 if bf16 else lib.ratrack_sa_pair
     with torch.cuda.device(xyz.device):
-        code = lib.ratrack_sa_pair(kb.ptr(xyz), kb.ptr(centers),
-                                   kb.ptr(mask), b, n, m, *args_a, *args_b,
-                                   _tile_arg(tile), kb.stream_of(xyz))
+        code = entry(kb.ptr(xyz), kb.ptr(centers), kb.ptr(mask), b, n, m,
+                     *args_a, *args_b, _tile_arg(tile), kb.stream_of(xyz))
     kb.check(code, "sa_pair")
-    sa_pair.launches += 1
+    (sa_pair.bf16 if bf16 else sa_pair).launches += 1
     if return_indices:
         return out_a, out_b, idx_a, idx_b
     return out_a, out_b
 
 
 sa_pair.launches = 0
+sa_pair.bf16 = kb.Counter()
 
 
 def sa_scale(xyz, centers, mask, p1, cw, rest, *, radius: float,
              nsample: int, return_indices: bool = False,
-             tile: int | None = None):
+             tile: int | None = None, compute_dtype=torch.float32):
     """Kernel B1' over (B, N, 3) points and (B, M, 3) centers: one scale,
     arguments as one scale of `sa_pair`. Returns out [, idx int]."""
+    bf16 = bf16_operands(compute_dtype)
     if not xyz.is_cuda:
         out, idx = sa_scale_reference(xyz, centers, mask, p1, cw, rest,
-                                      radius=radius, nsample=nsample)
+                                      radius=radius, nsample=nsample,
+                                      compute_dtype=compute_dtype)
         return (out, idx) if return_indices else out
 
     b, n, m = _check_clouds(xyz, centers, mask)
     args, out, idx = _kernel_scale("", xyz, centers, p1, cw, rest, radius,
                                    nsample, return_indices)
     lib = kb.load()
+    entry = lib.ratrack_sa_scale_bf16 if bf16 else lib.ratrack_sa_scale
     with torch.cuda.device(xyz.device):
-        code = lib.ratrack_sa_scale(kb.ptr(xyz), kb.ptr(centers),
-                                    kb.ptr(mask), b, n, m, *args,
-                                    _tile_arg(tile), kb.stream_of(xyz))
+        code = entry(kb.ptr(xyz), kb.ptr(centers), kb.ptr(mask), b, n, m,
+                     *args, _tile_arg(tile), kb.stream_of(xyz))
     kb.check(code, "sa_scale")
-    sa_scale.launches += 1
+    (sa_scale.bf16 if bf16 else sa_scale).launches += 1
     return (out, idx) if return_indices else out
 
 
 sa_scale.launches = 0
+sa_scale.bf16 = kb.Counter()
 
 
 def fused_sa_pair(xyz, centers, features, mask,
                   ws_a: Sequence[torch.Tensor], bs_a: Sequence[torch.Tensor],
                   ws_b: Sequence[torch.Tensor], bs_b: Sequence[torch.Tensor],
                   *, radius_a: float, radius_b: float, nsample_a: int,
-                  nsample_b: int):
+                  nsample_b: int, compute_dtype=torch.float32):
     """Both radius scales of one MSG level (JAX `fused_sa_pair`).
 
     ws/bs: folded MLP parameters per scale, x @ W layout; ws[0] is
-    (3 + C, C1) with the xyz rows first.
+    (3 + C, C1) with the xyz rows first. Outputs float32.
     """
     p1a, cwa = hoist_layer1(xyz, centers, features, ws_a[0], bs_a[0])
     p1b, cwb = hoist_layer1(xyz, centers, features, ws_b[0], bs_b[0])
@@ -205,14 +233,15 @@ def fused_sa_pair(xyz, centers, features, mask,
     rest_b = list(zip(ws_b[1:], bs_b[1:]))
     return sa_pair(xyz, centers, mask, p1a, cwa, rest_a, p1b, cwb, rest_b,
                    radius_a=radius_a, radius_b=radius_b, nsample_a=nsample_a,
-                   nsample_b=nsample_b)
+                   nsample_b=nsample_b, compute_dtype=compute_dtype)
 
 
 def fused_sa_scale(xyz, centers, features, mask,
                    ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor], *,
-                   radius: float, nsample: int):
+                   radius: float, nsample: int, compute_dtype=torch.float32):
     """One radius scale of an MSG level (JAX `fused_sa_scale`): ws / bs as
     one scale of `fused_sa_pair`. Returns (B, M, C_last)."""
     p1, cw = hoist_layer1(xyz, centers, features, ws[0], bs[0])
     return sa_scale(xyz, centers, mask, p1, cw, list(zip(ws[1:], bs[1:])),
-                    radius=radius, nsample=nsample)
+                    radius=radius, nsample=nsample,
+                    compute_dtype=compute_dtype)

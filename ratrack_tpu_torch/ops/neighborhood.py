@@ -68,12 +68,14 @@ def knn(k: int, query: torch.Tensor, points: torch.Tensor,
 
 def ball_query(radius: float, nsample: int, points: torch.Tensor,
                centers: torch.Tensor,
-               points_mask: torch.Tensor | None = None) -> torch.Tensor:
+               points_mask: torch.Tensor | None = None, *,
+               return_hit: bool = False):
     """First `nsample` valid points with d^2 < r^2 in index order; trailing
     slots repeat the first hit; no hit at all -> index 0 (CUDA
     ball_query_gpu.cu:28-44, JAX `ball_query` :198-234).
 
-    points (B, N, 3), centers (B, M, 3) -> (B, M, nsample) int64.
+    points (B, N, 3), centers (B, M, 3) -> (B, M, nsample) int64
+    [, (B, M) bool: the center has a hit, with return_hit].
     """
     n = points.shape[-2]
     hit = point_distance(centers, points) < radius * radius
@@ -85,7 +87,8 @@ def ball_query(radius: float, nsample: int, points: torch.Tensor,
     found = first < n
     pad = torch.where(found[..., :1], first[..., :1],
                       torch.zeros_like(first[..., :1]))
-    return torch.where(found, first, pad)
+    idx = torch.where(found, first, pad)
+    return (idx, found[..., 0]) if return_hit else idx
 
 
 # pairs (N * M per stream) above which `knn_auto` leaves the dense matrix

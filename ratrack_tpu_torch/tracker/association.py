@@ -87,7 +87,7 @@ def greedy_gt_match(labels, gt_dense, gt_label_ids, gt_valid, k_max: int,
 
 class AssocResult(NamedTuple):
     track_id: torch.Tensor      # (B, K) int32 per curr slot (-1 invalid)
-    conf: torch.Tensor          # (B, K) float32 match confidence
+    conf: torch.Tensor          # (B, K) match confidence (aff's dtype)
     matched_prev: torch.Tensor  # (B, K) int32 prev slot or -1
     next_id: torch.Tensor       # (B,) int32 updated counter
     aff: torch.Tensor           # (B, K, K) raw affinity (prev x curr)
@@ -99,7 +99,7 @@ class MatchStructure(NamedTuple):
     it for every frame of a block at once (JAX association.py:129-135)."""
     idx1: torch.Tensor      # (B, K) int64 best prev slot per curr slot
     matched: torch.Tensor   # (B, K) bool mutual-max match
-    conf: torch.Tensor      # (B, K) float32 affinity at the match
+    conf: torch.Tensor      # (B, K) affinity at the match (aff's dtype)
     col_ok: torch.Tensor    # (B, K) bool curr-slot validity
 
 

@@ -49,9 +49,13 @@ def transport_problem(scores: torch.Tensor, m: torch.Tensor,
                       n: torch.Tensor, alpha: float):
     """The padded problem of scores (B, K, K) with m / n (B,) valid rows /
     columns -> (c (B, K+1, K+1), log_mu (B, K+1), log_nu (B, K+1),
-    norm (B,))."""
+    norm (B,)), at least float32: bfloat16 scores (a bfloat16 model's
+    affinities) enter a float32 problem, as the JAX package's float32
+    -1e9 and alpha promote them (sinkhorn.py:21, track4d.py:201)."""
     b, k = scores.shape[0], scores.shape[-1]
-    dev, dt = scores.device, scores.dtype
+    dev = scores.device
+    dt = torch.promote_types(scores.dtype, torch.float32)
+    scores = scores.to(dt)
     ar = torch.arange(k, device=dev)
     row_ok = ar.unsqueeze(0) < m.unsqueeze(1)                 # (B, K)
     col_ok = ar.unsqueeze(0) < n.unsqueeze(1)

@@ -17,7 +17,13 @@ distance (the max-pools make the gradient ill-conditioned;
 compare_train says by how much). The stretch kernels: B5 and B6 select
 identical indices; B4 within the tolerance above; B7's potentials within
 1e-4 absolute on the valid rows (another summation order, a few ulps an
-iteration).
+iteration). The bfloat16 instantiations of B1, B1', B2, B3 and B4 against
+their plain versions at compute_dtype=bfloat16: indices equal, values
+within one bfloat16 step of the largest (2^-8 * max |plain| + 1e-5: both
+multiply the same rounded operands exactly, but a float32 sum in another
+order can round the next layer's operand to the neighbouring bfloat16).
+The float32 eval kernels' outputs are bit for bit those the tree before
+the bfloat16 instantiations gave (`kernels/digest.py`).
 """
 
 import ctypes
@@ -1035,33 +1041,48 @@ def test_aggregate_and_sinkhorn_launches_per_call(device, what):
 
 # ---- B9 / B8 forward (one cluster launch) and B10 backward (3xTF32) -------
 
+PROFILE_RERUNS = 3
+
+
 def _package_kernels(fn):
     """The CUDA kernels of csrc/ that fn() launches, by name, as
     torch.profiler sees them (PyTorch's own kernels, such as the fill of a
     zero-initialised gradient, are not counted). The tracer gets a
     warm-up step of its own, with one PyTorch kernel, whose records are
     dropped: with fn() first in the window, a run of the card tests saw
-    its first kernel go unreported now and then."""
+    its first kernel go unreported now and then, and with the warm-up step
+    alone one still did (a card-test call of the bfloat16 slice), so the
+    window opens on a PyTorch kernel too, which no result counts. A
+    profile that recorded no CUDA event at all (one to three of the
+    launch-count tests in half of the card-test calls, while the kernels'
+    own counters saw every launch) is taken again, up to PROFILE_RERUNS
+    times, so fn must be safe to call again; a profile with CUDA events is
+    returned as it is, right or wrong."""
     from torch.profiler import ProfilerActivity, profile, schedule
     names = set()
     for src in kb.CSRC_DIR.glob("*.cu*"):
         names |= set(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
             r"(\w+)\s*\(", src.read_text()))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        torch.ones(1, device="cuda").add_(1)
+    for _ in range(1 + PROFILE_RERUNS):
         torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            torch.ones(1, device="cuda").add_(1)
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     found = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         hit = [k for k in names if re.search(rf"\b{k}\b", e.name)]
         found += hit[:1]
     return found
@@ -1081,7 +1102,8 @@ def test_train_kernels_launch_counts_per_call(device, what):
                                                    _gen(50)), device)
         loss, _, leaves = cases.corr_train_loss(_corr_train_kernel, kw)
         flat = [x for _, x in cases.flat_leaves(leaves)]
-        got = _package_kernels(lambda: torch.autograd.grad(loss, flat))
+        got = _package_kernels(
+            lambda: torch.autograd.grad(loss, flat, retain_graph=True))
         assert 1 <= len(got) <= (6 if stage == 1 else 3), got
         return
     for level in ("sa1", "sa2", "sa3"):
@@ -1191,8 +1213,8 @@ def _canary_cloud(n_valid, b=2, n=33):
 
 
 def _canary_sa_eval(lib, stream, guard, pc, mask, device):
-    """B1 (both scales of sa1) and B1' (one of them): outputs and indices
-    guarded."""
+    """B1 (both scales of sa1) and B1' (one of them), each in float32 and
+    bfloat16: outputs and indices guarded."""
     b, n = pc.shape[:2]
     kw = cases.to_device(cases.sa_case("sa1", "pn_head", pc, mask, _gen(71)),
                          device)
@@ -1202,49 +1224,55 @@ def _canary_sa_eval(lib, stream, guard, pc, mask, device):
     # every center tile, 16 the one the eval and serving paths run (33
     # centers: the last tile part-full)
     for tile in fused_sa.KERNEL_TILES:
-        args = []
-        for t in "ab":
-            a, _, _ = fused_sa._kernel_scale(
-                t, kw["xyz"], kw["centers"], kw[f"p1{t}"], kw[f"cw{t}"],
-                kw[f"rest_{t}"], kw[f"radius_{t}"], kw[f"nsample_{t}"], True)
-            width = (kw[f"rest_{t}"][-1][0].shape[1] if kw[f"rest_{t}"]
-                     else kw[f"p1{t}"].shape[-1])
-            a[-2] = kb.ptr(guard.view((b, m, width),
-                                      name=f"sa_pair[{tile}].out_{t}"))
-            a[-1] = kb.ptr(guard.view((b, m, kw[f"nsample_{t}"]), torch.int32,
-                                      name=f"sa_pair[{tile}].idx_{t}"))
-            args.append(a)
-        kb.check(lib.ratrack_sa_pair(*clouds, *args[0], *args[1], tile,
-                                     stream), "sa_pair")
+        for sfx in ("", "_bf16"):
+            args = []
+            for t in "ab":
+                a, _, _ = fused_sa._kernel_scale(
+                    t, kw["xyz"], kw["centers"], kw[f"p1{t}"], kw[f"cw{t}"],
+                    kw[f"rest_{t}"], kw[f"radius_{t}"], kw[f"nsample_{t}"],
+                    True)
+                width = (kw[f"rest_{t}"][-1][0].shape[1] if kw[f"rest_{t}"]
+                         else kw[f"p1{t}"].shape[-1])
+                a[-2] = kb.ptr(guard.view(
+                    (b, m, width), name=f"sa_pair{sfx}[{tile}].out_{t}"))
+                a[-1] = kb.ptr(guard.view(
+                    (b, m, kw[f"nsample_{t}"]), torch.int32,
+                    name=f"sa_pair{sfx}[{tile}].idx_{t}"))
+                args.append(a)
+            kb.check(getattr(lib, f"ratrack_sa_pair{sfx}")(
+                *clouds, *args[0], *args[1], tile, stream), "sa_pair")
         sc = cases.split_sa_case(kw)[1]
         a, _, _ = fused_sa._kernel_scale(
             "", sc["xyz"], sc["centers"], sc["p1"], sc["cw"], sc["rest"],
             sc["radius"], sc["nsample"], True)
-        a[-2] = kb.ptr(guard.view((b, m, sc["rest"][-1][0].shape[1]),
-                                  name=f"sa_scale[{tile}].out"))
-        a[-1] = kb.ptr(guard.view((b, m, sc["nsample"]), torch.int32,
-                                  name=f"sa_scale[{tile}].idx"))
-        kb.check(lib.ratrack_sa_scale(*clouds, *a, tile, stream),
-                 "sa_scale")
+        for sfx in ("", "_bf16"):
+            a[-2] = kb.ptr(guard.view((b, m, sc["rest"][-1][0].shape[1]),
+                                      name=f"sa_scale{sfx}[{tile}].out"))
+            a[-1] = kb.ptr(guard.view((b, m, sc["nsample"]), torch.int32,
+                                      name=f"sa_scale{sfx}[{tile}].idx"))
+            kb.check(getattr(lib, f"ratrack_sa_scale{sfx}")(
+                *clouds, *a, tile, stream), "sa_scale")
 
 
 def _canary_fp_and_stretch(lib, stream, guard, pc, mask, device):
-    """B2 (with the known mask), B5, B6 (its own launch shape, one block,
-    clusters of 2 and 8) and B7 (33 x 33; its own shape and every
-    variant): every output guarded."""
+    """B2 (with the known mask; float32 and bfloat16 features), B5, B6
+    (its own launch shape, one block, clusters of 2 and 8) and B7 (33 x
+    33; its own shape and every variant): every output guarded."""
     b, n = pc.shape[:2]
     kw = cases.to_device(cases.fp_case("fp1", pc, mask, _gen(75)), device)
     m, c = kw["known"].shape[1], kw["feats"].shape[-1]
     # its own launch shape and every one it offers (33 unknowns: the last
     # tile part-full)
+    feats = {"": kw["feats"], "_bf16": kw["feats"].to(torch.bfloat16)}
     for queries, lanes in [(0, 0)] + FP_SHAPES[1:]:
-        name = f"three_interpolate[{queries},{lanes}]"
-        kb.check(lib.ratrack_three_interpolate(
-            kb.ptr(kw["unknown"]), kb.ptr(kw["known"]), kb.ptr(kw["feats"]),
-            kb.ptr(mask.to(device)), b, n, m, c, fused_fp.EPS, queries,
-            lanes, kb.ptr(guard.view((b, n, c), name=f"{name}.out")),
-            kb.ptr(guard.view((b, n, 3), torch.int32, name=f"{name}.idx")),
-            stream), name)
+        for sfx, f in feats.items():
+            name = f"three_interpolate{sfx}[{queries},{lanes}]"
+            kb.check(getattr(lib, f"ratrack_three_interpolate{sfx}")(
+                kb.ptr(kw["unknown"]), kb.ptr(kw["known"]), kb.ptr(f),
+                kb.ptr(mask.to(device)), b, n, m, c, fused_fp.EPS, queries,
+                lanes, kb.ptr(guard.view((b, n, c), name=f"{name}.out")),
+                kb.ptr(guard.view((b, n, 3), torch.int32,
+                                  name=f"{name}.idx")), stream), name)
     xyz, dmask = pc.to(device), mask.to(device)
     # the smallest and largest shapes and the kernel's own (8, 256)
     for queries, chunk in ((8, 128), fused_knn.KERNEL_SHAPE, (32, 512)):
@@ -1286,7 +1314,8 @@ def _corr_weights(ck):
 
 def _canary_correlator(lib, stream, guard, pc, mask, device):
     """B3 (its kNN selection, then the aggregate), B4 (its own block shape
-    and 64 and 128 pair rows a block) and the B10 forward
+    and 64 and 128 pair rows a block), both also in bfloat16, and the B10
+    forward
     (every stash pointer) and backward (every output and scratch pointer),
     both stages: each output guarded; the backward reads the guarded
     forward's stash."""
@@ -1305,15 +1334,17 @@ def _canary_correlator(lib, stream, guard, pc, mask, device):
                                      16, queries, kb.ptr(idx), stream), "knn")
         head = (*clouds, kb.ptr(idx), b, n, n, kb.ptr(ck["feats_p"]),
                 kb.ptr(ck["add_q"]))
-        for name in ("corr_aggregate", "corr_apply"):
-            out = guard.view((b, n, c), name=f"{name}{stage}.out")
-            kb.check(getattr(lib, f"ratrack_{name}")(
-                *head, *_corr_weights(ck), kb.ptr(out), stream), name)
-        for rows_ in (64, 128):
-            out = guard.view((b, n, c), name=f"corr_apply_rows{stage}.{rows_}")
-            kb.check(lib.ratrack_corr_apply_rows(
-                *head, *_corr_weights(ck), rows_, kb.ptr(out), stream),
-                "corr_apply_rows")
+        for sfx in ("", "_bf16"):
+            for name in ("corr_aggregate", "corr_apply"):
+                out = guard.view((b, n, c), name=f"{name}{sfx}{stage}.out")
+                kb.check(getattr(lib, f"ratrack_{name}{sfx}")(
+                    *head, *_corr_weights(ck), kb.ptr(out), stream), name)
+            for rows_ in (64, 128):
+                out = guard.view((b, n, c),
+                                 name=f"corr_apply_rows{sfx}{stage}.{rows_}")
+                kb.check(getattr(lib, f"ratrack_corr_apply_rows{sfx}")(
+                    *head, *_corr_weights(ck), rows_, kb.ptr(out), stream),
+                    "corr_apply_rows")
         n_mlp = len(ck["mlp_ws"])
         stash = [guard.view((rows, c), name=f"train_fwd{stage}.stash{l}")
                  for l in range(n_mlp + 1)]
@@ -1434,7 +1465,10 @@ def _canary_sa_train(lib, stream, guard, pc, mask, device):
 # the helper above that calls it with guarded outputs
 CANARY_ENTRIES = {
     "ratrack_sa_pair": _canary_sa_eval, "ratrack_sa_scale": _canary_sa_eval,
+    "ratrack_sa_pair_bf16": _canary_sa_eval,
+    "ratrack_sa_scale_bf16": _canary_sa_eval,
     "ratrack_three_interpolate": _canary_fp_and_stretch,
+    "ratrack_three_interpolate_bf16": _canary_fp_and_stretch,
     "ratrack_knn_tiled": _canary_fp_and_stretch,
     "ratrack_fps": _canary_fp_and_stretch,
     "ratrack_sinkhorn": _canary_fp_and_stretch,
@@ -1443,6 +1477,9 @@ CANARY_ENTRIES = {
     "ratrack_corr_aggregate": _canary_correlator,
     "ratrack_corr_apply": _canary_correlator,
     "ratrack_corr_apply_rows": _canary_correlator,
+    "ratrack_corr_aggregate_bf16": _canary_correlator,
+    "ratrack_corr_apply_bf16": _canary_correlator,
+    "ratrack_corr_apply_rows_bf16": _canary_correlator,
     "ratrack_corr_train_fwd": _canary_correlator,
     "ratrack_corr_train_bwd": _canary_correlator,
     "ratrack_sa_train_fwd": _canary_sa_train,
@@ -1456,8 +1493,9 @@ CANARY_ENTRIES = {
 def test_kernels_write_only_inside_their_outputs(device, n_valid):
     """Every C entry of the library (CANARY_ENTRIES: B1, B1', B2 at every
     launch shape, B3's two launches (the selection at every tile), B4 at
-    both block shapes, B5, B6 at four launch shapes, B7
-    and each of its variants, the B9 / B8 forward
+    both block shapes, the bfloat16 instantiations of B1, B1', B2, B3's
+    aggregate launch and B4 (their outputs are float32), B5, B6 at four
+    launch shapes, B7 and each of its variants, the B9 / B8 forward
     and backward, the B10 forward and backward, both correlator stages),
     called directly, with every output and scratch pointer a view inside
     a larger buffer: after the launches the canaries on both sides are
@@ -1973,3 +2011,219 @@ def test_sinkhorn_early_exit_on_the_card_matches_the_cpu(device, safe_lse):
         np.testing.assert_allclose(
             z_gpu[s][np.ix_(rows, cols)].numpy(),
             z_cpu[s][np.ix_(rows, cols)].numpy(), atol=1e-4, rtol=0)
+
+
+# ---- bfloat16 operands: B1, B1', B2, B3, B4 --------------------------------
+
+def _assert_bf16_close(got, want):
+    """Within one bfloat16 step of the largest plain value (see the module
+    docstring)."""
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    tol = 2.0 ** -8 * want.abs().max().item() + 1e-5
+    assert err <= tol, (err, tol)
+
+
+def _bf16(kw, device):
+    return cases.to_device(cases.bf16_case(kw), device)
+
+
+@pytest.mark.parametrize("head", ["pn_head", "mse"])
+@pytest.mark.parametrize("level", ["sa1", "sa2", "sa3"])
+def test_sa_pair_bf16_matches_plain(device, level, head):
+    pc1, m1, _, _ = cases.clouds(90, 4)
+    kw = _bf16(cases.sa_case(level, head, pc1, m1, _gen(90)), device)
+    before = fused_sa.sa_pair.bf16.launches, fused_sa.sa_pair.launches
+    oa, ob, ia, ib = fused_sa.sa_pair(**kw, return_indices=True)
+    ra, rb, ja, jb = fused_sa.sa_pair_reference(**kw)
+    torch.cuda.synchronize()
+    assert (fused_sa.sa_pair.bf16.launches,
+            fused_sa.sa_pair.launches) == (before[0] + 1, before[1])
+    assert torch.equal(ia.long(), ja) and torch.equal(ib.long(), jb)
+    _assert_bf16_close(oa, ra)
+    _assert_bf16_close(ob, rb)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 5])
+def test_sa_pair_bf16_no_hit_rows(device, n_valid):
+    """A center without a hit pools relu(P1[0] - CW) from the float32 row
+    in the bfloat16 kernel too."""
+    pc1, _, _, _ = cases.clouds(91, 2)
+    mask = (torch.arange(pc1.shape[1]) < n_valid).expand(2, -1).contiguous()
+    kw = _bf16(cases.sa_case("sa1", "pn_head", pc1, mask, _gen(91)), device)
+    for tile in SA_TILES:
+        oa, ob, ia, ib = fused_sa.sa_pair(**kw, return_indices=True,
+                                          tile=tile)
+        ra, rb, ja, jb = fused_sa.sa_pair_reference(**kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ia.long(), ja) and torch.equal(ib.long(), jb)
+        _assert_bf16_close(oa, ra)
+        _assert_bf16_close(ob, rb)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_sa_scale_bf16_matches_plain(device, level):
+    """B1' in bfloat16 on every scale of the general levels, and a pair
+    launch equal to two one-scale launches bit for bit."""
+    pc1, m1, _, _ = cases.clouds(92, 4)
+    for kw in cases.sa_scale_cases(level, pc1, m1, _gen(92)):
+        kw = _bf16(kw, device)
+        out, idx = fused_sa.sa_scale(**kw, return_indices=True)
+        ref, ridx = fused_sa.sa_scale_reference(**kw)
+        torch.cuda.synchronize()
+        assert torch.equal(idx.long(), ridx)
+        _assert_bf16_close(out, ref)
+    kw = _bf16(cases.sa_case("sa2", "pn_head", pc1, m1, _gen(93)), device)
+    pair = fused_sa.sa_pair(**kw, return_indices=True)
+    for i, single in enumerate(cases.split_sa_case(kw)):
+        one = fused_sa.sa_scale(**single, return_indices=True,
+                                compute_dtype=torch.bfloat16)
+        assert torch.equal(pair[i], one[0]) and torch.equal(pair[i + 2],
+                                                            one[1])
+
+
+@pytest.mark.parametrize("level", ["fp3", "fp2", "fp1"])
+def test_fp_bf16_matches_plain(device, level):
+    """B2 on bfloat16 known features, at every launch shape."""
+    pc1, m1, _, _ = cases.clouds(94, 4)
+    kw = _bf16(cases.fp_case(level, pc1, m1, _gen(94)), device)
+    assert kw["feats"].dtype == torch.bfloat16
+    ref, ridx = fused_fp.three_interpolate_reference(**kw)
+    for shape in FP_SHAPES:
+        out, idx = fused_fp.fused_three_interpolate(
+            **kw, return_indices=True, shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(idx.long(), ridx), shape
+        _assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("n_valid", [0, 5, None])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_correlator_bf16_matches_plain(device, stage, n_valid):
+    """B3 in bfloat16 (gathered rows and coordinates rounded), with every,
+    five or no candidate valid."""
+    pc1, m1, pc2, m2 = cases.clouds(95, 4)
+    if n_valid is not None:
+        m2 = (torch.arange(pc1.shape[1]) < n_valid).expand(4, -1).contiguous()
+        m1 = m2
+    kw = _bf16(cases.corr_case(stage, pc1, m1, pc2, m2, _gen(95)), device)
+    out, idx = fused_correlator.fused_knn_weight_aggregate(
+        **kw, return_indices=True)
+    ref, ridx = fused_correlator.knn_weight_aggregate_reference(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.long(), ridx)
+    _assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("block_rows", [None, 64, 128])
+@pytest.mark.parametrize("stage", [1, 2])
+def test_knn_gather_apply_bf16_matches_plain(device, stage, block_rows):
+    """B4 in bfloat16 (rows gathered in float32) at both block shapes, 1024
+    and 300 queries."""
+    kw = cases.apply_case(stage, *_stretch_clouds(96, 1024), _gen(96))
+    for n in (1024, 300):
+        part = dict(kw)
+        for key in ("query", "add_q", "idx"):
+            if part[key] is not None:
+                part[key] = part[key][:, :n].contiguous()
+        part = _bf16(part, device)
+        before = fused_correlator.knn_gather_apply.bf16.launches
+        out = fused_correlator.knn_gather_apply(**part,
+                                                block_rows=block_rows)
+        ref = fused_correlator.knn_gather_apply_reference(**part)
+        torch.cuda.synchronize()
+        assert fused_correlator.knn_gather_apply.bf16.launches == before + 1
+        _assert_bf16_close(out, ref)
+
+
+def test_bf16_wrappers_launch_one_kernel_each(device):
+    """A bfloat16 call of B1, B1', B2, B4 is one launch of its kernel, of
+    B3 the selection and one aggregate launch (torch.profiler)."""
+    pc1, m1, pc2, m2 = cases.clouds(97, 2)
+    sa = _bf16(cases.sa_case("sa3", "pn_head", pc1, m1, _gen(97)), device)
+    single = cases.split_sa_case(sa)[1]
+    fp = _bf16(cases.fp_case("fp2", pc1, m1, _gen(97)), device)
+    ck = _bf16(cases.corr_case(1, pc1, m1, pc2, m2, _gen(97)), device)
+    ap = _bf16(cases.apply_case(2, *_stretch_clouds(97, 1024), _gen(97)),
+               device)
+    got = _package_kernels(lambda: (
+        fused_sa.sa_pair(**sa),
+        fused_sa.sa_scale(**single, compute_dtype=torch.bfloat16),
+        fused_fp.fused_three_interpolate(**fp),
+        fused_correlator.fused_knn_weight_aggregate(**ck),
+        fused_correlator.knn_gather_apply(**ap)))
+    assert sorted(got) == sorted(
+        ["sa_kernel"] * 2 + ["three_interpolate_kernel", "knn_staged_kernel"]
+        + ["aggregate_kernel"] * 2), got
+
+
+def test_track4d_bf16_gpu_matches_cpu(device):
+    """Two streams x 3 frames of the bfloat16 cached scan on the card
+    against the same bfloat16 model on the CPU (plain versions), at
+    chip_smoke.py phase 19's gates: over the valid points cls within 0.02
+    on average and 0.5 at most, flow within 0.05 on average and 1.0 at
+    most (the JAX package's two bfloat16 paths differ by 0.009 / 0.195 and
+    0.023 / 0.375: a bfloat16 step in the heads moves the random weights'
+    large logits, tests/test_torch_port_bf16.py), labels mismatching on at
+    most 1% of points; the bfloat16 kernels launched, the float32 ones
+    not."""
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip, to_tensors
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import make_scan_eval_step_cached
+
+    n, k = 128, 8
+    frames = stack_frames([stack_frames(synthetic_clip(
+        s, 3, n_max=n, g_max=k, n_static=60, n_objects=3)) for s in range(2)])
+    model = Track4D(npoint=n, k_max=k, sinkhorn_iters=50,
+                    dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0), device="cpu")
+    scan = make_scan_eval_step_cached(model)
+    _, cpu = scan(init_state(2, k, device="cpu"), to_tensors(frames, "cpu"))
+    model.to(device)
+    f32_before = fused_sa.sa_pair.launches
+    bf_before = fused_sa.sa_pair.bf16.launches
+    _, gpu = scan(init_state(2, k, device=device), to_tensors(frames, device))
+    assert fused_sa.sa_pair.launches == f32_before
+    assert fused_sa.sa_pair.bf16.launches == bf_before + 6 * 3 + 3
+    assert gpu["cls"].dtype == torch.bfloat16
+    valid = torch.from_numpy(frames.mask1)
+    d_cls = (gpu["cls"].cpu().float() - cpu["cls"].float()).abs()[valid]
+    d_flow = (gpu["warp"].cpu() - cpu["warp"]).abs()[valid]
+    assert d_cls.mean().item() <= 0.02 and d_cls.max().item() <= 0.5, (
+        d_cls.mean().item(), d_cls.max().item())
+    assert d_flow.mean().item() <= 0.05 and d_flow.max().item() <= 1.0, (
+        d_flow.mean().item(), d_flow.max().item())
+    labels_bad = (gpu["labels"].cpu() != cpu["labels"]).float().mean().item()
+    assert labels_bad <= 0.01, labels_bad
+
+
+# Digests of the float32 eval kernels' outputs (kernels/digest.py) that the
+# tree before the bfloat16 instantiations printed on an NVIDIA H100 80GB
+# HBM3; the float32 instantiations must still give them bit for bit.
+F32_DIGESTS = {
+    "knn_gather_apply.stage1": "002af6c66daf9bd4",
+    "knn_gather_apply.stage2": "533f3a61b55693e5",
+    "knn_weight_aggregate.stage1": "4159fa9b708af5e6",
+    "knn_weight_aggregate.stage2": "8473e4a2e5f3eb91",
+    "sa_pair.mse.sa1": "c877340230a18290",
+    "sa_pair.mse.sa2": "e698f8df482dc67e",
+    "sa_pair.mse.sa3": "bcb48c2d1bf6d565",
+    "sa_pair.pn_head.sa1": "92b27aa8bbfd5561",
+    "sa_pair.pn_head.sa2": "bd2cb27ec6f008e3",
+    "sa_pair.pn_head.sa3": "7d79ae412847934d",
+    "sa_scale.three_scales.0": "55a0e54825b32bae",
+    "sa_scale.three_scales.1": "8968dea11d61a8f3",
+    "sa_scale.three_scales.2": "7d9fd83e1f63ce08",
+    "three_interpolate.fp1": "7c31423b602bfc4a",
+    "three_interpolate.fp2": "7432061a5782ff15",
+    "three_interpolate.fp3": "8a0bc0f7366894cb",
+}
+
+
+def test_float32_eval_kernels_bit_identical_to_recorded(device):
+    from ratrack_tpu_torch.kernels.digest import digests
+    got = digests(device)
+    assert got == F32_DIGESTS, {k: (v, F32_DIGESTS.get(k))
+                                for k, v in got.items()
+                                if F32_DIGESTS.get(k) != v}

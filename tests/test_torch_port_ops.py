@@ -450,7 +450,7 @@ def test_port_imports_no_jax():
         "'config', 'main', 'data.pipeline', 'data.native', 'eval.run', "
         "'eval.mot_metrics', 'eval.kalman', 'eval.run_kf', "
         "'eval.detection_ap', 'eval.run_ap', 'train.metrics', "
-        "'utils.convert'):\n"
+        "'utils.convert', 'kernels.digest'):\n"
         "    assert 'ratrack_tpu_torch.' + name in sys.modules, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    env={**os.environ, "PYTHONPATH": root})

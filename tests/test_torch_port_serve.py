@@ -445,8 +445,11 @@ def test_model_from_config_builds_and_raises_on_unsupported_keys():
     assert model.sinkhorn_tol == 0.0
     assert model_from_config(cfg.replace(sinkhorn_tol=1e-3),
                              device="cpu").sinkhorn_tol == 1e-3
-    with pytest.raises(NotImplementedError, match="dtype"):
-        model_from_config(cfg.replace(dtype="bfloat16"), device="cpu")
+    # bfloat16 builds (ROADMAP A9); any other compute dtype is refused
+    assert model_from_config(cfg.replace(dtype="bfloat16"),
+                             device="cpu").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="dtype"):
+        model_from_config(cfg.replace(dtype="float16"), device="cpu")
 
 
 def test_model_from_config_raises_on_fused_sa_false():
