@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval, train, stretch, general-SA-level and
-serving paths, its CLI and its offline scoring on one NVIDIA GPU and check
-them.
+serving paths in float32 and bfloat16, its CLI, its visualisers and its
+offline scoring on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--profile DIR]
 
@@ -197,6 +197,37 @@ Phases, each printing one line:
                 bfloat16 launches a step, flow within 0.05 on average,
                 points in another cluster on at most 1%, the label and
                 track-id mismatches reported.
+  20. bf16_train training in bfloat16 (the train kernels B9 / B10 / B8 run
+                in float32 behind casts, as JAX's take no compute dtype):
+                (a) make_scan_train_step of Track4D(npoint=512, k_max=32,
+                dtype=bfloat16) over 8 streams x 4 frames on the card and
+                on the CPU from one seed, and the float32 model on the CPU
+                as the yardstick: B9 / B10 launches those of the float32
+                step; the loss items of each frame (frame 0 within 2e-2
+                of the CPU's); a bfloat16 cls of 0.998 or more rounds to
+                1.0 and the reference's BCE gives a stream the largest
+                float and NaN gradients (reproduced on purpose, ROADMAP),
+                so the NaN gradient leaves must be the CPU's and the
+                finite ones |g - g_f32| <= 1e-2 |G| + 2 |g_cpu - g_f32|
+                in norm, each and together, g_cpu the farther of two CPU
+                bfloat16 runs (the seeded weights, and those weights
+                moved by 1e-6 relative: a float32-sized difference), the
+                angle to g_f32 at most twice the CPU runs' larger one, and
+                |g - g_cpu| <= 1e-2 |G| + twice what that move does to the
+                CPU's gradient (a cosine of 0.99 between two bfloat16 runs
+                holds for none: PERF.md section 6), the running statistics
+                likewise; (b) the three general SA levels in
+                one bfloat16 train step on the card against the CPU (B8
+                forward and backward, 1 / 3 / 2 launches each), outputs
+                within 2^-8 of max plus twice the CPU's bfloat16 error;
+                (c) the float32 and bfloat16 train scans at 8 x 32 in
+                turns (a b b a): frames/s, ms a frame, peak memory, NaN
+                parameters after; (d) the CLI on configs/synth_train.yaml
+                cut to 1 epoch in bfloat16: finite losses, launch counts,
+                the checkpoint restored into a bfloat16 and a float32
+                model; (e) the eval CLI with vis_dir (one PNG a frame;
+                where matplotlib is absent a line says so) and the 3D
+                visualiser over a VoD fixture frame.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's, the bfloat16
@@ -217,7 +248,7 @@ a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms); and last the result
 line. Any failed check exits non-zero before the result line (phases 6-8
-and 12-19 record their failed checks and go on, so that one run reports
+and 12-20 record their failed checks and go on, so that one run reports
 all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
@@ -258,6 +289,10 @@ CLI_VOD_FRAMES = 10       # fixture frames of each VoD clip (train, val)
 PIPE_EXIT_TOL = 1e-4      # the early exit of phase 18 (d)
 SERVE_CALLS = 50
 SERVE_WARMUP = 5
+BF16_TRAIN_T = 4          # frames of phase 20 (a)
+BF16_TRAIN_PERTURB = 1e-6  # phase 20 (a): relative noise on a CPU run's
+                           # weights, a difference of float32's size
+BF16_CLI_CUTS = {"epochs": 1, "dtype": "bfloat16"}  # of synth_train.yaml
 REPS = 20
 SEED = 0
 # B6's launch shapes timed against each other: (threads a block, blocks a
@@ -336,7 +371,7 @@ TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
                       + BF16_KERNELS)
 
 
-FAILED: list = []   # failed checks of phases 6-8 and 12-19
+FAILED: list = []   # failed checks of phases 6-8 and 12-20
 
 
 def fail(msg: str) -> None:
@@ -2603,6 +2638,357 @@ def phase_bf16(torch, seed: int, card: str):
     return summary, {k: kept.get(k, 0) for k in BF16_KERNELS}
 
 
+def bf16_train_run(torch, seed: int, device: str, dtype, n_frames: int,
+                   perturb: float = 0.0):
+    """Track4D(npoint=512, k_max=32) from the seed computing in `dtype`
+    (float32 parameters) trained on `device` over N_STREAMS synthetic
+    streams x n_frames, one frame a scan call -> per-frame loss items, the
+    first step's gradient and running statistics (float64 on the CPU), the
+    launch counts and seconds of the run. perturb: the weights multiplied
+    by 1 + perturb * N(0, 1) before training (how far a float32-sized
+    difference moves the run)."""
+    from ratrack_tpu_torch.data import FrameBatch
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_scan_train_step)
+    dev = torch.device(device)
+    model = Track4D(npoint=N_MAX, k_max=K_MAX, sinkhorn_iters=SINKHORN_ITERS,
+                    dtype=dtype, generator=torch.Generator().manual_seed(seed),
+                    device="cpu")
+    if perturb:
+        gen = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.mul_(1.0 + perturb * torch.randn(prm.shape,
+                                                     generator=gen))
+    scan = make_scan_train_step(create_train_state(
+        model, TrainConfig(), steps_per_epoch=100, device=dev))
+    frames = make_frames(torch, seed + 7, n_frames, dev)
+    state = init_state(N_STREAMS, K_MAX, device=dev)
+    items = []
+    reset_counters()
+    t0 = time.perf_counter()
+    for t in range(n_frames):
+        state, it = scan(state, FrameBatch(*[x[:, t:t + 1] for x in frames]),
+                         False)
+        items.append({k: v[0].double().cpu() for k, v in it.items()})
+        if t == 0:
+            grads = {n: prm.grad.detach().double().cpu()
+                     for n, prm in model.named_parameters()}
+            stats = {n: b.double().cpu() for n, b in model.named_buffers()
+                     if b.is_floating_point()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(items=items, grads=grads, stats=stats,
+                launches=read_counters(), seconds=time.perf_counter() - t0)
+
+
+def bf16_rule(torch, got, cpus, f32, rel: float):
+    """The bfloat16 yardstick of tests/test_torch_port_bf16_train.py on
+    {name: tensor} dicts (and on all of each together, "all"): each
+    |got - f32| <= rel |f32 (all)| + 2 max |cpu - f32| over the CPU's
+    bfloat16 runs `cpus`, the CPU's own bfloat16 error the allowance ->
+    {name: err / bound}."""
+    def flat(d):
+        return torch.cat([d[n].double().flatten() for n in sorted(f32)])
+    total = flat(f32).norm().item()
+    ratios = {}
+    for name in list(f32) + ["all"]:
+        def pick(d):
+            return flat(d) if name == "all" else d[name].double()
+        f = pick(f32)
+        e_got = (pick(got) - f).norm().item()
+        e_cpu = max((pick(c) - f).norm().item() for c in cpus)
+        ratios[name] = e_got / (rel * total + 2 * e_cpu + 1e-12)
+    return ratios
+
+
+def cosine(a, b):
+    return float((a * b).sum() / (a.norm() * b.norm() + 1e-300))
+
+
+def phase_bf16_train(torch, seed: int, card: str, tmp: str):
+    """Phase 20: training in bfloat16 (see the module docstring)."""
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+
+    # (a) the card against the CPU, 8 streams x BF16_TRAIN_T frames. A
+    # bfloat16 cls of 0.998 or more rounds to 1.0, and the reference's BCE
+    # then gives a NaN gradient (ROADMAP, reproduced on purpose): the
+    # leaves it reaches must be the same on the card, and the others are
+    # held to the float32 run by the CPU's own bfloat16 error.
+    cpu = bf16_train_run(torch, seed, "cpu", bf, BF16_TRAIN_T)
+    f32 = bf16_train_run(torch, seed, "cpu", torch.float32, BF16_TRAIN_T)
+    moved = bf16_train_run(torch, seed, "cpu", bf, 1,
+                           perturb=BF16_TRAIN_PERTURB)
+    gpu = bf16_train_run(torch, seed, "cuda", bf, BF16_TRAIN_T)
+    want = expected_train_launches(BF16_TRAIN_T)
+    if gpu["launches"] != want:
+        record_failure(f"bf16 train launch counts {gpu['launches']}, "
+                       f"expected {want} (the float32 step's)")
+
+    def nan_leaves(run):
+        return sorted(n for n, g in run["grads"].items()
+                      if not bool(torch.isfinite(g).all()))
+    nan_gpu, nan_cpu = nan_leaves(gpu), nan_leaves(cpu)
+    if nan_gpu != nan_cpu or nan_leaves(f32):
+        record_failure(f"bf16 train: NaN gradient leaves differ: card "
+                       f"{len(nan_gpu)}, CPU {len(nan_cpu)}, float32 "
+                       f"{len(nan_leaves(f32))}")
+    losses = []
+    for t, (g, c, f) in enumerate(zip(gpu["items"], cpu["items"],
+                                      f32["items"])):
+        keys = sorted(f)
+        vec = [torch.cat([d[k] for k in keys]) for d in (g, c, f)]
+        # the largest float: a stream whose BCE was infinite
+        sat = [v.abs() >= 1e30 for v in vec[:2]]
+        if not torch.equal(*sat):
+            record_failure(f"bf16 train frame {t}: saturated loss items "
+                           f"differ: card {sat[0].tolist()}, CPU "
+                           f"{sat[1].tolist()}")
+        keep = ~(sat[0] | sat[1])
+        if t == 0:
+            err = ((vec[0] - vec[1]).abs() / vec[1].abs().clamp_min(1e-6)
+                   )[keep].max().item()
+            ok = err <= 2e-2
+        else:
+            err = bf16_rule(torch, {"l": vec[0][keep]}, [{"l": vec[1][keep]}],
+                            {"l": vec[2][keep]}, 2e-2)["all"]
+            ok = err <= 1.0
+        if not ok:
+            record_failure(f"bf16 train frame {t} losses: {err}")
+        losses.append({"frame": t, "check": err,
+                       "saturated_items": int(sat[0].sum()),
+                       **{k: g[k].tolist() for k in keys}})
+    finite = [n for n in sorted(f32["grads"]) if n not in nan_gpu + nan_cpu
+              + nan_leaves(moved)]
+    grad_ratio = bf16_rule(
+        torch, {n: gpu["grads"][n] for n in finite},
+        [{n: r["grads"][n] for n in finite} for r in (cpu, moved)],
+        {n: f32["grads"][n] for n in finite}, 1e-2)
+    stat_ratio = bf16_rule(torch, gpu["stats"], [cpu["stats"],
+                                                 moved["stats"]],
+                           f32["stats"], 1e-4)["all"]
+
+    def flat(r):
+        return torch.cat([r["grads"][n].flatten() for n in finite])
+    g_gpu, g_cpu, g_f32, g_moved = (flat(r) for r in (gpu, cpu, f32, moved))
+    total = g_f32.norm().item()
+    dist = {"card_cpu": (g_gpu - g_cpu).norm().item() / total,
+            "cpu_f32": (g_cpu - g_f32).norm().item() / total,
+            "card_f32": (g_gpu - g_f32).norm().item() / total,
+            "cpu_perturbed": (g_moved - g_cpu).norm().item() / total}
+    cos = {"card_cpu": cosine(g_gpu, g_cpu), "cpu_f32": cosine(g_cpu, g_f32),
+           "card_f32": cosine(g_gpu, g_f32),
+           "perturbed_f32": cosine(g_moved, g_f32),
+           "cpu_perturbed": cosine(g_moved, g_cpu)}
+    angle = {k: math.degrees(math.acos(min(1.0, v))) for k, v in cos.items()}
+    worst = max((v, k) for k, v in grad_ratio.items())
+    checks = {
+        "grad_vs_f32": worst[0] <= 1.0,
+        "angle_vs_f32": angle["card_f32"] <= 2 * max(
+            angle["cpu_f32"], angle["perturbed_f32"]),
+        "grad_vs_cpu": dist["card_cpu"] <= 1e-2
+        + 2 * dist["cpu_perturbed"],
+        "stats_vs_f32": stat_ratio <= 1.0}
+    for name, ok in checks.items():
+        if not ok:
+            record_failure(f"bf16 train gradient check {name}: worst leaf "
+                           f"{worst}, distances {dist}, cosines {cos}, "
+                           f"statistics {stat_ratio}")
+    emit(phase="bf16_train", part="card_vs_cpu", streams=N_STREAMS,
+         frames=BF16_TRAIN_T, points=N_MAX, losses=losses,
+         nan_grad_leaves=len(nan_gpu), finite_grad_leaves=len(finite),
+         grad_leaves=len(f32["grads"]), nan_leaves_first=nan_gpu[:3],
+         grad_distance_of_norm=dist, grad_cosine=cos, grad_angle_deg=angle,
+         grad_worst_leaf=dict(err_over_bound=worst[0], at=worst[1]),
+         stats_err_over_bound=stat_ratio, perturb=BF16_TRAIN_PERTURB,
+         checks=checks, launches={k: v for k, v in gpu["launches"].items()
+                                  if v},
+         cpu_seconds=cpu["seconds"], gpu_seconds=gpu["seconds"])
+
+    # (b) the general SA levels (B8) in one bfloat16 train step
+    from ratrack_tpu_torch.kernels import cases
+    pc1, m1, _, _ = cases.clouds(seed, N_STREAMS, N_MAX)
+    gen = torch.Generator().manual_seed(seed + 4)
+    c_feat = cases.GENERAL_LEVELS["one_scale"][3]
+    feats = torch.randn((N_STREAMS, N_MAX, c_feat), generator=gen)
+    zero = {k: 0 for k in counters()}
+
+    def level_step(level, device, compute):
+        mod = general_level(torch, level, seed + 5, torch.float32, device,
+                            compute)
+        mod.train().requires_grad_(True)
+        f = feats.to(device=device, dtype=compute).clone().requires_grad_(
+            True)
+        out = mod(pc1.to(device), f, m1.to(device))[1]
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            seed + 6)).to(device)
+        (out.float() * cot).sum().backward()
+        res = {"out": out.detach().float().cpu(),
+               "features": f.grad.float().cpu(),
+               **{n: prm.grad.cpu() for n, prm in mod.named_parameters()},
+               **{n: b.detach().cpu() for n, b in mod.named_buffers()}}
+        return res
+
+    b8 = {"sa_scale_train_fwd": 0, "sa_scale_train_bwd": 0}
+    for level, (radii, *_rest) in cases.GENERAL_LEVELS.items():
+        want = level_step(level, "cpu", bf)
+        truth = level_step(level, "cpu", torch.float32)
+        reset_counters()
+        got = level_step(level, dev, bf)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        n = len(radii)
+        expect = {**zero, "sa_scale_train_fwd": n, "sa_scale_train_bwd": n}
+        if launches != expect:
+            record_failure(f"bf16 general level {level}: launch counts "
+                           f"{launches}, expected {expect}")
+        for k in b8:
+            b8[k] += launches[k]
+        scale = truth["out"].abs().max().item()
+        e_out = (got["out"] - truth["out"]).abs().max().item()
+        e_cpu = (want["out"] - truth["out"]).abs().max().item()
+        ratios = bf16_rule(torch, got, [want], truth, 1e-3)
+        worst = max((v, k) for k, v in ratios.items())
+        if (e_out > 2.0 ** -8 * scale + 2 * e_cpu + 1e-5 or worst[0] > 1.0
+                or not all(bool(torch.isfinite(v).all())
+                           for v in got.values())):
+            record_failure(f"bf16 general level {level}: out err {e_out} "
+                           f"(CPU {e_cpu}, max {scale}), worst {worst}")
+        emit(phase="bf16_train", part="general_level", level=level,
+             scales=n, out_max_abs_err=e_out, cpu_out_max_abs_err=e_cpu,
+             worst_err_over_bound=worst[0], worst_at=worst[1],
+             launches={k: v for k, v in launches.items() if v})
+
+    # (c) train scan 8 x 32, float32 and bfloat16 in turns
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_scan_train_step)
+    frames = make_frames(torch, seed + 200, TRAIN_SCAN_T, dev)
+    state0 = init_state(N_STREAMS, K_MAX, device=dev)
+    steps, models = [], []
+    for name, dtype in (("float32", torch.float32), ("bfloat16", bf)):
+        model = Track4D(npoint=N_MAX, k_max=K_MAX,
+                        sinkhorn_iters=SINKHORN_ITERS, dtype=dtype,
+                        generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+        scan = make_scan_train_step(create_train_state(
+            model, TrainConfig(), steps_per_epoch=100, device=dev))
+        steps.append((name, lambda s, f, scan=scan: scan(s, f, False)))
+        models.append(model)
+    turns = paired_scans(torch, steps, state0, frames)
+    for (name, _), model in zip(steps, models):
+        turns[name]["nan_params_after"] = sum(
+            int((~torch.isfinite(prm)).sum()) for prm in model.parameters())
+    for name, entry in turns.items():
+        if entry["launches"] != expected_train_launches(TRAIN_SCAN_T):
+            record_failure(f"bf16 train throughput {name}: launch counts "
+                           f"{entry['launches']}")
+        entry["launches"] = {k: v for k, v in entry["launches"].items()
+                             if v}
+        entry["ms_per_frame"] = [1000.0 / x for x in entry["frames_per_s"]]
+    emit(phase="bf16_train", part="throughput", streams=N_STREAMS,
+         frames_per_stream=TRAIN_SCAN_T, turns="a b b a", **turns,
+         bf16_over_f32=[b / a for a, b in zip(
+             turns["float32"]["frames_per_s"],
+             turns["bfloat16"]["frames_per_s"][::-1])], card=card)
+
+    # (d) the CLI: configs/synth_train.yaml, 1 epoch, dtype bfloat16
+    from ratrack_tpu_torch.config import Config
+    from ratrack_tpu_torch.models import model_from_config
+    from ratrack_tpu_torch.train import checkpoint as ckpt
+    import yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "synth_train.yaml")) as f:
+        train_cfg = {**yaml.safe_load(f), **BF16_CLI_CUTS,
+                     "exp_name": "bf16_train",
+                     "checkpoints_dir": os.path.join(tmp, "checkpoints"),
+                     "results_dir": os.path.join(tmp, "results")}
+    reset_counters()
+    t0 = time.time()
+    (ep,) = run_cli(train_cfg, tmp, "bf16_train")[0]["train"]
+    launches = read_counters()
+    want = expected_train_launches(ep["frames"] // train_cfg["dp"])
+    if launches != want:
+        record_failure(f"bf16 cli train launch counts {launches}, expected "
+                       f"{want}")
+    items = {k: ep[k] for k in ("Loss", "SceneFlowLoss", "SegLoss",
+                                "TrackingLoss")}
+    if not all(math.isfinite(v) for v in items.values()):
+        record_failure(f"bf16 cli train losses {items}")
+    models_dir = os.path.join(tmp, "checkpoints", "bf16_train", "models")
+    saved = torch.load(os.path.join(models_dir, "last.pt"),
+                       map_location="cpu", weights_only=True)["model"]
+    restored = {}
+    for dtype in ("bfloat16", "float32"):
+        fields = {k: v for k, v in train_cfg.items()
+                  if k in Config.__dataclass_fields__}
+        model = model_from_config(Config(**{**fields, "dtype": dtype}),
+                                  device=dev)
+        ckpt.restore_model(models_dir, "last", model)
+        # equal to the file, NaN where the file has NaN
+        restored[dtype] = all(
+            bool(((a.cpu() == saved[n]) | (a.cpu().isnan()
+                                           & saved[n].isnan())).all())
+            for n, a in model.state_dict().items())
+    if not all(restored.values()):
+        record_failure(f"bf16 cli checkpoint restore: {restored}")
+    nan_params = sum(int(v.isnan().sum()) for v in saved.values()
+                     if v.is_floating_point())
+    emit(phase="bf16_train", part="cli", config="configs/synth_train.yaml",
+         cuts={**BF16_CLI_CUTS, "checkpoints_dir": "<tmp>"},
+         streams=train_cfg["dp"], frames_per_scan=train_cfg["scan_frames"],
+         frames=ep["frames"], frames_per_s=ep["fps"], losses=items,
+         restored=restored, nan_params_saved=nan_params,
+         launches={k: v for k, v in launches.items() if v},
+         seconds=time.time() - t0, card=card)
+
+    # (e) the visualisers: the eval CLI's vis_dir (matplotlib, where the
+    # machine has it) and the 3D scene of a VoD fixture frame (numpy)
+    from ratrack_tpu_torch.data.fixture import make_vod_fixture
+    from ratrack_tpu_torch.utils import vis3d
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("matplotlib is absent: the eval CLI's vis_dir is not rendered",
+              flush=True)
+    else:
+        # the seeded weights (the bfloat16 run's may be NaN, see (a))
+        with open(os.path.join(here, "configs", "synth_eval.yaml")) as f:
+            eval_cfg = {**yaml.safe_load(f), "synth_frames": CLI_CUT_FRAMES,
+                        "load_checkpoint": False, "exp_name": "vis",
+                        "checkpoints_dir": os.path.join(tmp, "checkpoints"),
+                        "results_dir": os.path.join(tmp, "vis_results"),
+                        "vis_dir": os.path.join(tmp, "vis")}
+        t0 = time.time()
+        ev = run_cli(eval_cfg, tmp, "bf16_vis")[0]["eval"]
+        pngs = sorted(os.path.relpath(os.path.join(d, n), eval_cfg["vis_dir"])
+                      for d, _, names in os.walk(eval_cfg["vis_dir"])
+                      for n in names)
+        if len(pngs) != ev["frames"] or not pngs:
+            record_failure(f"vis_dir: {len(pngs)} PNGs for {ev['frames']} "
+                           f"frames")
+        emit(phase="bf16_train", part="vis_dir", frames=ev["frames"],
+             pngs=len(pngs), first=pngs[:1], seconds=time.time() - t0)
+    root = os.path.join(tmp, "vod_vis")
+    make_vod_fixture(root, range(0, 2))
+    html = os.path.join(tmp, "scene.html")
+    vis3d.main(["--dataset", root, "--frame", "00001", "--out", html,
+                "--lidar", "--velocity"])
+    scene = vis3d.parse_scene_html(html)
+    if [p["name"] for p in scene["points"]] != ["lidar", "radar"]:
+        record_failure(f"vis3d scene: {[p['name'] for p in scene['points']]}")
+    emit(phase="bf16_train", part="vis3d", points=[
+        len(p["xyz"]) // 3 for p in scene["points"]],
+         line_sets=len(scene["lines"]), html_bytes=os.path.getsize(html))
+    return b8
+
+
+
+
 def ptxas_summary(log: str):
     """[{kernel, registers, spill_stores}] from nvcc's -Xptxas -v output."""
     out, name = [], None
@@ -2678,8 +3064,13 @@ def main() -> None:
     phase_pipelined(torch, SEED, card, eval_fps)
     bf16_summary, bf16_launches = phase_bf16(torch, SEED, card)
     summary.update(bf16_summary)
+    tmp = tempfile.mkdtemp(prefix="ratrack_bf16_train_")
+    try:
+        phase_bf16_train(torch, SEED, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     if FAILED:
-        fail(f"{len(FAILED)} failed checks in phases 12-19")
+        fail(f"{len(FAILED)} failed checks in phases 12-20")
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},

@@ -12,8 +12,9 @@ Counterpart of `ratrack_tpu/main.py`, behaviour for behaviour: the
 checkpoint tree checkpoints/<exp>/models with last / last<ep> / best (here
 `<name>.pt` files of train/checkpoint.py), tee logging to run.log,
 pretrain gating, loss_history.csv, per-epoch seg / flow metric means, the
-cleared results tree and per-frame result export in eval, and the MOT
-table after it.
+cleared results tree and per-frame result export in eval, the BEV PNG of
+each eval frame under `vis_dir` (utils/vis.py, matplotlib on the host,
+from the host copies the loop makes anyway), and the MOT table after it.
 
 Port-side choices: the CLI runs on the card (`default_device()`, which
 raises where there is none) unless `--cpu` is given; `cfg.dp` streams are
@@ -172,6 +173,18 @@ def _score_frame(cfg, clip, rec, o, seg_tot, flow_tot, results_dir):
         write_frame_results(results_dir, clip, int(rec.frame_number), text)
 
 
+def _render_frame(cfg, clip, rec, o, flow):
+    """One eval frame's BEV picture, cfg.vis_dir/<clip>/<frame:05d>.png
+    (JAX main.py:215-222, :308-319), from the host copies `o` of the
+    frame's outputs."""
+    from .utils.vis import plot_frame_bev
+    fn = int(rec.frame_number)
+    plot_frame_bev(os.path.join(cfg.vis_dir, clip, f"{fn:05d}.png"),
+                   np.asarray(rec.pc1), np.asarray(rec.mask1), o["cls"],
+                   o["labels"], o["track_id"], flow, cfg.mov_thres,
+                   title=f"{clip} frame {fn}")
+
+
 def run_train_epoch_batched(cfg, ts, scan_train, split, ep: int, log: Tee,
                             device):
     """One epoch of dp x scan_frames training (JAX main.py:101).
@@ -249,13 +262,16 @@ def run_epoch(cfg, model, ts, step_fns, stream, mode: str, ep: int,
             with torch.inference_mode():
                 out, tstate = eval_step(tstate, frame)
                 _, items = track4d_loss(out, frame, pretrain)
-            host = _to_host({**items, **{k: out[k][0] for k in KEEP}})
+            keep = KEEP + ("flow",) if cfg.vis_dir else KEEP
+            host = _to_host({**items, **{k: out[k][0] for k in keep}})
         count += 1
         for k in sorted(items):
             totals[k] = totals.get(k, 0.0) + float(np.mean(host[k]))
         if mode != "train":
             _score_frame(cfg, clip, rec, host, seg_tot, flow_tot,
                          results_dir)
+            if cfg.vis_dir:
+                _render_frame(cfg, clip, rec, host, host["flow"])
 
     stats = _stats(count, time.time() - t0, waited[0], waited[0])
     mean_items = {k: v / max(count, 1) for k, v in totals.items()}
@@ -319,9 +335,13 @@ def run_eval_epoch_scan(cfg, model, stream, log: Tee, device,
         tstate, outs = step_fn(tstate, to_tensors(block, device))
         outs = _to_host({k: outs[k][0] for k in KEEP})
         for i in range(real):
-            _score_frame(cfg, clip, chunk[i],
-                         {k: v[i] for k, v in outs.items()}, seg_tot,
-                         flow_tot, results_dir)
+            o = {k: v[i] for k, v in outs.items()}
+            _score_frame(cfg, clip, chunk[i], o, seg_tot, flow_tot,
+                         results_dir)
+            if cfg.vis_dir:
+                # the scan returns warp, not flow (JAX main.py:308-319)
+                _render_frame(cfg, clip, chunk[i], o,
+                              o["warp"] - np.asarray(chunk[i].pc1))
             count += 1
         return tstate
 
@@ -363,10 +383,6 @@ def main(argv=None):
     from .device import default_device
     cfg = load_config(args.config)
     device = torch.device("cpu") if args.cpu else default_device()
-    if cfg.eval and cfg.vis_dir:
-        raise NotImplementedError(
-            "vis_dir: the BEV renderer (ratrack_tpu/utils/vis.py) is not "
-            "ported yet (ROADMAP queue A7); leave vis_dir empty")
 
     exp_dir = os.path.join(cfg.checkpoints_dir, cfg.exp_name)
     models_dir = os.path.join(exp_dir, "models")
@@ -452,14 +468,11 @@ def _run(cfg, log, models_dir, exp_dir, device):
     from .models import model_from_config
     from .train import checkpoint as ckpt
     from .train.step import (create_train_state, make_eval_step,
-                             make_scan_train_step, make_train_step,
-                             require_float32_training)
+                             make_scan_train_step, make_train_step)
 
     model = model_from_config(
         cfg, generator=torch.Generator().manual_seed(cfg.seed),
         device=device)
-    if not cfg.eval:
-        require_float32_training(model)
     stream = _build_stream(cfg, "val" if cfg.eval else "train")
     steps_per_epoch = len(stream)
     # in batched mode one optimizer step covers dp frames, so the LR

@@ -21,8 +21,10 @@ sort changes only which of several equidistant neighbours is taken (the
 lowest sorted index).
 
 Compute dtype (`dtype`): the hoists take the features in the parameters'
-dtype, float32 (correlator.py:84-89), the kernels take `dtype` as their
-operand type, and the cost volume leaves in `dtype` (correlator.py:135).
+dtype, float32 (correlator.py:84-89, :155-166), the eval kernels take
+`dtype` as their operand type, and the cost volume leaves in `dtype`
+(correlator.py:135, :176). The train kernel B10 takes no compute dtype (as
+JAX's): it runs in float32 behind the hoists in a bfloat16 model too.
 """
 
 from __future__ import annotations
@@ -71,16 +73,17 @@ class FeatureCorrelator(nn.Module):
         mlp_bs = [d.bias for d in dense[1:]]
         wn1_ws, wn1_bs = self.weightnet1.kernel_params()
         wn2_ws, wn2_bs = self.weightnet2.kernel_params()
+        f1, f2 = f1.to(w1.dtype), f2.to(w1.dtype)
         if self.training:
             cost = fused_knn_weight_aggregate_train(
                 pc1, pc2, (f2 @ w_f2 + dense[0].bias).contiguous(),
                 (f1 @ w_f1).contiguous(), mask2, mlp_ws, mlp_bs, wn1_ws,
                 wn1_bs, w_dir=w_dir.contiguous(), k=self.nsample)
-            return fused_knn_weight_aggregate_train(
+            return cast_to(fused_knn_weight_aggregate_train(
                 pc1, pc1, cost, None, mask1, [], [], wn2_ws, wn2_bs,
-                k=self.nsample)
-        add_q = (f1.to(w1.dtype) @ w_f1 - pc1 @ w_dir).contiguous()
-        feats_p = (f2.to(w1.dtype) @ w_f2 + pc2 @ w_dir
+                k=self.nsample), self.dtype)
+        add_q = (f1 @ w_f1 - pc1 @ w_dir).contiguous()
+        feats_p = (f2 @ w_f2 + pc2 @ w_dir
                    + dense[0].bias).contiguous()
         if pc1.shape[1] > SPLIT_ABOVE:
             cost = self._split(pc1, pc2, feats_p, add_q, mask1, mask2,

@@ -17,10 +17,16 @@ autograd, as the JAX train path (pnhead.py:197-207). The routing is the JAX
 module's (pnhead.py:79-97, 126-144, 155-172), without its size gates:
 those are limits of the TPU kernels' fast memory, not of the function.
 
-Compute dtype (`dtype`): the kernels take it as their operand type
+Compute dtype (`dtype`): the eval kernels take it as their operand type
 (`compute_dtype`); their float32 outputs are cast to `dtype`, as the JAX
 module casts (pnhead.py:93-95, :200-203), and the Dense layers and MLPs
-compute in it (layers.Dense). The layer-1 hoist stays float32.
+compute in it (layers.Dense). The layer-1 hoist stays float32. The train
+kernels B9 / B8 take no compute dtype (nor do JAX's): their wrappers take
+the features in float32 and the pooled outputs are cast to `dtype`
+(pnhead.py:152). The train FP interpolates in float32 (bfloat16 features
+times float32 weights, as JAX's three_interpolate promotes), and the
+concatenation with bfloat16 skip features stays float32 until the
+bfloat16 Dense, as jnp.concatenate promotes.
 """
 
 from __future__ import annotations
@@ -120,7 +126,8 @@ class SetAbstractionMSG(nn.Module):
                                              self.nsamples)]
         for mlp, (_, mus, vrs), ns in zip(mlps, results, self.nsamples):
             mlp.update_running_stats(mus, vrs, self.npoint * ns)
-        return new_xyz, torch.cat([r[0] for r in results], dim=-1)
+        return new_xyz, torch.cat([cast_to(r[0], self.dtype)
+                                   for r in results], dim=-1)
 
 
 class FeaturePropagation(nn.Module):

@@ -39,10 +39,12 @@ The parameters live on `device`; None means the card
 
 `dtype` is the compute dtype (float32 or bfloat16), the JAX module's
 `dtype`: parameters and the tracking state stay float32, the layers compute
-in `dtype` and the kernels take it as their operand type. In bfloat16 cls,
-flow and the affinities are bfloat16 and the 139-channel `feats` float32
-(track4d.py:133); DBSCAN, the descriptors and the Sinkhorn run in float32.
-Eval only: the train step raises for a bfloat16 model (ROADMAP A9b).
+in `dtype` and the eval kernels take it as their operand type. In
+bfloat16 cls, flow and the affinities are bfloat16 and the 139-channel
+`feats` float32 (track4d.py:133); DBSCAN, the descriptors and the Sinkhorn
+run in float32. In training the train kernels B8-B10 run in float32 behind
+casts (they take no compute dtype, nor do the JAX ones), and the
+gradients reach the float32 parameters in float32.
 """
 
 from __future__ import annotations

@@ -18,6 +18,10 @@ the H100 and how the design answers that.
                         the same three for one scale (a level that is not
                         a pair of equal depth).
 
+The kernels take no compute dtype, as the JAX train kernels take none: the
+public entries cast bfloat16 features to float32 before the hoist and the
+kernels run in float32 whatever the model's dtype.
+
 Per scale: ball query with CUDA padding (slots past the hit count repeat
 the first hit, no hit gives point 0), layer 1
 z = group(PF) + (group(xyz) - centers) @ W1[:3] with PF = F @ W1[3:] (no
@@ -78,6 +82,16 @@ class _Scale(ctypes.Structure):
                 ("mu", _P * 3), ("var", _P * 3), ("pooled", _P),
                 ("dpooled", _P), ("dy", _P * 2), ("dpf", _P), ("dwxyz", _P),
                 ("dw", _P * 3), ("dgamma", _P * 3), ("dbeta", _P * 3)]
+
+
+def at_least_f32(x):
+    """x in float32 where its dtype is narrower (bfloat16 features, as the
+    JAX wrappers' astype(float32) before the hoist); a float64 run stays
+    float64; None stays None. Under autograd the gradient returns in x's
+    dtype."""
+    if x is None:
+        return None
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def hoist_layer1_train(features, w1):
@@ -375,8 +389,14 @@ def fused_sa_pair_train(xyz, centers, features, mask,
 
     ws_*: the Dense weights per scale in x @ W layout, ws[0] (3 + C, C1)
     with the xyz rows first; scales / biases: the batch norms' weight and
-    bias. Returns ((pooled_a, mus_a, vars_a), (pooled_b, mus_b, vars_b)).
+    bias. Returns ((pooled_a, mus_a, vars_a), (pooled_b, mus_b, vars_b)),
+    all float32. The points, centers and features enter in float32 (a
+    bfloat16 model's features are cast, as the JAX wrapper casts them,
+    pallas_sa_train.py:1725-1733); the features' gradient returns in
+    their dtype.
     """
+    xyz, centers, features = (at_least_f32(x) for x in (xyz, centers,
+                                                        features))
     pfa, wxyz_a = hoist_layer1_train(features, ws_a[0])
     pfb, wxyz_b = hoist_layer1_train(features, ws_b[0])
     ra, rb = sa_pair_train(
@@ -395,6 +415,8 @@ def fused_sa_scale_train(xyz, centers, features, mask,
     """One scale of a train-mode SA-MSG level (JAX `fused_sa_scale_train`,
     pallas_sa_train.py:1017); arguments as one scale of
     `fused_sa_pair_train`. Returns (pooled, mus, vars)."""
+    xyz, centers, features = (at_least_f32(x) for x in (xyz, centers,
+                                                        features))
     pf, wxyz = hoist_layer1_train(features, ws[0])
     return sa_scale_train(xyz, centers, mask, pf, wxyz, list(ws[1:]),
                           list(scales), list(biases), radius=radius,

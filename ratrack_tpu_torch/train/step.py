@@ -274,25 +274,14 @@ def optimizer_step(ts: TrainState) -> None:
     ts.step += 1
 
 
-def require_float32_training(model) -> None:
-    """Raise for a model whose compute dtype is not float32: the train step
-    in bfloat16 (the module casts around the train kernels B8-B10) is not
-    ported yet (ROADMAP A9b), and it never trains such a model in float32
-    instead."""
-    if getattr(model, "dtype", torch.float32) != torch.float32:
-        raise NotImplementedError(
-            f"training a {model.dtype} model: the port's train step is "
-            f"float32 only until ROADMAP A9b; evaluate it, or train in "
-            f"float32")
-
-
 def make_train_step(ts: TrainState):
     """-> train_step(track_states, frame (B, ...), pretrain) ->
     (track_states', items {name: (B,)}): forward, backward of the mean over
     streams of the loss, `optimizer_step`. After the call each parameter's
-    .grad holds that step's gradient. Raises for a bfloat16 model
-    (`require_float32_training`)."""
-    require_float32_training(ts.model)
+    .grad holds that step's gradient. A bfloat16 model (`Track4D(dtype=
+    torch.bfloat16)`) computes in bfloat16 with float32 parameters, so its
+    gradients and the optimizer's state are float32, as optax's on flax's
+    float32 params."""
 
     def train_step(track_state: TrackState, frame: FrameBatch, pretrain
                    ) -> Tuple[TrackState, Dict[str, torch.Tensor]]:
@@ -309,8 +298,7 @@ def make_train_step(ts: TrainState):
 def make_scan_train_step(ts: TrainState):
     """-> scan_train(track_states, frames (B, T, ...), pretrain) ->
     (track_states', items {name: (T, B)}): T sequential train steps, one
-    optimizer step per frame (JAX make_scan_train_step, :145). Raises for a
-    bfloat16 model (`require_float32_training`)."""
+    optimizer step per frame (JAX make_scan_train_step, :145)."""
     train_step = make_train_step(ts)
 
     def scan_train(track_state: TrackState, frames: FrameBatch, pretrain):

@@ -37,8 +37,9 @@ two paths against each other 0.195 (0.375). The tests hold cls within
 CLS_TOL = 0.25 and flow within FLOW_TOL = 0.1 of max|flow|; labels equal
 except at valid points whose JAX cls is within CLS_TOL of mov_thres (their
 moving flag may flip; counted and printed), track ids equal in every frame
-before a stream's first label difference. `feats` is float32. The train step of a bfloat16 model
-raises.
+before a stream's first label difference. `feats` is float32. The train
+step of a bfloat16 model runs (its parity with the JAX package:
+tests/test_torch_port_bf16_train.py).
 """
 
 import jax
@@ -499,10 +500,11 @@ def test_serving_a_bf16_model_matches_its_eval_scan(world):
     assert (ref["labels"] >= 0).any()
 
 
-def test_model_from_config_and_train_step_bf16():
+def test_model_from_config_and_train_step_bf16(world):
     """`dtype: bfloat16` builds a bfloat16 Track4D; an unknown dtype is
-    refused by the config; the train step of a bfloat16 model raises
-    (ROADMAP A9b) rather than train in float32."""
+    refused by the config; the train scan of a bfloat16 model trains it
+    (one frame): finite loss items, float32 gradients on the float32
+    parameters, which the optimizer moves, and cls in bfloat16."""
     cfg = Config(npoints=N, n_max=N, k_max=K, sinkhorn_iters=ITERS,
                  dtype="bfloat16")
     model = model_from_config(cfg, generator=torch.Generator().manual_seed(0),
@@ -512,15 +514,30 @@ def test_model_from_config_and_train_step_bf16():
     with pytest.raises(ValueError):
         Config(dtype="float16")
     ts = create_train_state(model, TrainConfig(), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        make_scan_train_step(ts)
+    before = [p.detach().clone() for p in model.parameters()]
+    frames = to_tensors(FrameBatch(*[x[:, :1] for x in world[3]]), "cpu")
+    _, items = make_scan_train_step(ts)(init_state(B, K, device="cpu"),
+                                        frames, False)
+    assert items["Loss"].shape == (1, B)
+    assert all(torch.isfinite(v).all() for v in items.values())
+    for p, p0 in zip(model.parameters(), before):
+        assert p.dtype == p.grad.dtype == torch.float32
+        assert torch.isfinite(p.grad).all()
+    assert any(not torch.equal(p, p0)
+               for p, p0 in zip(model.parameters(), before))
+    out, _ = model(FrameBatch(*[x[:, 0].contiguous() for x in frames]),
+                   init_state(B, K, device="cpu"))
+    assert out["cls"].dtype == BF
 
 
 def test_cli_evaluates_a_bf16_config_and_refuses_to_train_it(tmp_path):
     """`python -m ratrack_tpu_torch.main` on a synthetic config with
     `dtype: bfloat16`: the eval (the cached scan over 2-frame chunks)
-    finishes with finite metrics; the train run raises before any step."""
+    finishes with finite metrics; the train run, which raised before the
+    bfloat16 train step was ported, now trains an epoch (per frame) with
+    finite losses and saves its checkpoints."""
     import math
+    import os
     import yaml
     from ratrack_tpu_torch.main import main
     cfg = dict(exp_name="bf16", dataset="synthetic", n_max=96, npoints=96,
@@ -533,6 +550,10 @@ def test_cli_evaluates_a_bf16_config_and_refuses_to_train_it(tmp_path):
     res = main(["--config", str(path), "--cpu"])["eval"]
     assert all(math.isfinite(v) for v in {**res["seg"],
                                            **res["flow"]}.values())
-    path.write_text(yaml.safe_dump(dict(cfg, eval=False, epochs=1)))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        main(["--config", str(path), "--cpu"])
+    path.write_text(yaml.safe_dump(dict(cfg, eval=False, epochs=1,
+                                        scan_frames=0, synth_clips=1)))
+    (epoch,) = main(["--config", str(path), "--cpu"])["train"]
+    assert epoch["frames"] == 3
+    assert all(math.isfinite(epoch[k]) for k in ("Loss", "SceneFlowLoss",
+                                                  "SegLoss", "TrackingLoss"))
+    assert os.path.isfile(tmp_path / "ckpt" / "bf16" / "models" / "best.pt")

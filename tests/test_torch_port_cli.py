@@ -289,9 +289,16 @@ def test_cli_without_cpu_flag_raises_where_there_is_no_card(work):
 
 
 def test_vis_dir_raises_until_the_renderer_is_ported(work):
-    path = _yaml(work / "vis.yaml", dict(EVAL, vis_dir=str(work / "vis")))
-    with pytest.raises(NotImplementedError, match="vis_dir"):
-        _port_cli(path)
+    """The renderer is ported (it raised until then): an eval with
+    `vis_dir` writes one BEV PNG a frame, vis_dir/<clip>/<frame>.png
+    (the JAX CLI's file list: tests/test_torch_port_vis.py)."""
+    pytest.importorskip("matplotlib")
+    vis = work / "vis"
+    path = _yaml(work / "vis.yaml", dict(EVAL, vis_dir=str(vis)))
+    _port_cli(path)
+    assert sorted(os.path.relpath(os.path.join(d, f), vis)
+                  for d, _, files in os.walk(vis) for f in files) == [
+        f"synth_{c}/{f:05d}.png" for c in (4, 5) for f in range(1, 5)]
 
 
 def test_continue_model_resumes_last_and_profile_dir_writes_a_trace(work):

@@ -23,7 +23,10 @@ within one bfloat16 step of the largest (2^-8 * max |plain| + 1e-5: both
 multiply the same rounded operands exactly, but a float32 sum in another
 order can round the next layer's operand to the neighbouring bfloat16).
 The float32 eval kernels' outputs are bit for bit those the tree before
-the bfloat16 instantiations gave (`kernels/digest.py`).
+the bfloat16 instantiations gave (`kernels/digest.py`). A bfloat16 train
+step launches the float32 train kernels as often as a float32 one and is
+held to the CPU's float32 step by twice the CPU's own bfloat16 error
+(tests/test_torch_port_bf16_train.py says why).
 """
 
 import ctypes
@@ -2196,6 +2199,83 @@ def test_track4d_bf16_gpu_matches_cpu(device):
         d_flow.mean().item(), d_flow.max().item())
     labels_bad = (gpu["labels"].cpu() != cpu["labels"]).float().mean().item()
     assert labels_bad <= 0.01, labels_bad
+
+
+def _bf16_train_step(device, dtype, n=128, k=8, streams=2):
+    """One train step of Track4D(npoint=n, dtype=dtype) with seeded weights
+    over `streams` synthetic streams on `device` -> (loss items, float64
+    gradients on the CPU, launches of B9 / B10 forward and backward and
+    of every eval kernel, float32 and bfloat16)."""
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip, to_tensors
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_train_step)
+    frame = to_tensors(stack_frames([synthetic_clip(
+        s, 1, n_max=n, g_max=k, n_static=60, n_objects=3)[0]
+        for s in range(streams)]), device)
+    model = Track4D(npoint=n, k_max=k, sinkhorn_iters=20, dtype=dtype,
+                    generator=torch.Generator().manual_seed(0), device=device)
+    ts = create_train_state(model, TrainConfig(), steps_per_epoch=10,
+                            device=device)
+    counters = [fused_sa_train.sa_pair_train_fwd,
+                fused_sa_train.sa_pair_train_bwd,
+                fused_correlator_train.knn_weight_aggregate_train_fwd,
+                fused_correlator_train.knn_weight_aggregate_train_bwd]
+    evals = [fused_sa.sa_pair, fused_fp.fused_three_interpolate,
+             fused_correlator.fused_knn_weight_aggregate]
+    counters += evals + [c.bf16 for c in evals]
+    before = [c.launches for c in counters]
+    _, items = make_train_step(ts)(init_state(streams, k, device=device),
+                                   frame, False)
+    if frame.pc1.is_cuda:
+        torch.cuda.synchronize()
+    grads = {n_: p.grad.detach().double().cpu()
+             for n_, p in model.named_parameters()}
+    return ({k_: v.double().cpu() for k_, v in items.items()}, grads,
+            [c.launches - b for c, b in zip(counters, before)])
+
+
+def test_train_step_bf16_launches_the_float32_train_kernels(device):
+    """A bfloat16 model's train step launches what a float32 model's does:
+    B9 / B10 forward and backward 9 / 9 / 2 / 2 times a frame step (the
+    train kernels take no compute dtype), and no eval kernel in either
+    instantiation."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _, _, launches = _bf16_train_step(device, dtype)
+        assert launches == [9, 9, 2, 2, 0, 0, 0, 0, 0, 0], (dtype, launches)
+
+
+def test_train_step_bf16_gpu_matches_cpu(device):
+    """One bfloat16 train step (2 streams x 128 points) on the card
+    against the CPU, both held to the CPU's float32 step by the rule of
+    tests/test_torch_port_bf16_train.py: loss items within 2e-2 of the
+    CPU's (a stream whose BCE saturated gives the largest float on both);
+    gradient leaves NaN on the card exactly where on the CPU (the
+    reference's saturated bfloat16 BCE, ROADMAP), and every other leaf
+    and all of them together |g - g_f32| <= 1e-2 |G| + 2 |g_cpu - g_f32|
+    in norm."""
+    got, g_gpu, _ = _bf16_train_step(device, torch.bfloat16)
+    want, g_cpu, _ = _bf16_train_step("cpu", torch.bfloat16)
+    _, g_f32, _ = _bf16_train_step("cpu", torch.float32)
+    for key, w in want.items():
+        g = got[key]
+        sat = w.abs() >= 1e30
+        assert torch.equal(g.abs() >= 1e30, sat), key
+        assert ((g - w).abs() <= 2e-2 * w.abs() + 1e-6)[~sat].all(), (
+            key, g, w)
+    nan = sorted(n for n, g in g_cpu.items() if not torch.isfinite(g).all())
+    assert nan == sorted(n for n, g in g_gpu.items()
+                         if not torch.isfinite(g).all())
+    names = [n for n in sorted(g_f32) if n not in nan]
+    assert names and all(torch.isfinite(g_f32[n]).all() for n in names)
+    flat = [torch.cat([d[n].flatten() for n in names])
+            for d in (g_gpu, g_cpu, g_f32)]
+    total = flat[2].norm().item()
+    for name, g, c, f in [(n, g_gpu[n], g_cpu[n], g_f32[n]) for n in names
+                          ] + [("all", *flat)]:
+        err, own = (g - f).norm().item(), (c - f).norm().item()
+        assert err <= 1e-2 * total + 2 * own, (name, err, own, total)
 
 
 # Digests of the float32 eval kernels' outputs (kernels/digest.py) that the

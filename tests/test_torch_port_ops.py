@@ -431,7 +431,9 @@ def test_stacked_gru_matches_jax(layers):
 
 def test_port_imports_no_jax():
     """The port must run where JAX is absent: importing every module of it
-    (and chip_smoke.py) pulls in no JAX module."""
+    (and chip_smoke.py) pulls in no JAX module. Nor does it pull in
+    matplotlib, which the card's machine may lack: the visualisers
+    (utils/vis.py, utils/vis3d.py) import it inside their renderers."""
     import os
     import subprocess
     import sys
@@ -450,7 +452,8 @@ def test_port_imports_no_jax():
         "'config', 'main', 'data.pipeline', 'data.native', 'eval.run', "
         "'eval.mot_metrics', 'eval.kalman', 'eval.run_kf', "
         "'eval.detection_ap', 'eval.run_ap', 'train.metrics', "
-        "'utils.convert', 'kernels.digest'):\n"
-        "    assert 'ratrack_tpu_torch.' + name in sys.modules, name\n")
+        "'utils.convert', 'kernels.digest', 'utils.vis', 'utils.vis3d'):\n"
+        "    assert 'ratrack_tpu_torch.' + name in sys.modules, name\n"
+        "assert 'matplotlib' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    env={**os.environ, "PYTHONPATH": root})
