@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval, train, stretch, general-SA-level and
-serving paths in float32 and bfloat16, its CLI, its visualisers and its
-offline scoring on one NVIDIA GPU and check them.
+serving paths in float32 and bfloat16, its CLI, its visualisers, its
+offline scoring and its data parallelism on one NVIDIA GPU (or several,
+for phase 21) and check them.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--dp-only]
 
 Phases, each printing one line:
   1. card       the card's name and power limit (nvidia-smi);
@@ -228,6 +229,32 @@ Phases, each printing one line:
                 model; (e) the eval CLI with vis_dir (one PNG a frame;
                 where matplotlib is absent a line says so) and the 3D
                 visualiser over a VoD fixture frame.
+  21. dp        data parallelism over clip streams (parallel/mesh.py):
+                (a) make_scan_train_step(ts, mesh) over 8 streams x 4
+                frames of the seeded 512-point model, the ranks one card
+                each under NCCL (4 or 2 with that many cards; on one card
+                one NCCL rank in this process, then two gloo ranks
+                sharing the card, a check of the split's numerics and no
+                speed figure), spawned by torch.multiprocessing, against
+                the unsharded scan from the same weights: frame 0's loss
+                items, gradient leaves (over the whole gradient's norm)
+                and BN statistics within twice the larger distance of two
+                unsharded runs (the same run again: B9 / B10's atomics;
+                weights moved by 1e-7 relative: float32 rounding through
+                the max-pools' near-ties) plus 1e-5; exactly two
+                all-reduces a frame step (count_collectives), B9 / B10
+                launched 9 / 9 / 2 / 2 a frame step on every rank, every
+                rank's parameters equal after the scan; the sharded cached
+                eval scan at phase 4's gates against the unsharded one,
+                no collective; (b) with a card a rank, the train scan at
+                32 frames in turns w1 wn ww ww wn w1: 8 streams in one
+                process, the 8 split over the ranks, 8 a rank: frames/s,
+                peak memory a rank; (c) the train CLI under torchrun (4,
+                2 or 1 NCCL ranks) on configs/synth_train.yaml cut to 1
+                epoch against the one-process CLI: epoch 0's losses within
+                2e-2, one checkpoint set written by rank 0, restored into a
+                one-process model. `--dp-only` runs phase 21 alone after
+                the build (the run for a machine of several cards).
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's, the bfloat16
@@ -247,9 +274,10 @@ stretch_plain_ms, stretch_bound_ms), likewise for B2 its two fp1 calls of
 a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms); and last the result
-line. Any failed check exits non-zero before the result line (phases 6-8
-and 12-20 record their failed checks and go on, so that one run reports
-all of them; the script then exits non-zero). With no CUDA device, or without the ratrack_tpu_torch
+line. Any failed check exits non-zero before the result line (phases 6-8,
+12-20 and 21 record their failed checks and go on, so that one run reports
+all of them; the script then exits non-zero; a rank that fails fails the
+spawn, and with it the script). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
 """
 
@@ -261,6 +289,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -293,6 +322,11 @@ BF16_TRAIN_T = 4          # frames of phase 20 (a)
 BF16_TRAIN_PERTURB = 1e-6  # phase 20 (a): relative noise on a CPU run's
                            # weights, a difference of float32's size
 BF16_CLI_CUTS = {"epochs": 1, "dtype": "bfloat16"}  # of synth_train.yaml
+DP_T = 4                  # frames of phase 21 (a)
+DP_CLASS = 1e-5           # phase 21 (a): the float32 reduction class
+DP_PERTURB = 1e-7         # phase 21 (a): relative noise on the yardstick
+                          # run's weights, float32's rounding
+DP_CLI_CUTS = {"epochs": 1}   # of synth_train.yaml (dp 4), phase 21 (c)
 REPS = 20
 SEED = 0
 # B6's launch shapes timed against each other: (threads a block, blocks a
@@ -2988,6 +3022,396 @@ def phase_bf16_train(torch, seed: int, card: str, tmp: str):
 
 
 
+def dp_worlds(count: int):
+    """Phase 21's runs as (backend, ranks, cards): with two cards or more
+    one NCCL rank a card, as many as divide the 8 streams (4 or 2); on one
+    card a NCCL rank alone and two gloo ranks sharing it."""
+    if count >= 2:
+        w = 4 if count >= 4 else 2
+        return [("nccl", w, w)]
+    return [("nccl", 1, 1), ("gloo", 2, 1)]
+
+
+def dp_model(torch, seed: int, dev, mesh=None, perturb: float = 0.0):
+    """The seeded 512-point model in training on `dev` (each weight moved
+    by `perturb` relative noise where that is not 0), replicated over
+    `mesh` where one is given -> (train state, scan)."""
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.parallel import replicate
+    from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_scan_train_step)
+    model = Track4D(npoint=N_MAX, k_max=K_MAX, sinkhorn_iters=SINKHORN_ITERS,
+                    generator=torch.Generator().manual_seed(seed), device=dev)
+    if perturb:
+        noise = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=noise)
+                       .to(dev))
+    ts = create_train_state(model, TrainConfig(), steps_per_epoch=100,
+                            device=dev)
+    if mesh is not None:
+        replicate(mesh, ts)
+    return ts, make_scan_train_step(ts, mesh)
+
+
+def dp_train(torch, seed: int, dev, mesh=None, perturb: float = 0.0):
+    """make_scan_train_step over N_STREAMS streams x DP_T frames on `dev`,
+    sharded over `mesh` where one is given (the weights moved by `perturb`,
+    see dp_model), one scan call a frame -> loss
+    items of each frame (gathered), frame 0's gradients and BN statistics
+    (float64, on the CPU), each frame's collectives, the kernel launches
+    of the whole run and the parameters after it."""
+    from ratrack_tpu_torch.data import FrameBatch
+    from ratrack_tpu_torch.parallel import (count_collectives, gather_clips,
+                                            shard_clips)
+    from ratrack_tpu_torch.tracker import init_state
+    ts, scan = dp_model(torch, seed, dev, mesh, perturb)
+    frames = make_frames(torch, seed + 7, DP_T, dev)
+    state = init_state(N_STREAMS, K_MAX, device=dev)
+    if mesh is not None:
+        frames, state = shard_clips(mesh, frames), shard_clips(mesh, state)
+    out = {"items": [], "collectives": []}
+    reset_counters()
+    for t in range(DP_T):
+        with count_collectives() as counts:
+            state, items = scan(state, FrameBatch(*[x[:, t:t + 1]
+                                                    for x in frames]), False)
+        out["collectives"].append(dict(counts))
+        items = {k: v[0] for k, v in items.items()}
+        if mesh is not None:
+            items = gather_clips(mesh, items)
+        out["items"].append({k: v.double().cpu() for k, v in items.items()})
+        if t == 0:
+            out["grads"] = {n: p.grad.double().cpu()
+                            for n, p in ts.model.named_parameters()}
+            out["stats"] = {n: b.double().cpu()
+                            for n, b in ts.model.named_buffers()}
+    torch.cuda.synchronize()
+    out["launches"] = read_counters()
+    out["params"] = torch.cat([p.detach().flatten().cpu()
+                               for p in ts.model.parameters()])
+    return out
+
+
+def dp_eval(torch, seed: int, dev, mesh=None):
+    """The cached eval scan of the seeded model over N_STREAMS streams x
+    SLICE_T frames on `dev`, sharded over `mesh` where one is given ->
+    outputs (gathered, on the CPU), the scan's collectives, its kernel
+    launches."""
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.parallel import (count_collectives, gather_clips,
+                                            shard_clips)
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import make_scan_eval_step_cached
+    model = Track4D(npoint=N_MAX, k_max=K_MAX, sinkhorn_iters=SINKHORN_ITERS,
+                    generator=torch.Generator().manual_seed(seed), device=dev)
+    frames = make_frames(torch, seed + 3, SLICE_T, dev)
+    state = init_state(N_STREAMS, K_MAX, device=dev)
+    if mesh is not None:
+        frames, state = shard_clips(mesh, frames), shard_clips(mesh, state)
+    reset_counters()
+    with count_collectives() as counts:
+        _, outs = make_scan_eval_step_cached(model, mesh)(state, frames)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if mesh is not None:
+        outs = gather_clips(mesh, outs)
+    return {"outs": {k: v.cpu() for k, v in outs.items()},
+            "collectives": dict(counts), "launches": launches}
+
+
+def dp_speed(torch, seed: int, dev, mesh):
+    """(b): the train scan over TRAIN_SCAN_T frames, in turns w1 wn ww ww
+    wn w1 after a warm-up of each: w1 N_STREAMS streams on rank 0 without
+    a mesh (the others wait), wn the same N_STREAMS streams sharded over
+    the ranks, ww N_STREAMS streams a rank (N_STREAMS x dp in all); each
+    time from the barrier before to the barrier after, so the slowest
+    rank counts -> the seconds and peak memory of each."""
+    import torch.distributed as dist
+    from ratrack_tpu_torch.parallel import shard_clips
+    from ratrack_tpu_torch.tracker import init_state
+    _, scan_s = dp_model(torch, seed, dev, mesh)
+    scan_u = dp_model(torch, seed, dev)[1] if mesh.rank == 0 else None
+    runs = {}
+    for key, streams in (("w1", N_STREAMS), ("wn", N_STREAMS),
+                         ("ww", N_STREAMS * mesh.dp)):
+        args = (init_state(streams, K_MAX, device=dev),
+                make_frames(torch, seed + 200, TRAIN_SCAN_T, dev,
+                            streams=streams))
+        if key == "w1":
+            runs[key] = (scan_u, args)
+        else:
+            runs[key] = (scan_s, shard_clips(mesh, args))
+    out = {f"{k}_{m}": [] for k in runs for m in ("s", "peak_gib")}
+
+    def run(key, timed=True):
+        scan, args = runs[key]
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if scan is not None:
+            scan(*args, False)
+        torch.cuda.synchronize()
+        dist.barrier()
+        if timed:
+            out[key + "_s"].append(time.perf_counter() - t0)
+            out[key + "_peak_gib"].append(
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    for key in runs:
+        run(key, timed=False)                           # warm-ups
+    for key in ("w1", "wn", "ww", "ww", "wn", "w1"):
+        run(key)
+    return out
+
+
+def dp_rank(rank: int, root: str, backend: str, world: int, seed: int,
+            speed: bool):
+    """One rank of phase 21, spawned by torch.multiprocessing (or, for a
+    world of one, called in this process): joins the group (NCCL, one card
+    a rank; or gloo, every rank on card 0), runs
+    (a) and, where `speed`, (b), and saves what it measured to
+    <root>/rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+    from ratrack_tpu_torch.parallel import init_from_env, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank if backend == "nccl" else 0)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rendezvous = f"file://{root}/rendezvous"
+    try:
+        if backend == "nccl":
+            init_from_env(init_method=rendezvous)
+        else:
+            torch.cuda.set_device(0)
+            init_from_env("cpu", init_method=rendezvous)
+        try:
+            mesh = make_mesh()
+            dev = torch.device("cuda", torch.cuda.current_device())
+            out = {"devices": mesh.devices,
+                   "train": dp_train(torch, seed, dev, mesh),
+                   "eval": dp_eval(torch, seed, dev, mesh)}
+            if speed:
+                out["speed"] = dp_speed(torch, seed, dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    finally:              # a rank run in this process leaves no torchrun env
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def dp_distance(a, b):
+    """How far run b is from run a at frame 0: loss items (the largest
+    |b - a| / |a| over the items, in norm over the streams), gradient
+    leaves (the largest |b - a| over the whole gradient's norm |G|), BN
+    statistics (the largest |b - a| / |a| over the buffers) -> ({check:
+    distance}, {check: where})."""
+    import torch
+    total = torch.cat([g.flatten() for g in a["grads"].values()]).norm()
+    parts = dict(
+        items={k: ((b["items"][0][k] - v).norm() / v.norm()).item()
+               for k, v in a["items"][0].items()},
+        grads={n: ((b["grads"][n] - g).norm() / total).item()
+               for n, g in a["grads"].items()},
+        stats={n: ((b["stats"][n] - s).norm() / s.norm()).item()
+               for n, s in a["stats"].items()})
+    at = {k: max(v, key=v.get) for k, v in parts.items()}
+    return {k: parts[k][at[k]] for k in parts}, at
+
+
+def dp_cli(torch, card: str, tmp: str, world: int, dev):
+    """(c): the train CLI under torchrun, `world` ranks on the card (NCCL),
+    over configs/synth_train.yaml cut to DP_CLI_CUTS, against the
+    one-process CLI on the same config in this process."""
+    import yaml
+    from ratrack_tpu_torch.config import load_config
+    from ratrack_tpu_torch.models import model_from_config
+    from ratrack_tpu_torch.train import (create_train_state,
+                                         restore_train_state)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "synth_train.yaml")) as f:
+        cfg = {**yaml.safe_load(f), **DP_CLI_CUTS,
+               "checkpoints_dir": os.path.join(tmp, "checkpoints"),
+               "results_dir": os.path.join(tmp, "results")}
+    if cfg["dp"] % world:
+        fail(f"dp cli: dp {cfg['dp']} does not divide over {world} ranks")
+    path = os.path.join(tmp, "dp.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({**cfg, "exp_name": "dp"}, f)
+    with socket.socket() as sock:                 # a free port for rank 0
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+         f"--nproc_per_node={world}", "--master_addr=127.0.0.1",
+         f"--master_port={port}", "-m", "ratrack_tpu_torch.main",
+         "--config", path], cwd=here,
+        env={**os.environ, "PYTHONPATH": here}, capture_output=True,
+        text=True, timeout=600)
+    dp_seconds = time.time() - t0
+    if run.returncode != 0:
+        fail(f"dp cli: torchrun exited {run.returncode}:\n"
+             f"{run.stderr[-4000:]}")
+    t0 = time.time()
+    one = run_cli({**cfg, "exp_name": "one"}, tmp, "dp_one")[0]["train"][0]
+    one_seconds = time.time() - t0
+
+    def history(name):
+        with open(os.path.join(tmp, "checkpoints", name,
+                               "loss_history.csv")) as f:
+            head, *rows = f.read().strip().splitlines()
+        return head, [[float(x) for x in r.split(",")] for r in rows]
+    (head, got), (want_head, want) = history("dp"), history("one")
+    rel = max(abs(g - w) / max(abs(w), 1e-5) for g, w in zip(got[0], want[0]))
+    models = os.path.join(tmp, "checkpoints", "dp", "models")
+    found = sorted(os.listdir(models))
+    with open(os.path.join(tmp, "checkpoints", "dp", "run.log")) as f:
+        log = f.read()
+    ts = create_train_state(model_from_config(load_config(path), device=dev),
+                            load_config(path), steps_per_epoch=1, device=dev)
+    restore_train_state(models, "last", ts)
+    steps = one["frames"] // cfg["dp"]        # one optimizer step a frame
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in ts.model.parameters())
+    emit(phase="dp", part="cli", config="configs/synth_train.yaml",
+         cuts=DP_CLI_CUTS, ranks=world, backend="nccl", streams=cfg["dp"],
+         loss_dp=dict(zip(head.split(",")[1:], got[0][1:])),
+         loss_one=dict(zip(want_head.split(",")[1:], want[0][1:])),
+         max_rel_err=rel, tolerance=2e-2, checkpoints=found,
+         restored_step=ts.step, run_log=[line for line in log.splitlines()
+                                         if line.startswith(("mesh:",
+                                                             "[train"))],
+         dp_seconds=dp_seconds, one_process_seconds=one_seconds, card=card)
+    if head != want_head or len(got) != len(want) or rel > 2e-2:
+        record_failure(f"dp cli: loss history {got} against {want}")
+    if found != ["best.pt", "last.pt", "last0.pt"]:
+        record_failure(f"dp cli: checkpoints {found}")
+    if log.count("FINISH") != 1 or "mesh: dp=" not in log:
+        record_failure("dp cli: run.log has not one rank's mesh line and "
+                       "FINISH")
+    if ts.step != steps or not finite:
+        record_failure(f"dp cli: restored step {ts.step} (expected {steps}),"
+                       f" finite {finite}")
+
+
+def run_phase_dp(torch, card: str):
+    tmp = tempfile.mkdtemp(prefix="ratrack_dp_")
+    try:
+        phase_dp(torch, SEED, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if FAILED:
+        fail(f"{len(FAILED)} failed checks in phase 21")
+
+
+def phase_dp(torch, seed: int, card: str, tmp: str):
+    """Phase 21: data parallelism over clip streams (parallel/mesh.py)."""
+    count = torch.cuda.device_count()
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    ref = [dp_train(torch, seed, dev) for _ in range(2)]
+    moved = dp_train(torch, seed, dev, perturb=DP_PERTURB)
+    ref_eval = dp_eval(torch, seed, dev)
+    repeat, repeat_at = dp_distance(ref[0], ref[1])
+    rounding, rounding_at = dp_distance(ref[0], moved)
+    yard = {k: max(repeat[k], rounding[k]) for k in repeat}
+    gate = {k: 2 * v + DP_CLASS for k, v in yard.items()}
+    emit(phase="dp", part="yardstick", streams=N_STREAMS, frames=DP_T,
+         points=N_MAX, repeat=repeat, repeat_at=repeat_at,
+         weights_moved=rounding, weights_moved_at=rounding_at,
+         perturb=DP_PERTURB, gate=gate, float32_class=DP_CLASS,
+         seconds=time.time() - t0,
+         rule="sharded distance <= 2 x the larger of two unsharded runs' "
+              "distances (the same run again: B9 / B10's atomics; weights "
+              "moved by float32 rounding: the max-pools' near-ties) + the "
+              "float32 class")
+    for backend, world, cards in dp_worlds(count):
+        root = tempfile.mkdtemp(prefix=f"dp_{backend}{world}_", dir=tmp)
+        speed = backend == "nccl" and world > 1
+        t0 = time.time()
+        if world == 1:
+            dp_rank(0, root, backend, world, seed, speed)
+        else:
+            torch.multiprocessing.spawn(dp_rank, args=(
+                root, backend, world, seed, speed), nprocs=world, join=True)
+        seconds = time.time() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        got = ranks[0]["train"]
+        dist_, dist_at = dp_distance(ref[0], got)
+        later = max(((got["items"][f][k] - v).norm() / v.norm()).item()
+                    for f in range(1, DP_T)
+                    for k, v in ref[0]["items"][f].items())
+        replicated = all(torch.equal(r["train"]["params"], got["params"])
+                         for r in ranks)
+        launches = [r["train"]["launches"] for r in ranks]
+        emit(phase="dp", part="train", backend=backend, ranks=world,
+             cards=cards, devices=ranks[0]["devices"],
+             streams_per_rank=N_STREAMS // world, frames=DP_T,
+             distance=dist_, distance_at=dist_at, gate=gate,
+             later_frames_items_rel=later,
+             collectives=got["collectives"], launches=launches[0],
+             ranks_replicated=replicated, spawn_seconds=seconds,
+             note=None if cards == world else
+             "ranks share one card through gloo: a check of the split's "
+             "numerics on the card's kernels, no speed figure")
+        for k, v in dist_.items():
+            if v > gate[k]:
+                record_failure(f"dp {backend} x{world} {k}: distance {v} > "
+                               f"gate {gate[k]}")
+        want = [{"all_reduce": 2}] * DP_T
+        if any(r["train"]["collectives"] != want for r in ranks):
+            record_failure(f"dp {backend} x{world} collectives "
+                           f"{[r['train']['collectives'] for r in ranks]}")
+        if any(x != expected_train_launches(DP_T) for x in launches):
+            record_failure(f"dp {backend} x{world} launches {launches}")
+        if not replicated:
+            record_failure(f"dp {backend} x{world}: parameters differ "
+                           f"between ranks after the scan")
+        ev = ranks[0]["eval"]
+        gap = tracking_gap(torch, ev["outs"], ref_eval["outs"],
+                           make_frames(torch, seed + 3, SLICE_T, "cpu").pc1)
+        emit(phase="dp", part="eval", backend=backend, ranks=world,
+             collectives=[r["eval"]["collectives"] for r in ranks],
+             launches=ev["launches"], **gap)
+        gate_tracking(f"dp eval {backend} x{world}", gap)
+        if any(r["eval"]["collectives"] for r in ranks) or any(
+                r["eval"]["launches"] != expected_launches(SLICE_T)
+                for r in ranks):
+            record_failure(f"dp eval {backend} x{world}: collectives or "
+                           f"launches")
+        if speed:
+            sp = [r["speed"] for r in ranks]
+            fps = {k: streams * TRAIN_SCAN_T / statistics.median(
+                sp[0][k + "_s"]) for k, streams in (
+                ("w1", N_STREAMS), ("wn", N_STREAMS),
+                ("ww", N_STREAMS * world))}
+            emit(phase="dp", part="speed", backend=backend, ranks=world,
+                 cards=cards, frames_per_stream=TRAIN_SCAN_T,
+                 streams={"w1": N_STREAMS, "wn": N_STREAMS,
+                          "ww": N_STREAMS * world},
+                 order="w1 wn ww ww wn w1",
+                 seconds={k: sp[0][k + "_s"] for k in fps},
+                 frames_per_s=fps,
+                 speedup={k: fps[k] / fps["w1"] for k in ("wn", "ww")},
+                 peak_gib_per_rank={k: [max(s[k + "_peak_gib"]) for s in sp]
+                                    for k in fps}, card=card)
+    if count < 2:
+        emit(phase="dp", part="speed", skipped=f"{count} card: a speed "
+             "figure needs one card a rank")
+    dp_cli(torch, card, tmp, 4 if count >= 4 else 2 if count >= 2 else 1,
+           dev)
+
 
 def ptxas_summary(log: str):
     """[{kernel, registers, spill_stores}] from nvcc's -Xptxas -v output."""
@@ -3012,6 +3436,10 @@ def main() -> None:
                     help="directory for torch.profiler tables of 4-frame "
                          "eval, train and 8192-point stretch scans (and "
                          "device busy-share lines)")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="only phase 21 (data parallelism over the cards) "
+                         "after the build: the run for a machine of "
+                         "several cards")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3035,6 +3463,12 @@ def main() -> None:
     emit(phase="build", seconds=build.last_build["seconds"],
          cached=build.last_build["cached"],
          ptxas=ptxas_summary(build.last_build["log"]))
+    if args.dp_only:
+        run_phase_dp(torch, card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     summary = phase_kernels(torch, SEED)
     model = phase_slice(torch, SEED)
@@ -3071,6 +3505,7 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     if FAILED:
         fail(f"{len(FAILED)} failed checks in phases 12-20")
+    run_phase_dp(torch, card)
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},

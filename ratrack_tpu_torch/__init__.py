@@ -22,6 +22,8 @@ tracker/   DBSCAN, log-Sinkhorn with dustbin (and its early exit),
 train/     the eval steps and scans (cached backbone or not, and the
            pipelined step over a whole block), losses, Adam + StepLR,
            the per-frame train steps, train checkpoints.
+parallel/  data parallelism over clip streams: one process a card under
+           NCCL, the mesh helpers of the JAX package's parallel/mesh.py.
 serve.py   RadarTracker: online multi-stream serving over the eval step.
 config.py  the YAML configuration (the JAX package's keys).
 main.py    the train / eval CLI (`python -m ratrack_tpu_torch.main`).

@@ -7,6 +7,7 @@ src/main.py:153-169):
     python -m ratrack_tpu_torch.main --config configs/default.yaml
     python -m ratrack_tpu_torch.main --config configs/eval.yaml
     python -m ratrack_tpu_torch.main --config configs/smoke.yaml --cpu
+    torchrun --nproc_per_node=W -m ratrack_tpu_torch.main --config <yaml>
 
 Counterpart of `ratrack_tpu/main.py`, behaviour for behaviour: the
 checkpoint tree checkpoints/<exp>/models with last / last<ep> / best (here
@@ -18,11 +19,24 @@ from the host copies the loop makes anyway), and the MOT table after it.
 
 Port-side choices: the CLI runs on the card (`default_device()`, which
 raises where there is none) unless `--cpu` is given; `cfg.dp` streams are
-the batch dimension on that one device (no mesh); `profile_dir` records a
-torch.profiler trace of the run. Each block's loss items and each chunk's
-outputs reach the host in one transfer, after the block, so no frame of a
-block waits for the host. `main` returns what `_run` measured (frames/s
-per epoch, the eval's metric means and MOT metrics).
+the batch dimension on that one device; `profile_dir` records a
+torch.profiler trace of the run (`trace.json`, and `trace_rank<r>.json`
+for the ranks after the first).
+
+Under torchrun the train CLI is data parallel over the W ranks, one card
+each under NCCL (gloo on the CPU with `--cpu`; parallel/mesh.py): `cfg.dp`
+must be a multiple of W, each rank streams its own contiguous dp / W of
+the balanced clip groups through its own Prefetcher and the frame steps
+average the gradients and BN statistics over the ranks (JAX's mesh, with
+W = dp, main.py:463-473). The ranks gather the loss items, so run.log and
+loss_history.csv carry the one-process means; rank 0 alone writes them
+and the checkpoints, and restores a checkpoint, which it then replicates.
+The eval CLI runs as one process (JAX's builds no mesh).
+
+Each block's loss items and each chunk's outputs reach the host in one
+transfer, after the block, so no frame of a block waits for the host.
+`main` returns what `_run` measured (frames/s per epoch, the eval's metric
+means and MOT metrics).
 """
 
 from __future__ import annotations
@@ -39,13 +53,19 @@ import torch
 
 
 class Tee:
-    """Print + append to run.log (reference IOStream, main.py:18-28)."""
+    """Print + append to run.log (reference IOStream, main.py:18-28).
+    With no path it prints and writes nothing: a data-parallel rank other
+    than the first."""
 
-    def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        self.f = open(path, "a")
+    def __init__(self, path: str | None):
+        self.f = None
+        if path is not None:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            self.f = open(path, "a")
 
     def print(self, text: str):
+        if self.f is None:
+            return
         print(text)
         self.f.write(text + "\n")
         self.f.flush()
@@ -186,17 +206,21 @@ def _render_frame(cfg, clip, rec, o, flow):
 
 
 def run_train_epoch_batched(cfg, ts, scan_train, split, ep: int, log: Tee,
-                            device):
+                            device, mesh=None):
     """One epoch of dp x scan_frames training (JAX main.py:101).
 
     Clips are balance-partitioned into cfg.dp parallel streams, the batch
-    dimension on one device; each block runs scan_frames sequential
-    per-frame optimizer steps over all streams at once
-    (train/step.py::make_scan_train_step). Returns (ts, epoch means,
-    `_stats`)."""
+    dimension; each block runs scan_frames sequential per-frame optimizer
+    steps over all streams at once (train/step.py::make_scan_train_step).
+    With a mesh every rank computes the same partition and streams only
+    its own contiguous block of it, the block `shard_clips` gives it, for
+    as many blocks as the longest group of all needs (every rank runs the
+    same frame steps, or the collectives would hang); the loss items are
+    gathered over the ranks. Returns (ts, epoch means, `_stats`)."""
     from .data.frames import to_tensors
     from .data.pipeline import (Prefetcher, batched_blocks,
                                 split_clips_balanced)
+    from .parallel import gather_clips, shard_clips
     from .tracker.state import init_state
 
     make_stream, clips, lengths = _stream_factory(cfg, split)
@@ -207,18 +231,27 @@ def run_train_epoch_batched(cfg, ts, scan_train, split, ep: int, log: Tee,
     pretrain = ep < cfg.pretrain_epochs
     tstates = init_state(cfg.dp, cfg.k_max, cfg.gru_layers, cfg.feat_dim,
                          device=device)
+    mine = groups
+    if mesh is not None:
+        tstates = shard_clips(mesh, tstates)
+        per = cfg.dp // mesh.dp
+        mine = groups[mesh.rank * per:(mesh.rank + 1) * per]
 
     totals: Dict[str, float] = {}
     count = 0
     waited, built = [0.0], [0.0]
     t0 = time.time()
-    blocks = Prefetcher(_timed(batched_blocks(make_stream, groups,
+    # every group's length: the longest group of all sets the rounds
+    blocks = Prefetcher(_timed(batched_blocks(make_stream, mine,
                                               group_lengths, t, cfg.n_max,
                                               cfg.g_max), built),
                         depth=cfg.prefetch_depth)
     for block in _timed(blocks, waited):
         tstates, items = scan_train(tstates, to_tensors(block, device),
                                     pretrain)
+        if mesh is not None:                            # (T, B) each
+            items = {k: v.t() for k, v in gather_clips(
+                mesh, {k: v.t() for k, v in items.items()}).items()}
         count += t * cfg.dp
         for k, v in _to_host(items).items():            # (T, B) each
             totals[k] = totals.get(k, 0.0) + float(
@@ -382,12 +415,36 @@ def main(argv=None):
     from .config import load_config
     from .device import default_device
     cfg = load_config(args.config)
-    device = torch.device("cpu") if args.cpu else default_device()
+    mesh = None
+    launched = "WORLD_SIZE" in os.environ           # by torchrun
+    if launched:
+        world = int(os.environ["WORLD_SIZE"])
+        if world > 1 and cfg.eval:
+            raise ValueError(f"eval runs as one process, not {world}: the "
+                             "JAX eval CLI builds no mesh")
+        if cfg.dp % world:
+            raise ValueError(f"dp={cfg.dp} streams do not divide over "
+                             f"{world} processes")
+    if launched and not cfg.eval:
+        from .parallel import init_from_env, make_mesh
+        device = init_from_env("cpu" if args.cpu else None)
+        mesh = make_mesh()
+    else:
+        device = torch.device("cpu") if args.cpu else default_device()
+    try:
+        return _main(cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
+
+def _main(cfg, device, mesh):
+    first = mesh is None or mesh.rank == 0
     exp_dir = os.path.join(cfg.checkpoints_dir, cfg.exp_name)
     models_dir = os.path.join(exp_dir, "models")
-    os.makedirs(models_dir, exist_ok=True)
-    log = Tee(os.path.join(exp_dir, "run.log"))
+    if first:
+        os.makedirs(models_dir, exist_ok=True)
+    log = Tee(os.path.join(exp_dir, "run.log") if first else None)
     log.print(str(cfg))
     log.print(f"device: {device}" + (
         f" ({torch.cuda.get_device_name(device)})"
@@ -405,12 +462,13 @@ def main(argv=None):
         log.print(f"profiling to {cfg.profile_dir}")
     try:
         with profiler:
-            return _run(cfg, log, models_dir, exp_dir, device)
+            return _run(cfg, log, models_dir, exp_dir, device, mesh)
     finally:
         if cfg.profile_dir:
             os.makedirs(cfg.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(
-                os.path.join(cfg.profile_dir, "trace.json"))
+            profiler.export_chrome_trace(os.path.join(
+                cfg.profile_dir, "trace.json" if first
+                else f"trace_rank{mesh.rank}.json"))
 
 
 def _restore(cfg, log, models_dir, model, ts):
@@ -462,11 +520,27 @@ def _restore(cfg, log, models_dir, model, ts):
                   "using fresh init")
 
 
-def _run(cfg, log, models_dir, exp_dir, device):
+def _save_epoch(models_dir, exp_dir, ts, ep: int, is_best: bool,
+                history: List[Dict[str, float]]) -> None:
+    """An epoch's checkpoints (last, last<ep>, best if it is) and the
+    loss_history.csv of every epoch so far."""
+    from .train import checkpoint as ckpt
+    ckpt.save_train_state(models_dir, "last", ts)
+    ckpt.save_train_state(models_dir, f"last{ep}", ts)
+    if is_best:
+        ckpt.save_train_state(models_dir, "best", ts)
+    with open(os.path.join(exp_dir, "loss_history.csv"), "w") as f:
+        keys = list(history[0])
+        f.write(",".join(["epoch"] + keys) + "\n")
+        for i, h in enumerate(history):
+            f.write(",".join([str(i)] + [f"{h[k]:.6f}" for k in keys])
+                    + "\n")
+
+
+def _run(cfg, log, models_dir, exp_dir, device, mesh=None):
     np.random.seed(cfg.seed)
 
     from .models import model_from_config
-    from .train import checkpoint as ckpt
     from .train.step import (create_train_state, make_eval_step,
                              make_scan_train_step, make_train_step)
 
@@ -480,7 +554,12 @@ def _run(cfg, log, models_dir, exp_dir, device):
     opt_steps_per_epoch = max(1, steps_per_epoch // max(1, cfg.dp))
     ts = None if cfg.eval else create_train_state(
         model, cfg, opt_steps_per_epoch, device=device)
-    _restore(cfg, log, models_dir, model, ts)
+    first = mesh is None or mesh.rank == 0
+    if first:
+        _restore(cfg, log, models_dir, model, ts)
+    if mesh is not None:
+        from .parallel import replicate
+        replicate(mesh, ts)
 
     if cfg.eval:
         # a fresh eval owns its results tree: stale files from previous
@@ -510,10 +589,13 @@ def _run(cfg, log, models_dir, exp_dir, device):
         log.print("FINISH")
         return {"eval": {**stats, "seg": seg_m, "flow": flow_m, "mot": m}}
 
-    batched = cfg.dp > 1 or cfg.scan_frames > 0
+    batched = cfg.dp > 1 or cfg.scan_frames > 0 or mesh is not None
     if batched:
-        scan_train = make_scan_train_step(ts)
-        if cfg.dp > 1:
+        scan_train = make_scan_train_step(ts, mesh)
+        if mesh is not None:
+            log.print(f"mesh: dp={cfg.dp} over {mesh.devices} "
+                      f"({torch.distributed.get_backend()})")
+        elif cfg.dp > 1:
             log.print(f"dp={cfg.dp} streams: the batch dimension on one "
                       f"{device.type} device (no mesh)")
     step_fns = (make_train_step(ts), None)
@@ -524,7 +606,7 @@ def _run(cfg, log, models_dir, exp_dir, device):
     for ep in range(cfg.epochs):
         if batched:
             ts, items, stats = run_train_epoch_batched(
-                cfg, ts, scan_train, "train", ep, log, device)
+                cfg, ts, scan_train, "train", ep, log, device, mesh)
         else:
             stream = _build_stream(cfg, "train")
             ts, items, _, _, stats = run_epoch(cfg, model, ts, step_fns,
@@ -532,18 +614,14 @@ def _run(cfg, log, models_dir, exp_dir, device):
                                                device)
         history.append(items)
         epochs.append({**stats, **items})
-        ckpt.save_train_state(models_dir, "last", ts)
-        ckpt.save_train_state(models_dir, f"last{ep}", ts)
+        if first:
+            _save_epoch(models_dir, exp_dir, ts, ep, items["Loss"] <= best,
+                        history)
         if items["Loss"] <= best:
             best = items["Loss"]
-            ckpt.save_train_state(models_dir, "best", ts)
             log.print(f"best train loss till now: {best:.6f}")
-        with open(os.path.join(exp_dir, "loss_history.csv"), "w") as f:
-            keys = list(history[0])
-            f.write(",".join(["epoch"] + keys) + "\n")
-            for i, h in enumerate(history):
-                f.write(",".join([str(i)] + [f"{h[k]:.6f}" for k in keys])
-                        + "\n")
+        if mesh is not None:
+            torch.distributed.barrier()     # the checkpoints are written
     log.print("FINISH")
     return {"train": epochs}
 

@@ -10,7 +10,10 @@ statistics are per stream and the running averages the mean over streams
 of the per-stream updates (models/layers.py). The optimizer is torch Adam
 with weight decay added to the gradient before the moments (optax
 add_decayed_weights -> adam, :48-62) and a staircase StepLR stepped once
-per optimizer step.
+per optimizer step. With a mesh (parallel/mesh.py) each rank steps its
+own shard of the streams and the frame step averages the gradients and
+the BN running statistics over the ranks: JAX's shard_map over 'dp' with
+its two pmeans (:104-126, :145-205).
 
 Eval (`make_scan_eval_step_cached`, :406-462): frame t's pc2 is frame
 t-1's pc1 in a contiguous stream, and in eval the PNHead is a pure
@@ -32,6 +35,7 @@ import torch
 
 from ..data.frames import FrameBatch
 from ..device import resolve_device
+from ..parallel.mesh import all_reduce_mean_
 from ..tracker.association import MatchStructure, assign_ids, match_structure
 from ..tracker.state import TrackState
 from .losses import track4d_loss
@@ -64,11 +68,18 @@ def make_eval_step(model):
     return eval_step
 
 
-def make_scan_eval_step(model):
+def make_scan_eval_step(model, mesh=None):
     """-> scan_eval(track_state, frames (B, T, ...)) -> (new_state,
     {key: (B, T, ...)} for the keys in KEEP): the uncached step frame by
     frame. Equal to `make_scan_eval_step_cached` where `chain_contiguous`
-    holds."""
+    holds.
+
+    With `mesh` the caller passes this rank's shard (`shard_clips`) and
+    gets its outputs, still sharded. Streams are independent, so the
+    sharded step is the unsharded one and issues no collective (JAX
+    `_shard_eval`, step.py:367-377): `mesh` is taken for the JAX
+    signature and changes nothing."""
+    del mesh
 
     @torch.inference_mode()
     def scan_eval(track_state: TrackState, frames: FrameBatch):
@@ -83,9 +94,11 @@ def make_scan_eval_step(model):
     return scan_eval
 
 
-def make_scan_eval_step_cached(model):
+def make_scan_eval_step_cached(model, mesh=None):
     """-> scan_eval(track_state, frames (B, T, ...)) ->
-    (new_state, {key: (B, T, ...)} for the keys in KEEP)."""
+    (new_state, {key: (B, T, ...)} for the keys in KEEP). `mesh` as in
+    `make_scan_eval_step`: the shard in, its outputs out, no collective."""
+    del mesh
 
     @torch.inference_mode()
     def scan_eval(track_state: TrackState, frames: FrameBatch):
@@ -258,6 +271,13 @@ def create_train_state(model, cfg, steps_per_epoch: int,
     return TrainState(model, opt, sched)
 
 
+def _fill_missing_grads(ts: TrainState) -> None:
+    for group in ts.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def optimizer_step(ts: TrainState) -> None:
     """One optimizer and schedule step on the gradients in .grad.
 
@@ -265,23 +285,43 @@ def optimizer_step(ts: TrainState) -> None:
     with no gradient (bin_score, which nothing uses) still decays and keeps
     its moments moving. torch's Adam skips a parameter whose .grad is None,
     so such grads are filled with zeros first."""
-    for group in ts.optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    _fill_missing_grads(ts)
     ts.optimizer.step()
     ts.scheduler.step()
     ts.step += 1
 
 
-def make_train_step(ts: TrainState):
+def _reduce_over_mesh(ts: TrainState, mesh) -> None:
+    """JAX's pmean of the gradients and of the BN statistics over 'dp'
+    (step.py:121-122): the missing gradients filled with zeros first (so
+    every rank contributes every leaf, whatever its shard reached), then
+    one all-reduce of every gradient in one bucket and one of every batch
+    norm running statistic, each divided by dp."""
+    _fill_missing_grads(ts)
+    all_reduce_mean_(mesh, [p.grad for g in ts.optimizer.param_groups
+                            for p in g["params"]])
+    all_reduce_mean_(mesh, [b for n, b in ts.model.named_buffers()
+                            if n.endswith(("running_mean", "running_var"))])
+
+
+def make_train_step(ts: TrainState, mesh=None):
     """-> train_step(track_states, frame (B, ...), pretrain) ->
     (track_states', items {name: (B,)}): forward, backward of the mean over
     streams of the loss, `optimizer_step`. After the call each parameter's
     .grad holds that step's gradient. A bfloat16 model (`Track4D(dtype=
     torch.bfloat16)`) computes in bfloat16 with float32 parameters, so its
     gradients and the optimizer's state are float32, as optax's on flax's
-    float32 params."""
+    float32 params.
+
+    With `mesh` (parallel/mesh.py) the step runs this rank's shard of the
+    streams (`shard_clips`) on a model that every rank holds alike
+    (`replicate`), and between the backward and the optimizer step
+    averages the gradients and the batch norm running statistics over the
+    ranks: exactly two all-reduces a frame, none in the forward. Equal
+    shards make that the unsharded step's update, to the order of float
+    sums. Not DistributedDataParallel: its `broadcast_buffers` would copy
+    rank 0's statistics where JAX averages them, and its buckets would hide
+    how many collectives a frame issues."""
 
     def train_step(track_state: TrackState, frame: FrameBatch, pretrain
                    ) -> Tuple[TrackState, Dict[str, torch.Tensor]]:
@@ -289,17 +329,22 @@ def make_train_step(ts: TrainState):
         out, new_state = ts.model(frame, track_state)
         total, items = track4d_loss(out, frame, pretrain)
         total.mean().backward()
+        if mesh is not None:
+            _reduce_over_mesh(ts, mesh)
         optimizer_step(ts)
         return new_state, {k: v.detach() for k, v in items.items()}
 
     return train_step
 
 
-def make_scan_train_step(ts: TrainState):
+def make_scan_train_step(ts: TrainState, mesh=None):
     """-> scan_train(track_states, frames (B, T, ...), pretrain) ->
     (track_states', items {name: (T, B)}): T sequential train steps, one
-    optimizer step per frame (JAX make_scan_train_step, :145)."""
-    train_step = make_train_step(ts)
+    optimizer step per frame (JAX make_scan_train_step, :145). With `mesh`
+    each frame step is `make_train_step`'s sharded one: B is this rank's
+    shard and so are the returned states and items (`gather_clips` joins
+    them)."""
+    train_step = make_train_step(ts, mesh)
 
     def scan_train(track_state: TrackState, frames: FrameBatch, pretrain):
         per_frame = []

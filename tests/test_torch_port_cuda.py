@@ -2307,3 +2307,94 @@ def test_float32_eval_kernels_bit_identical_to_recorded(device):
     assert got == F32_DIGESTS, {k: (v, F32_DIGESTS.get(k))
                                 for k, v in got.items()
                                 if F32_DIGESTS.get(k) != v}
+
+
+def _dp_train_run(device, mesh=None, n=128, k=8, streams=4, frames=2):
+    """`frames` train frame steps of Track4D(npoint=n) with seeded weights
+    over `streams` synthetic streams, sharded over `mesh` where one is
+    given -> (per-frame loss items, frame 0's gradients and BN statistics,
+    all float64 on the CPU, and each step's collectives)."""
+    from ratrack_tpu_torch.data import FrameBatch, stack_frames, synthetic_clip
+    from ratrack_tpu_torch.data import to_tensors
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.parallel import (count_collectives, replicate,
+                                            shard_clips)
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_scan_train_step)
+    block = to_tensors(FrameBatch(*[np.stack(x) for x in zip(*[
+        stack_frames(synthetic_clip(s, frames, n_max=n, g_max=k,
+                                    n_static=60, n_objects=3))
+        for s in range(streams)])]), device)
+    model = Track4D(npoint=n, k_max=k, sinkhorn_iters=20,
+                    generator=torch.Generator().manual_seed(0), device=device)
+    ts = create_train_state(model, TrainConfig(), steps_per_epoch=10,
+                            device=device)
+    state = init_state(streams, k, device=device)
+    if mesh is not None:
+        replicate(mesh, ts)
+        block, state = shard_clips(mesh, block), shard_clips(mesh, state)
+    scan = make_scan_train_step(ts, mesh)
+    items, collectives = [], []
+    for t in range(frames):
+        with count_collectives() as counts:
+            state, it = scan(state, FrameBatch(*[x[:, t:t + 1]
+                                                 for x in block]), False)
+        collectives.append(dict(counts))
+        items.append({k_: v[0].double().cpu() for k_, v in it.items()})
+        if t == 0:
+            grads = {n_: p.grad.double().cpu()
+                     for n_, p in model.named_parameters()}
+            stats = {n_: b.double().cpu()
+                     for n_, b in model.named_buffers()}
+    return items, grads, stats, collectives
+
+
+def test_sharded_train_step_under_nccl_matches_unsharded(device, tmp_path,
+                                                         monkeypatch):
+    """One rank under NCCL (a real NCCL all-reduce on the card) against
+    the unsharded step from the same weights: two all-reduces a frame
+    step; frame 0's loss items, gradient leaves (in norm, against the whole
+    gradient's) and BN statistics no further from the unsharded run than
+    twice what two unsharded runs differ by (B9 / B10 add their feature
+    gradients with float atomics) plus 1e-5 of the scale."""
+    import torch.distributed as dist
+    from ratrack_tpu_torch.parallel import init_from_env, make_mesh
+    for key, val in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                     ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(key, val)
+    init_from_env(init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl"
+        assert mesh.device == torch.device("cuda", 0)
+        sharded = _dp_train_run(device, mesh)
+    finally:
+        dist.destroy_process_group()
+    runs = [_dp_train_run(device) for _ in range(2)]
+    assert sharded[3] == [{"all_reduce": 2}] * 2
+    assert runs[0][3] == [{}] * 2
+    norm = torch.linalg.vector_norm
+    for part in range(3):
+        a, b, s = runs[0][part], runs[1][part], sharded[part]
+        if part == 0:
+            a, b, s = a[0], b[0], s[0]
+        scale = float(norm(torch.cat([x.flatten() for x in a.values()])))
+        yard = max(float(norm(b[n] - a[n])) for n in a)
+        for n in a:
+            err = float(norm(s[n] - a[n]))
+            assert err <= 2 * yard + 1e-5 * scale, (part, n, err, yard)
+
+
+def test_init_from_env_refuses_a_rank_without_a_card(device, monkeypatch):
+    """LOCAL_RANK beyond the visible cards raises before joining a group:
+    no rank falls back to another card, to gloo or to the CPU."""
+    import torch.distributed as dist
+    from ratrack_tpu_torch.parallel import init_from_env
+    n = torch.cuda.device_count()
+    for key, val in (("RANK", str(n)), ("WORLD_SIZE", str(n + 1)),
+                     ("LOCAL_RANK", str(n))):
+        monkeypatch.setenv(key, val)
+    with pytest.raises(RuntimeError, match="cards"):
+        init_from_env()
+    assert not dist.is_initialized()
