@@ -1,0 +1,8 @@
+"""Share of the traced slice's wall time in which no operation ran on the
+device (eval)."""
+
+from perfbench.readers import device_idle_pct
+
+
+def read(run):
+    return device_idle_pct(run, "eval")

@@ -1,0 +1,8 @@
+"""The whole step's share of the cards' product peak over the window
+(train): the model's FLOPs a frame (perfbench/work.py) x frames/s."""
+
+from perfbench.readers import mfu
+
+
+def read(run):
+    return mfu(run, "train")
