@@ -1,0 +1,9 @@
+"""Kernel launch calls of the host a stream-frame that start inside the
+spans of the cost volume (ratrack.cost_volume) in the traced slice
+(eval)."""
+
+from perfbench.spans import launches_per_frame
+
+
+def read(run):
+    return launches_per_frame(run, "eval", "cost_volume")

@@ -25,6 +25,8 @@ train/     the eval steps and scans (cached backbone or not, and the
 parallel/  data parallelism over clip streams: one process a card under
            NCCL, the mesh helpers of the JAX package's parallel/mesh.py.
 serve.py   RadarTracker: online multi-stream serving over the eval step.
+trace.py   the `ratrack.*` spans of the frame step's layers, on
+           torch.profiler's timeline while a profiler records.
 config.py  the YAML configuration (the JAX package's keys).
 main.py    the train / eval CLI (`python -m ratrack_tpu_torch.main`).
 data/      FrameBatch, the synthetic clip generator, and the VoD layer:

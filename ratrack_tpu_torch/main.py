@@ -21,7 +21,14 @@ Port-side choices: the CLI runs on the card (`default_device()`, which
 raises where there is none) unless `--cpu` is given; `cfg.dp` streams are
 the batch dimension on that one device; `profile_dir` records a
 torch.profiler trace of the run (`trace.json`, and `trace_rank<r>.json`
-for the ranks after the first).
+for the ranks after the first). The trace carries the port's spans
+(`trace.py::SPANS`) on the clock of its launches and kernels:
+`ratrack.head`, `.cost_volume`, `.decoder`, `.dbscan`, `.descriptors`,
+`.affinity`, `.sinkhorn`, `.assign_ids` in every model step;
+`ratrack.forward`, `.loss`, `.backward`, `.optimizer` (and `.allreduce`
+under torchrun) in every train step; `ratrack.data_wait` around each wait
+for the data pipeline (`data_wait_s`). `perfbench/spans.py` reads them
+into host time, launches and device idle by layer.
 
 Under torchrun the train CLI is data parallel over the W ranks, one card
 each under NCCL (gloo on the CPU with `--cpu`; parallel/mesh.py): `cfg.dp`
@@ -146,16 +153,22 @@ def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             for k, v in host.items()}
 
 
-def _timed(iterable, waited: List[float]):
+def _timed(iterable, waited: List[float], wait_span: bool = False):
     """Yield from `iterable`, adding the seconds spent waiting for each
     item to waited[0]: around a Prefetcher, the consumer's wait on the
     data pipeline; inside it, the host time that building the items
-    took on the producer thread."""
+    took on the producer thread. `wait_span`: each wait is a
+    `ratrack.data_wait` span (the consumer's wait, `data_wait_s`)."""
+    from .trace import span
     it = iter(iterable)
     while True:
         t0 = time.perf_counter()
         try:
-            item = next(it)
+            if wait_span:
+                with span("data_wait"):
+                    item = next(it)
+            else:
+                item = next(it)
         except StopIteration:
             return
         waited[0] += time.perf_counter() - t0
@@ -246,7 +259,7 @@ def run_train_epoch_batched(cfg, ts, scan_train, split, ep: int, log: Tee,
                                               group_lengths, t, cfg.n_max,
                                               cfg.g_max), built),
                         depth=cfg.prefetch_depth)
-    for block in _timed(blocks, waited):
+    for block in _timed(blocks, waited, wait_span=True):
         tstates, items = scan_train(tstates, to_tensors(block, device),
                                     pretrain)
         if mesh is not None:                            # (T, B) each
@@ -285,7 +298,7 @@ def run_epoch(cfg, model, ts, step_fns, stream, mode: str, ep: int,
     count = 0
     waited = [0.0]
     t0 = time.time()
-    for clip, rec in _timed(stream, waited):
+    for clip, rec in _timed(stream, waited, wait_span=True):
         frame = to_tensors(FrameBatch(*[np.asarray(x)[None] for x in rec]),
                            device)
         if mode == "train":
@@ -380,7 +393,8 @@ def run_eval_epoch_scan(cfg, model, stream, log: Tee, device,
 
     cur_clip, chunk = None, []
     for clip, rec in _timed(Prefetcher(_timed(stream, built),
-                                       depth=cfg.prefetch_depth), waited):
+                                       depth=cfg.prefetch_depth), waited,
+                            wait_span=True):
         if clip != cur_clip and chunk:
             tstate = flush(cur_clip, chunk, tstate)
             chunk = []

@@ -40,6 +40,7 @@ from ..ops.fused_correlator_train import fused_knn_weight_aggregate_train
 from ..ops.fused_knn import knn_indices_tiled
 from ..ops.morton import invert_perm, morton_perm
 from ..ops.sampling import gather
+from ..trace import span
 from .layers import PointwiseMLP, WeightNet, cast_to
 
 # clouds above this many points take the split formulation in eval
@@ -62,6 +63,7 @@ class FeatureCorrelator(nn.Module):
         self.weightnet1 = WeightNet(mlp[-1], dtype=dtype)
         self.weightnet2 = WeightNet(mlp[-1], dtype=dtype)
 
+    @span("cost_volume")
     def forward(self, pc1, pc2, f1, f2, mask1=None, mask2=None):
         """pc (B, N, 3), f1 (B, N, d1), f2 (B, N, d2) -> (B, N, mlp[-1])."""
         d1, d2 = self.d1, self.d2

@@ -21,6 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..trace import span
 from .layers import Dense, PointwiseMLP, StackedGRU
 from .pnhead import PNHead
 
@@ -76,6 +77,7 @@ class FlowDecoder(nn.Module):
         self.gru = StackedGRU(feat_dim, gru_layers, dtype=dtype)
         self.fp = FlowPredictor(dtype=dtype)
 
+    @span("decoder")
     def pre_gru(self, pc1, ft1, pc1_feats, cor_feats, mask1):
         """-> (cls (B, N), prop (B, N, 128), gfeat_in (B, 128))."""
         cls = self.cp(cor_feats, mask1)
@@ -83,10 +85,12 @@ class FlowDecoder(nn.Module):
         _, prop = self.mse(pc1, emb, mask1)
         return cls, prop, masked_max(prop, mask1)
 
+    @span("decoder")
     def gru_apply(self, gfeat_in, h):
         """(B, 128), (B, layers, 128) -> (B, 128), (B, layers, 128)."""
         return self.gru(gfeat_in, h)
 
+    @span("decoder")
     def post_gru(self, prop, gfeat_out, mask1=None):
         g = gfeat_out.unsqueeze(1).expand(-1, prop.shape[1], -1)
         return self.fp(torch.cat([prop, g], dim=-1), mask1)

@@ -56,6 +56,7 @@ from torch import nn
 
 from ..data.frames import FrameBatch
 from ..device import resolve_device
+from ..trace import span
 from ..tracker.association import (associate, cluster_descriptors,
                                    greedy_gt_match)
 from ..tracker.dbscan import compact_dbscan, dbscan
@@ -110,6 +111,7 @@ class Track4D(nn.Module):
         self.eval()
         self.to(device)
 
+    @span("head")
     def head_stage(self, pc, ft, mask) -> torch.Tensor:
         """One cloud through the PNHead -> (B, N, 128). In eval this is a
         pure function of the cloud, so the eval scan carries frame t's result
@@ -118,11 +120,12 @@ class Track4D(nn.Module):
 
     def _frame_stage_from_heads(self, frame: FrameBatch, f1, f2):
         m1, m2 = frame.mask1, frame.mask2
-        f1 = torch.cat([f1, masked_max(f1, m1).unsqueeze(1).expand_as(f1)],
-                       dim=-1)                          # (B, N, 256)
-        f2 = torch.cat([f2, masked_max(f2, m2).unsqueeze(1).expand_as(f2)],
-                       dim=-1)
-        cor = self.fc_layer(frame.pc1, frame.pc2, f1, f2, m1, m2)
+        with span("cost_volume"):
+            f1 = torch.cat([f1, masked_max(f1, m1).unsqueeze(1)
+                            .expand_as(f1)], dim=-1)    # (B, N, 256)
+            f2 = torch.cat([f2, masked_max(f2, m2).unsqueeze(1)
+                            .expand_as(f2)], dim=-1)
+            cor = self.fc_layer(frame.pc1, frame.pc2, f1, f2, m1, m2)
         return self.fd_layer.pre_gru(frame.pc1, frame.ft1, f1, cor, m1)
 
     def frame_stage(self, frame: FrameBatch):
@@ -141,21 +144,24 @@ class Track4D(nn.Module):
                      frame_idx):
         """Flow, clustering, descriptors and GT match for one frame."""
         flow = self.fd_layer.post_gru(prop, gfeat_out, frame.mask1)
-        warp = frame.pc1 + flow
-        # float32 in bfloat16 too (track4d.py:133): cat promotes to warp's
-        feats = torch.cat([warp, frame.pc1, flow, frame.ft1, prop], dim=-1)
-        mov = (cls > self.mov_thres) & frame.mask1
-        db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]],
-                          dim=-1).detach()
-        if 0 < self.mov_budget < db_in.shape[1]:
-            labels = compact_dbscan(db_in, mov, cls.detach(), self.mov_budget,
-                                    self.dbscan_eps, self.min_obj_points,
-                                    self.dbscan_max_iters)
-        else:
-            labels = dbscan(db_in, mov, self.dbscan_eps, self.min_obj_points,
-                            self.dbscan_max_iters)
-        labels = torch.where(labels < self.k_max, labels,
-                             torch.full_like(labels, -1))
+        with span("dbscan"):
+            warp = frame.pc1 + flow
+            # float32 in bfloat16 too (track4d.py:133): cat promotes to warp's
+            feats = torch.cat([warp, frame.pc1, flow, frame.ft1, prop],
+                              dim=-1)
+            mov = (cls > self.mov_thres) & frame.mask1
+            db_in = torch.cat([feats[..., 3:9], feats[..., 10:12]],
+                              dim=-1).detach()
+            if 0 < self.mov_budget < db_in.shape[1]:
+                labels = compact_dbscan(db_in, mov, cls.detach(),
+                                        self.mov_budget, self.dbscan_eps,
+                                        self.min_obj_points,
+                                        self.dbscan_max_iters)
+            else:
+                labels = dbscan(db_in, mov, self.dbscan_eps,
+                                self.min_obj_points, self.dbscan_max_iters)
+            labels = torch.where(labels < self.k_max, labels,
+                                 torch.full_like(labels, -1))
         desc, curr_valid, sizes, _ = cluster_descriptors(feats, labels,
                                                          self.k_max)
         curr_gt = greedy_gt_match(labels, frame.gt_dense, frame.gt_label_ids,
@@ -165,6 +171,7 @@ class Track4D(nn.Module):
                     curr_gt=curr_gt,
                     n=curr_valid.sum(dim=1).to(torch.int32))
 
+    @span("affinity")
     def affinity_stage(self, desc_prev, desc_curr) -> torch.Tensor:
         """(B, K_prev, K_curr) affinity on descriptor differences."""
         return self.affinity(desc_curr.unsqueeze(1) - desc_prev.unsqueeze(2))

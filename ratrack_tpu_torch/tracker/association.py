@@ -14,12 +14,14 @@ from typing import NamedTuple
 
 import torch
 
+from ..trace import span
 from .sinkhorn import log_optimal_transport_masked
 from .state import DESC_DIM
 
 _NEG_INF = -1e30
 
 
+@span("descriptors")
 def cluster_descriptors(feats: torch.Tensor, labels: torch.Tensor,
                         k_max: int):
     """feats (B, N, 139), labels (B, N) in [-1, k_max) ->
@@ -52,6 +54,7 @@ def cluster_descriptors(feats: torch.Tensor, labels: torch.Tensor,
     return desc, valid, sizes, oh
 
 
+@span("descriptors")
 def greedy_gt_match(labels, gt_dense, gt_label_ids, gt_valid, k_max: int,
                     frame_idx) -> torch.Tensor:
     """Greedy point-IoU match of predicted clusters to GT objects, in slot
@@ -118,19 +121,21 @@ def match_structure(aff, m, n, alpha: float, iters: int,
     z = log_optimal_transport_masked(aff, m, n, alpha, iters,
                                      tol=sinkhorn_tol, safe_lse=False,
                                      use_fused_kernel=use_fused_kernel)
-    ar = torch.arange(k, device=dev)
-    row_ok = ar.unsqueeze(0) < m.unsqueeze(1)
-    col_ok = ar.unsqueeze(0) < n.unsqueeze(1)
-    s = torch.where(row_ok.unsqueeze(2) & col_ok.unsqueeze(1), z[:, :k, :k],
-                    torch.tensor(_NEG_INF, device=dev))
-    idx0 = torch.argmax(s, dim=2)                 # best curr per prev
-    idx1 = torch.argmax(s, dim=1)                 # best prev per curr
-    mutual = torch.gather(idx0, 1, idx1) == ar
-    matched = mutual & col_ok & torch.gather(row_ok, 1, idx1)
-    conf = torch.gather(aff, 1, idx1.unsqueeze(1))[:, 0]
+    with span("assign_ids"):
+        ar = torch.arange(k, device=dev)
+        row_ok = ar.unsqueeze(0) < m.unsqueeze(1)
+        col_ok = ar.unsqueeze(0) < n.unsqueeze(1)
+        s = torch.where(row_ok.unsqueeze(2) & col_ok.unsqueeze(1),
+                        z[:, :k, :k], torch.tensor(_NEG_INF, device=dev))
+        idx0 = torch.argmax(s, dim=2)             # best curr per prev
+        idx1 = torch.argmax(s, dim=1)             # best prev per curr
+        mutual = torch.gather(idx0, 1, idx1) == ar
+        matched = mutual & col_ok & torch.gather(row_ok, 1, idx1)
+        conf = torch.gather(aff, 1, idx1.unsqueeze(1))[:, 0]
     return MatchStructure(idx1, matched, conf, col_ok)
 
 
+@span("assign_ids")
 def assign_ids(ms: MatchStructure, prev_track_id, next_id, aff,
                conf_thres: float = 0.01) -> AssocResult:
     """ID inheritance in slot order, the serial part: a new id where a

@@ -20,8 +20,10 @@ from __future__ import annotations
 import torch
 
 from ..ops.neighborhood import square_distance
+from ..trace import span
 
 
+@span("dbscan")
 def dbscan(x: torch.Tensor, mask: torch.Tensor, eps: float,
            min_samples: int, max_iters: int = 64) -> torch.Tensor:
     """x (B, N, D), mask (B, N) -> (B, N) int32 labels, -1 for noise."""
@@ -62,6 +64,7 @@ def dbscan(x: torch.Tensor, mask: torch.Tensor, eps: float,
     return cluster.to(torch.int32)
 
 
+@span("dbscan")
 def compact_dbscan(x: torch.Tensor, mask: torch.Tensor, scores: torch.Tensor,
                    budget: int, eps: float, min_samples: int,
                    max_iters: int = 64) -> torch.Tensor:

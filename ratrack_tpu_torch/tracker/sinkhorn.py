@@ -41,6 +41,7 @@ import torch
 
 from ..ops.fused_sinkhorn import (lse_bounded, sinkhorn_uv,
                                   sinkhorn_uv_reference)
+from ..trace import span
 
 NEG = -1e9
 
@@ -127,6 +128,7 @@ def sinkhorn_uv_early_exit(c, log_mu, log_nu, iters: int, tol: float, *,
     return u, v, count
 
 
+@span("sinkhorn")
 def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
                                  n: torch.Tensor, alpha: float,
                                  iters: int, *, tol: float = 0.0,

@@ -36,6 +36,7 @@ import torch
 from ..data.frames import FrameBatch
 from ..device import resolve_device
 from ..parallel.mesh import all_reduce_mean_
+from ..trace import span
 from ..tracker.association import MatchStructure, assign_ids, match_structure
 from ..tracker.state import TrackState
 from .losses import track4d_loss
@@ -278,6 +279,7 @@ def _fill_missing_grads(ts: TrainState) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+@span("optimizer")
 def optimizer_step(ts: TrainState) -> None:
     """One optimizer and schedule step on the gradients in .grad.
 
@@ -291,6 +293,7 @@ def optimizer_step(ts: TrainState) -> None:
     ts.step += 1
 
 
+@span("allreduce")
 def _reduce_over_mesh(ts: TrainState, mesh) -> None:
     """JAX's pmean of the gradients and of the BN statistics over 'dp'
     (step.py:121-122): the missing gradients filled with zeros first (so
@@ -325,10 +328,14 @@ def make_train_step(ts: TrainState, mesh=None):
 
     def train_step(track_state: TrackState, frame: FrameBatch, pretrain
                    ) -> Tuple[TrackState, Dict[str, torch.Tensor]]:
-        ts.optimizer.zero_grad(set_to_none=True)
-        out, new_state = ts.model(frame, track_state)
-        total, items = track4d_loss(out, frame, pretrain)
-        total.mean().backward()
+        with span("optimizer"):
+            ts.optimizer.zero_grad(set_to_none=True)
+        with span("forward"):
+            out, new_state = ts.model(frame, track_state)
+        with span("loss"):
+            total, items = track4d_loss(out, frame, pretrain)
+        with span("backward"):
+            total.mean().backward()
         if mesh is not None:
             _reduce_over_mesh(ts, mesh)
         optimizer_step(ts)

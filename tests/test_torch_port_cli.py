@@ -38,6 +38,7 @@ Tolerances:
 """
 
 import ast
+import json
 import os
 import re
 
@@ -303,7 +304,8 @@ def test_vis_dir_raises_until_the_renderer_is_ported(work):
 
 def test_continue_model_resumes_last_and_profile_dir_writes_a_trace(work):
     """Port only: `continue_model` restores `last` (model, optimizer,
-    schedule and step), and `profile_dir` leaves a torch.profiler trace."""
+    schedule and step), and `profile_dir` leaves a torch.profiler trace
+    that carries the frame step's spans and the data pipeline's waits."""
     cfg = dict(SMOKE, epochs=1, synth_frames=2,
                profile_dir=str(work / "profile"))
     exp, _ = _run(work, "port_resume", cfg, _port_cli)
@@ -314,3 +316,8 @@ def test_continue_model_resumes_last_and_profile_dir_writes_a_trace(work):
     second = torch.load(_path(exp / "models", "last"), weights_only=True)
     assert second["step"] == 2 * first["step"] == 8   # 2 clips x 2 frames
     assert os.path.getsize(work / "profile" / "trace.json") > 0
+    with open(work / "profile" / "trace.json") as f:
+        names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+    from ratrack_tpu_torch.trace import PREFIX, SPANS
+    want = {PREFIX + n for n in SPANS if n != "allreduce"}
+    assert want <= names, want - names
