@@ -12,8 +12,9 @@ The module is built for eval (requires_grad off, `eval()`);
 heads are recomputed every frame (`step_cached` is eval only), batch norm
 takes batch statistics, and the kernels are the train kernels B9 / B10.
 No gradient reaches the loss through DBSCAN labels, track ids or the
-Sinkhorn association: their inputs are detached, so autograd records none
-of the 500 Sinkhorn iterations. The object descriptors stay differentiable
+Sinkhorn association: their inputs are detached (the Sinkhorn's in
+`tracker.association.match_structure`), so autograd records none of the
+500 Sinkhorn iterations. The object descriptors stay differentiable
 (the affinity loss reaches the decoder through them); the recurrent state
 carried to the next frame (GRU state, descriptors) is detached
 (track4d.py:208, step.py:116-118).
@@ -204,7 +205,7 @@ class Track4D(nn.Module):
         o = self.output_stage(frame, cls, prop, gfeat_out, state.frame_idx)
         m = state.valid.sum(dim=1).to(torch.int32)
         aff = self.affinity_stage(state.desc, o["desc"])
-        res = associate(aff.detach(), m, o["n"], state.track_id,
+        res = associate(aff, m, o["n"], state.track_id,
                         state.next_id, self.sinkhorn_alpha,
                         self.sinkhorn_iters, self.match_conf_thres,
                         self.sinkhorn_kernel, self.sinkhorn_tol)

@@ -42,8 +42,9 @@ SPANS = {
     "descriptors": "cluster_descriptors and greedy_gt_match",
     "affinity": "Track4D.affinity_stage: the affinity MLP over descriptor "
                 "differences",
-    "sinkhorn": "log_optimal_transport_masked: the eager loop, the early "
-                "exit or kernel B7",
+    "sinkhorn": "log_optimal_transport_masked: the eager loop, its graph "
+                "replay, the early exit or kernel B7 (the graph's share: "
+                ".replays / (.replays + .eager_on_device))",
     "assign_ids": "assign_ids and the mutual-max matching of "
                   "match_structure",
     "forward": "the train step's model call",

@@ -117,8 +117,11 @@ def match_structure(aff, m, n, alpha: float, iters: int,
     dev = aff.device
     # safe_lse=False as the JAX association passes it (association.py:
     # 147-152): aff is a sigmoid in (0, 1) and alpha the 0.9 bin, where the
-    # bounded log-sum-exp is exact enough and costs one reduction less
-    z = log_optimal_transport_masked(aff, m, n, alpha, iters,
+    # bounded log-sum-exp is exact enough and costs one reduction less.
+    # Detached: z reaches nothing but the argmaxes, so no gradient flows
+    # through it, and an input that requires grad would keep the Sinkhorn
+    # off its CUDA graph. conf gathers from aff itself.
+    z = log_optimal_transport_masked(aff.detach(), m, n, alpha, iters,
                                      tol=sinkhorn_tol, safe_lse=False,
                                      use_fused_kernel=use_fused_kernel)
     with span("assign_ids"):

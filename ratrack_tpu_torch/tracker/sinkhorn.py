@@ -33,9 +33,27 @@ computes. The host asks after every iteration whether any stream still
 iterates. It takes either log-sum-exp. B7 has no early exit, so
 `use_fused_kernel` with tol > 0 raises rather than run the loop in its
 place.
+
+The eager loop as one CUDA graph: its 500 iterations are 6,000 launches
+of tiny kernels on (B, K+1, K+1), so the host's launch calls, not the
+device, pace them. Where the call can be replayed (CUDA tensors, tol = 0,
+no B7, no input that requires grad, no capture already under way on the
+current stream) the iterations and the coupling run as a CUDA graph of
+that loop, captured once per (device, B, K+1, dtype, iters, safe_lse) on
+a side stream after one eager warm-up and replayed on the current stream
+after that: the same kernels in the same order on the same shapes, so
+the same bits. `_GRAPHS_PER_DEVICE` graphs are kept a device, the least
+recently used dropped first. Counters on `log_optimal_transport_masked`:
+`.captures` (calls that captured), `.replays` (calls that replayed a
+graph captured before) and `.eager_on_device` (CUDA calls that took the
+eager loop, the early exit or B7); CPU calls move none. The share of
+CUDA calls the graph serves is replays / (replays + eager_on_device).
 """
 
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import torch
 
@@ -128,6 +146,78 @@ def sinkhorn_uv_early_exit(c, log_mu, log_nu, iters: int, tol: float, *,
     return u, v, count
 
 
+def _coupling(c, u, v, norm):
+    """The log-coupling c + u_i + v_j - norm, (B, K1, K1)."""
+    return c + u.unsqueeze(2) + v.unsqueeze(1) - norm.reshape(-1, 1, 1)
+
+
+_GRAPHS_PER_DEVICE = 8
+
+
+class _SinkhornGraph:
+    """The iterations and the coupling captured as one CUDA graph on static
+    copies of one problem shape; calling it copies a problem of that shape
+    in, replays and returns a clone of the coupling."""
+
+    def __init__(self, solve, c, log_mu, log_nu, norm, iters: int):
+        dev = c.device
+        # static tensors that a later call outside inference mode may copy
+        # into (an inference tensor takes no in-place write there)
+        with torch.inference_mode(False), torch.no_grad(), \
+                torch.cuda.device(dev):
+            self.args = [t.clone() for t in (c, log_mu, log_nu, norm)]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                solve(*self.args[:3], iters)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread_local: a data pipeline's thread may touch the card
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.z = _coupling(self.args[0],
+                                   *solve(*self.args[:3], iters),
+                                   self.args[3])
+        self.lock = threading.Lock()
+        # the last caller's clone is done: a caller on another stream waits
+        # for it before it overwrites the static tensors
+        self.free = torch.cuda.Event()
+
+    def __call__(self, c, log_mu, log_nu, norm) -> torch.Tensor:
+        stream = torch.cuda.current_stream(c.device)
+        with self.lock:
+            stream.wait_event(self.free)
+            for static, t in zip(self.args, (c, log_mu, log_nu, norm)):
+                static.copy_(t)
+            self.graph.replay()
+            z = self.z.clone()
+            self.free.record(stream)
+        return z
+
+
+_graphs: "OrderedDict[tuple, _SinkhornGraph]" = OrderedDict()
+_graphs_lock = threading.Lock()
+
+
+def _replayed(solve, c, log_mu, log_nu, norm, iters: int, safe_lse: bool):
+    """The coupling by the shape's graph, captured on its first call."""
+    dev = c.device
+    key = (dev, *log_mu.shape, c.dtype, iters, safe_lse)
+    with _graphs_lock:
+        graph = _graphs.get(key)
+        if graph is None:
+            same_device = [k for k in _graphs if k[0] == dev]
+            if len(same_device) >= _GRAPHS_PER_DEVICE:
+                del _graphs[same_device[0]]
+            graph = _graphs[key] = _SinkhornGraph(solve, c, log_mu, log_nu,
+                                                  norm, iters)
+            log_optimal_transport_masked.captures += 1
+        else:
+            _graphs.move_to_end(key)
+            log_optimal_transport_masked.replays += 1
+    return graph(c, log_mu, log_nu, norm)
+
+
 @span("sinkhorn")
 def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
                                  n: torch.Tensor, alpha: float,
@@ -142,7 +232,9 @@ def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
     safe_lse: the two-pass log-sum-exp (see the module docstring).
     use_fused_kernel: all iterations in kernel B7 (bounded form only, so
     with safe_lse=False, and tol=0; primal only: scores must not require
-    grad)."""
+    grad).
+    On the card the eager loop runs as a replayed CUDA graph where it can
+    (see the module docstring)."""
     if use_fused_kernel and safe_lse:
         raise ValueError("kernel B7 computes the bounded log-sum-exp only: "
                          "pass safe_lse=False with use_fused_kernel")
@@ -150,13 +242,22 @@ def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
         raise ValueError(f"kernel B7 has no early exit: pass tol=0 with "
                          f"use_fused_kernel (got tol={tol})")
     c, log_mu, log_nu, norm = transport_problem(scores, m, n, alpha)
+    solve = _sinkhorn_uv_safe if safe_lse else sinkhorn_uv_reference
+    if c.is_cuda:
+        if (tol == 0.0 and not use_fused_kernel and not c.requires_grad
+                and not torch.cuda.is_current_stream_capturing()):
+            return _replayed(solve, c, log_mu, log_nu, norm, iters,
+                             safe_lse)
+        log_optimal_transport_masked.eager_on_device += 1
     if tol > 0.0:
         u, v, _ = sinkhorn_uv_early_exit(c, log_mu, log_nu, iters, tol,
                                          safe_lse=safe_lse)
-        return c + u.unsqueeze(2) + v.unsqueeze(1) - norm.reshape(-1, 1, 1)
-    if safe_lse:
-        solve = _sinkhorn_uv_safe
     else:
-        solve = sinkhorn_uv if use_fused_kernel else sinkhorn_uv_reference
-    u, v = solve(c, log_mu, log_nu, iters)
-    return c + u.unsqueeze(2) + v.unsqueeze(1) - norm.reshape(-1, 1, 1)
+        u, v = (sinkhorn_uv if use_fused_kernel else solve)(
+            c, log_mu, log_nu, iters)
+    return _coupling(c, u, v, norm)
+
+
+log_optimal_transport_masked.captures = 0
+log_optimal_transport_masked.replays = 0
+log_optimal_transport_masked.eager_on_device = 0

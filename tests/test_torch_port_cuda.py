@@ -2016,6 +2016,198 @@ def test_sinkhorn_early_exit_on_the_card_matches_the_cpu(device, safe_lse):
             z_cpu[s][np.ix_(rows, cols)].numpy(), atol=1e-4, rtol=0)
 
 
+# ---- the Sinkhorn loop as one CUDA graph ----------------------------------
+
+_OT_COUNTERS = ("captures", "replays", "eager_on_device")
+
+
+@pytest.fixture
+def no_graphs():
+    """No Sinkhorn graph captured before the test; none kept after it."""
+    from ratrack_tpu_torch.tracker import sinkhorn
+    sinkhorn._graphs.clear()
+    yield sinkhorn
+    sinkhorn._graphs.clear()
+
+
+def _ot_counts(sinkhorn):
+    return [getattr(sinkhorn.log_optimal_transport_masked, a)
+            for a in _OT_COUNTERS]
+
+
+def _ot_problems(b, k=32, seed=0):
+    """Sigmoid scores (b, k, k) and the m, n (b,) of every stream: stream 0
+    has no row, stream 1 no column, stream 2 is full, the rest random; one
+    stream is each kind in turn, so b = 1 gives three problems."""
+    _, raw = cases.sinkhorn_case(seed, max(b, 3), k, 500)
+    m, n = raw["m"].clone(), raw["n"].clone()
+    m[2], n[2] = k, k
+    if b > 1:
+        return [(raw["scores"][:b], m[:b], n[:b])]
+    return [(raw["scores"][i:i + 1], m[i:i + 1], n[i:i + 1])
+            for i in range(3)]
+
+
+def _ot_eager(sinkhorn, scores, m, n, iters, safe_lse):
+    """The coupling by the eager loop on the card, as the call ran it
+    before the graph."""
+    c, log_mu, log_nu, norm = sinkhorn.transport_problem(scores, m, n, 0.9)
+    solve = (sinkhorn._sinkhorn_uv_safe if safe_lse
+             else fused_sinkhorn.sinkhorn_uv_reference)
+    return sinkhorn._coupling(c, *solve(c, log_mu, log_nu, iters), norm)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaNs too: with the two-pass log-sum-exp a stream
+    with no row drifts to NaN after 500 iterations, in the eager loop as
+    in its graph, and NaN != NaN under torch.equal."""
+    return a.dtype == b.dtype == torch.float32 and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("safe_lse", [False, True])
+@pytest.mark.parametrize("b", [32, 8, 1])
+def test_sinkhorn_graph_equals_the_eager_loop(device, no_graphs, b,
+                                              safe_lse):
+    """The replayed graph's coupling equals the eager loop's bit for bit
+    (the same kernels on the same shapes), streams with m = 0, n = 0 and
+    full among them; the first call of the shape captures, the later ones
+    replay, none takes the eager loop."""
+    sinkhorn = no_graphs
+    before = _ot_counts(sinkhorn)
+    calls = 0
+    for seed in (0, 1):
+        for scores, m, n in _ot_problems(b, seed=seed):
+            scores, m, n = scores.to(device), m.to(device), n.to(device)
+            z = sinkhorn.log_optimal_transport_masked(
+                scores, m, n, 0.9, 500, safe_lse=safe_lse)
+            want = _ot_eager(sinkhorn, scores, m, n, 500, safe_lse)
+            assert _same_bits(z, want), (seed, m.tolist(), n.tolist())
+            calls += 1
+    after = _ot_counts(sinkhorn)
+    assert [a - b0 for a, b0 in zip(after, before)] == [1, calls - 1, 0]
+
+
+def test_sinkhorn_graph_result_outlives_the_next_replay(device, no_graphs):
+    """Two calls of one shape on different inputs: the first call's result
+    is a tensor of its own, unchanged by the second replay."""
+    sinkhorn = no_graphs
+    (s0, m0, n0), = _ot_problems(8, seed=0)
+    (s1, m1, n1), = _ot_problems(8, seed=1)
+    args0 = [x.to(device) for x in (s0, m0, n0)]
+    args1 = [x.to(device) for x in (s1, m1, n1)]
+    z0 = sinkhorn.log_optimal_transport_masked(*args0[:3], 0.9, 500,
+                                               safe_lse=False)
+    kept = z0.clone()
+    z1 = sinkhorn.log_optimal_transport_masked(*args1[:3], 0.9, 500,
+                                               safe_lse=False)
+    torch.cuda.synchronize()
+    assert torch.equal(z0, kept)
+    assert not torch.equal(z0, z1)
+    assert torch.equal(z0, _ot_eager(sinkhorn, *args0, 500, False))
+    assert torch.equal(z1, _ot_eager(sinkhorn, *args1, 500, False))
+
+
+def test_sinkhorn_graph_counters_and_eviction(device, no_graphs,
+                                              monkeypatch):
+    """The first call of a shape captures and the next replays; an input
+    that requires grad, tol > 0, B7 and a call inside a capture already
+    under way each take the eager loop (eager_on_device) and capture
+    nothing; a ninth shape on the device drops the least recently used
+    graph, which its next call captures again."""
+    sinkhorn = no_graphs
+    ot = sinkhorn.log_optimal_transport_masked
+    (scores, m, n), = _ot_problems(8)
+    scores, m, n = scores.to(device), m.to(device), n.to(device)
+
+    def delta(fn):
+        before = _ot_counts(sinkhorn)
+        out = fn()
+        torch.cuda.synchronize()
+        return [a - b for a, b in zip(_ot_counts(sinkhorn), before)], out
+
+    assert delta(lambda: ot(scores, m, n, 0.9, 50, safe_lse=False))[0] \
+        == [1, 0, 0]
+    assert delta(lambda: ot(scores, m, n, 0.9, 50, safe_lse=False))[0] \
+        == [0, 1, 0]
+    grad_in = scores.clone().requires_grad_()
+    assert delta(lambda: ot(grad_in, m, n, 0.9, 50, safe_lse=False))[0] \
+        == [0, 0, 1]
+    assert delta(lambda: ot(scores, m, n, 0.9, 50, tol=1e-4,
+                            safe_lse=False))[0] == [0, 0, 1]
+    b7 = fused_sinkhorn.sinkhorn_uv.launches
+    assert delta(lambda: ot(scores, m, n, 0.9, 50, safe_lse=False,
+                            use_fused_kernel=True))[0] == [0, 0, 1]
+    assert fused_sinkhorn.sinkhorn_uv.launches == b7 + 1
+
+    # transport_problem makes device tensors from Python scalars, which a
+    # capture refuses: the outer capture gets the problem made before it
+    problem = sinkhorn.transport_problem(scores, m, n, 0.9)
+    monkeypatch.setattr(sinkhorn, "transport_problem", lambda *a: problem)
+    outer = torch.cuda.CUDAGraph()
+    before = _ot_counts(sinkhorn)
+    with torch.cuda.graph(outer):      # no synchronize inside a capture
+        z = ot(scores, m, n, 0.9, 50, safe_lse=False)
+    assert [a - b for a, b in zip(_ot_counts(sinkhorn), before)] == [0, 0, 1]
+    outer.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(z, _ot_eager(sinkhorn, scores, m, n, 50, False))
+    monkeypatch.undo()
+
+    keys = []
+    for bb in range(1, 10):
+        s, mm, nn = (x[:bb] for x in (scores.repeat(2, 1, 1), m.repeat(2),
+                                      n.repeat(2)))
+        got, _ = delta(lambda: ot(s, mm, nn, 0.9, 5, safe_lse=False))
+        assert got == [1, 0, 0], bb
+        keys.append((torch.device(device.type, torch.cuda.current_device()),
+                     bb, 33, torch.float32, 5, False))
+    held = [k for k in sinkhorn._graphs if k[0] == keys[0][0]]
+    assert len(held) == sinkhorn._GRAPHS_PER_DEVICE == 8
+    assert keys[0] not in held and keys[1] in held and keys[8] in held
+    s, mm, nn = scores[:1], m[:1], n[:1]
+    assert delta(lambda: ot(s, mm, nn, 0.9, 5, safe_lse=False))[0] \
+        == [1, 0, 0]
+    assert keys[1] not in sinkhorn._graphs
+
+
+def test_scan_with_the_sinkhorn_graph_equals_the_eager_loop(
+        device, no_graphs, monkeypatch):
+    """Four streams x 4 frames of the cached eval scan at 512 points, k_max
+    32 and 500 iterations, every valid point moving (mov_thres 0) so that
+    every frame has clusters to match: labels, track ids and conf equal by
+    torch.equal with the graph and with the eager loop; every Sinkhorn call
+    of the graphed run captured or replayed."""
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip, to_tensors
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import make_scan_eval_step_cached
+
+    sinkhorn = no_graphs
+    n, k, b, t = 512, 32, 4, 4
+    clips = [stack_frames(synthetic_clip(s, t, n_max=n, g_max=k,
+                                         n_static=300, n_objects=5))
+             for s in range(b)]
+    frames = to_tensors(stack_frames(clips), device)
+    model = Track4D(npoint=n, k_max=k, mov_thres=0.0,
+                    generator=torch.Generator().manual_seed(0), device=device)
+    scan = make_scan_eval_step_cached(model)
+    before = _ot_counts(sinkhorn)
+    _, graphed = scan(init_state(b, k, device=device), frames)
+    torch.cuda.synchronize()
+    assert [a - b0 for a, b0 in zip(_ot_counts(sinkhorn), before)] \
+        == [1, t - 1, 0]
+    monkeypatch.setattr(
+        sinkhorn, "_replayed",
+        lambda solve, c, log_mu, log_nu, norm, iters, safe_lse:
+        sinkhorn._coupling(c, *solve(c, log_mu, log_nu, iters), norm))
+    _, eager = scan(init_state(b, k, device=device), frames)
+    assert int((eager["labels"] >= 0).sum()) > 0
+    assert int((eager["track_id"] >= 0).sum()) > 0
+    for key in ("labels", "track_id", "conf"):
+        assert torch.equal(graphed[key], eager[key]), key
+
+
 # ---- bfloat16 operands: B1, B1', B2, B3, B4 --------------------------------
 
 def _assert_bf16_close(got, want):

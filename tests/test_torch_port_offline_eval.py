@@ -37,7 +37,8 @@ from ratrack_tpu.eval import run_kf as jrun_kf
 from ratrack_tpu.tracker import sinkhorn as jsinkhorn
 from ratrack_tpu_torch.eval import (detection_ap, export, kalman, run_ap,
                                     run_kf)
-from ratrack_tpu_torch.tracker import association
+from ratrack_tpu_torch.ops.fused_sinkhorn import sinkhorn_uv_reference
+from ratrack_tpu_torch.tracker import association, sinkhorn
 from ratrack_tpu_torch.tracker.sinkhorn import log_optimal_transport_masked
 from test_detection_ap import _synth_annos
 from test_kf_oracle import _make_ego_world, _walk_sequences
@@ -728,20 +729,47 @@ def test_sinkhorn_kernel_with_the_safe_lse_raises():
 def test_associate_takes_the_bounded_lse(monkeypatch, fused):
     """The association asks for safe_lse=False by keyword, as JAX's does,
     and passes its early exit's tol (0 by default) and its kernel switch
-    through."""
+    through; the Sinkhorn gets the affinities detached, while conf keeps
+    the gradient of the affinities it gathers."""
     seen = []
     real = association.log_optimal_transport_masked
 
     def spy(*args, **kw):
-        seen.append((len(args), kw))
+        seen.append((len(args), args[0].requires_grad, kw))
         return real(*args, **kw)
 
     monkeypatch.setattr(association, "log_optimal_transport_masked", spy)
     scores, m, n = _scores(1.0, seed=2)
     prev = torch.arange(K, dtype=torch.int32).expand(4, K).contiguous()
-    association.associate(torch.from_numpy(scores), torch.from_numpy(m),
-                          torch.from_numpy(n), prev,
-                          torch.full((4,), K, dtype=torch.int32), 0.9, 20,
-                          0.01, use_fused_kernel=fused)
-    assert seen == [(5, dict(tol=0.0, safe_lse=False,
-                             use_fused_kernel=fused))]
+    res = association.associate(
+        torch.from_numpy(scores).requires_grad_(), torch.from_numpy(m),
+        torch.from_numpy(n), prev, torch.full((4,), K, dtype=torch.int32),
+        0.9, 20, 0.01, use_fused_kernel=fused)
+    assert seen == [(5, False, dict(tol=0.0, safe_lse=False,
+                                    use_fused_kernel=fused))]
+    assert res.conf.requires_grad
+
+
+@pytest.mark.parametrize("safe_lse,tol", [(False, 0.0), (True, 0.0),
+                                          (False, 1e-4)])
+def test_sinkhorn_on_the_cpu_takes_the_eager_loop(safe_lse, tol):
+    """On the CPU no CUDA graph is captured or replayed: the coupling is
+    the eager loop's bit for bit, and no counter moves."""
+    scores, m, n = (torch.from_numpy(x) for x in _scores(1.0, seed=3))
+    counters = ("captures", "replays", "eager_on_device")
+    before = [getattr(log_optimal_transport_masked, a) for a in counters]
+    got = log_optimal_transport_masked(scores, m, n, 0.9, 30, tol=tol,
+                                       safe_lse=safe_lse)
+    c, log_mu, log_nu, norm = sinkhorn.transport_problem(scores, m, n, 0.9)
+    if tol > 0.0:
+        u, v, _ = sinkhorn.sinkhorn_uv_early_exit(c, log_mu, log_nu, 30, tol,
+                                                  safe_lse=safe_lse)
+    else:
+        solve = (sinkhorn._sinkhorn_uv_safe if safe_lse
+                 else sinkhorn_uv_reference)
+        u, v = solve(c, log_mu, log_nu, 30)
+    assert torch.equal(got, c + u.unsqueeze(2) + v.unsqueeze(1)
+                       - norm.reshape(-1, 1, 1))
+    assert [getattr(log_optimal_transport_masked, a)
+            for a in counters] == before
+    assert not sinkhorn._graphs

@@ -60,7 +60,7 @@ from ratrack_tpu_torch.ops.fused_correlator_train import \
 from ratrack_tpu_torch.ops.fused_sa_train import (fused_sa_pair_train,
                                                   fused_sa_scale_train)
 from ratrack_tpu_torch.ops.sampling import identity_gather
-from ratrack_tpu_torch.tracker import init_state
+from ratrack_tpu_torch.tracker import association, init_state
 from ratrack_tpu_torch.train import (TrainConfig, create_train_state,
                                      make_scan_train_step, make_train_step,
                                      optimizer_step, restore_train_state,
@@ -605,6 +605,47 @@ def test_track4d_train_step_matches_jax(world):
     for name, val in stats.items():
         np.testing.assert_allclose(sd[name].numpy(), val.numpy(), **TIGHT,
                                    err_msg=name)
+
+
+def test_sinkhorn_input_detached_leaves_every_gradient(world, monkeypatch):
+    """Two train steps (the second with tracks to match) give every
+    parameter the same gradient, by torch.equal, whether the Sinkhorn gets
+    the affinities detached (match_structure) or as the affinity MLP gave
+    them: its coupling reaches the loss through argmaxes alone."""
+    _, v, frames = world
+    f0, f1 = (to_tensors(_frame_t(frames, t), "cpu") for t in (0, 1))
+    seen = []
+    real_ot = association.log_optimal_transport_masked
+
+    def run(undetached: bool):
+        ts = create_train_state(_port(v), TrainConfig(), steps_per_epoch=10,
+                                device="cpu")
+        live = []
+        real_aff = ts.model.affinity_stage
+
+        def affinity_stage(*args):
+            live.append(real_aff(*args))
+            return live[-1]
+
+        def ot(scores, *args, **kw):
+            if undetached:
+                scores = live[-1]
+            seen.append((undetached, scores.requires_grad))
+            return real_ot(scores, *args, **kw)
+
+        with monkeypatch.context() as mp:
+            mp.setattr(ts.model, "affinity_stage", affinity_stage)
+            mp.setattr(association, "log_optimal_transport_masked", ot)
+            step = make_train_step(ts)
+            state, _ = step(init_state(B, K, device="cpu"), f0, False)
+            assert int(state.valid.sum()) > 0
+            step(state, f1, False)
+        return _grads_by_name(ts.model)
+
+    detached, undetached = run(False), run(True)
+    assert seen == [(False, False)] * 2 + [(True, True)] * 2
+    for name, g in detached.items():
+        assert torch.equal(g, undetached[name]), name
 
 
 # (g) the train scan over T frames --------------------------------------------
