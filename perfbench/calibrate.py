@@ -26,53 +26,31 @@ if str(ROOT) not in sys.path:
 
 
 def readings(cell, seed, seconds, dev, controls: bool, mesh=None) -> dict:
-    """One seed's row (rank 0; None on the other ranks)."""
-    import torch
-    from perfbench import check, harness
+    """One seed's row (rank 0; None on the other ranks): the program's
+    numbers and, with `controls`, the control's and the faults' that the
+    cell's family reads."""
+    from perfbench import harness
+    fam = cell.family
     t0 = time.perf_counter()
     m = harness.run_program(cell, seed, seconds, False, dev,
                             time.perf_counter(), mesh)
     exchange = None
     if controls and mesh is not None:   # the exchange left out
-        import ratrack_tpu_torch.train.step as step
-        saved, step.all_reduce_mean_ = (step.all_reduce_mean_,
-                                        lambda mesh, tensors: None)
-        try:
+        with fam.exchange_left_out():
             exchange = harness.run_program(cell, seed, seconds, False, dev,
                                            time.perf_counter(), mesh).prog
-        finally:
-            step.all_reduce_mean_ = saved
     if mesh is not None and mesh.rank != 0:
         return None
-    weights, frames, prog = m.weights, m.frames, m.prog
-    row = dict(workload=cell.name, seed=seed)
-    if m.run.kind == "eval":
-        ref = check.reference_eval(cell, weights, frames)
-        row["program"] = check.eval_numbers(prog, ref, frames.mask1)
-        if controls:
-            ctl = check.reference_eval(cell, weights, frames, control=True)
-            row["control"] = check.eval_numbers(ctl, ref, frames.mask1)
-    else:
-        ref = check.reference_train(cell, weights, frames)
-        row["program"] = check.train_numbers(prog, ref, weights)
-        if controls:
-            ctl = check.reference_train(cell, weights, frames, control=True)
-            half = check.reference_train(
-                cell, weights, frames, streams=cell.traffic["streams"] // 2)
-            row["control"] = check.train_numbers(ctl, ref, weights)
-            row["half_batch"] = check.train_numbers(half, ref, weights)
-            if exchange is not None:
-                row["exchange_left_out"] = check.train_numbers(
-                    exchange, ref, weights)
-            # a witness of the numbers' own noise: the reference from
-            # weights moved by about one float32 rounding
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            nudged = {k: v * (1 + 6e-8 * torch.randn(
-                v.shape, generator=gen, device=dev))
-                if v.is_floating_point() else v
-                for k, v in weights.items()}
-            moved = check.reference_train(cell, nudged, frames)
-            row["rounding"] = check.train_numbers(moved, ref, nudged)
+    kind, weights, frames = m.run.kind, m.weights, m.frames
+    ref = fam.reference(kind, cell, weights, frames)
+    row = dict(workload=cell.name, seed=seed, program=harness.numbers(
+        cell, kind, weights, frames, m.prog, ref))
+    if controls:
+        ctl = fam.reference(kind, cell, weights, frames, control=True)
+        row["control"] = harness.numbers(cell, kind, weights, frames, ctl,
+                                         ref)
+        row.update(fam.fault_readings(kind, cell, weights, frames, ref,
+                                      seed, exchange))
     row["seconds"] = time.perf_counter() - t0
     return row
 

@@ -61,7 +61,7 @@ ZERO_GRAD = 1e-3
 
 
 @contextlib.contextmanager
-def _float32(control: bool):
+def reference_precision(control: bool):
     """The reference's precision: float32 products with TF32 off, or the
     control's TF32 products."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
@@ -90,7 +90,7 @@ def reference_eval(cell, weights, frames, control=False):
     state = model.fresh_state(frames.pc1.shape[0], dev)
     keys = ("cls", "warp", "labels", "track_id", "conf")
     outs = {k: [] for k in keys}
-    with torch.no_grad(), _float32(control):
+    with torch.no_grad(), reference_precision(control):
         for t in range(frames.pc1.shape[1]):
             out, state = model(frame_at(frames, t), state)
             for k in keys:
@@ -111,7 +111,7 @@ def reference_train(cell, weights, frames, control=False, streams=None):
     pretrain = cell.workload["pretrain"]
     state = model.fresh_state(frames.pc1.shape[0], dev)
     losses, grad = [], None
-    with _float32(control):
+    with reference_precision(control):
         for t in range(frames.pc1.shape[1]):
             opt.zero_grad(set_to_none=True)
             fr = frame_at(frames, t)
@@ -203,15 +203,6 @@ def train_numbers(prog: dict, ref: dict, weights: dict) -> dict:
                 loss_gap_steps=float(loss.max()),
                 grad_gap_median=float(np.median(grad)),
                 change_gap_worst=float(moved.max()))
-
-
-def numbers(kind: str, cell, weights, frames, prog):
-    """Run the reference and compare -> {name: value}."""
-    if kind == "eval":
-        return eval_numbers(prog, reference_eval(cell, weights, frames),
-                            frames.mask1)
-    return train_numbers(prog, reference_train(cell, weights, frames),
-                         weights)
 
 
 def verdict(values: dict, limits: dict):

@@ -6,7 +6,9 @@ The window dispatches whole blocks back to back (a closed loop) until
 it. The rate is every frame of every block completed over the time from
 the first dispatch to the last block's synchronise. Set-up is everything
 before the window: imports, the kernel library, weights, traffic and one
-warm-up block of the cell's own shapes.
+warm-up block of the cell's own shapes. The model is reached only through
+the cell's family (spec.py): its weights, their preparation, the traced
+slice's work and FLOPs, and the comparison.
 """
 
 from __future__ import annotations
@@ -19,14 +21,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import check, spec, traffic, work
+from . import check, spec, traffic
 from .trace import profile_frames, sync
-from .weights import make_state_dict, place_motion_threshold
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ratrack_tpu")
-# clouds above this many points take the program's split correlator (kernels
-# B5 and B4; its models/correlator.py::SPLIT_ABOVE)
-SPLIT_ABOVE = 4096
 
 
 def forbidden_modules() -> list:
@@ -53,35 +51,6 @@ class Run:
         return self.frames / self.window_s
 
 
-def slice_work(cell, pool, j, frames, kind):
-    """The kernel work of the slice's frame steps (the first `frames` of
-    block j), by layer, from the frames themselves with the reference's
-    selections."""
-    args = cell.config["model"]
-    npoint, exact = args["npoint"], args.get("exact_fps", False)
-    split = cell.traffic["n_max"] > SPLIT_ABOVE
-    out = {"set_abstraction": [], "cost_volume": []}
-    fr = traffic.block(pool, j, cell.traffic["block_frames"])
-    with torch.no_grad():
-        for s in range(frames):
-            f = traffic.frame_at(fr, s)
-            pc1 = work.level_clouds(f.pc1, f.mask1, npoint, exact)
-            pc2 = work.level_clouds(f.pc2, f.mask2, npoint, exact)
-            if kind == "eval":
-                # the pc1 head and the embedding head; the cached scan
-                # computes the pc2 head at the block's first frame only
-                heads = [pc1, pc1] + ([pc2] if s == 0 else [])
-                calls, corr = work.sa_eval_calls, (
-                    work.corr_split_calls if split else work.corr_eval_calls)
-            else:
-                heads = [pc1, pc2, pc1]
-                calls, corr = work.sa_train_calls, work.corr_train_calls
-            for h in heads:
-                out["set_abstraction"] += calls(h)
-            out["cost_volume"] += corr(f.pc1, f.mask1, f.mask2)
-    return out
-
-
 @dataclass
 class Measured:
     """The program's side of a run, its state freed: what the check
@@ -97,19 +66,13 @@ def run_program(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                 device, t_start: float, mesh=None) -> Measured:
     """Set-up, the window, the traced slice and the program's side of
     the check, the program's state freed at the end."""
-    wl, mix = cell.workload, cell.traffic
+    wl, mix, fam = cell.workload, cell.traffic, cell.family
     streams = mix["streams"] if mesh is None else mix["streams"] // mesh.dp
-    entry_cls = spec.entry_module(wl["entry"]).Entry
+    entry_cls = spec.entry_module(wl["entry"], cell.home).Entry
     rng = np.random.default_rng(np.random.SeedSequence(seed))
-    weights = make_state_dict(cell.config["model"], seed, device)
+    weights = fam.make_weights(cell, seed, device)
     full = pool = traffic.make_pool(mix, seed, device)
-    if "moving_share" in wl:
-        weights = place_motion_threshold(
-            cell.config["model"], weights, traffic.frame_at(full, 0),
-            wl["moving_share"])
-        if device.type == "cuda":   # the peak is the program's, not the probe's
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
+    weights = fam.prepare(cell, weights, full, device)
     if mesh is not None:    # this rank's streams
         lo = mesh.rank * streams
         pool = traffic.FrameBatch(*[x[lo:lo + streams] for x in full])
@@ -133,10 +96,8 @@ def run_program(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     if trace:
         frames = min(wl["trace_frames"], mix["block_frames"])
         run.slice = profile_frames(entry, j, frames, device)
-        run.work = slice_work(cell, pool, j, frames, entry.kind)
-        run.flops_per_frame = work.model_flops_per_frame(
-            cell.config["model"], mix["n_max"],
-            entry.kind == "train")
+        run.work = fam.slice_work(cell, pool, j, frames, entry.kind)
+        run.flops_per_frame = fam.flops_per_frame(cell, entry.kind)
 
     frames, prog = entry.sample(rng)
     if mesh is not None:    # the reference follows every rank's streams
@@ -161,7 +122,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     if mesh is not None and mesh.rank != 0:
         return None
     run, peak = m.run, m.peak
-    values = check.numbers(run.kind, cell, m.weights, m.frames, m.prog)
+    values = numbers(cell, run.kind, m.weights, m.frames, m.prog)
     correct, rows = check.verdict(values, cell.workload["check"]["limits"])
 
     if trace:
@@ -190,6 +151,17 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             idle_gaps=[list(x) for x in sl.idle_gaps()])
     result["check"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
     return result
+
+
+def numbers(cell: spec.Cell, kind: str, weights, frames, got,
+            ref=None) -> dict:
+    """The check's numbers of `got` (the program's outputs or readings,
+    or the control's in their place) against the family's reference
+    (run here unless `ref` is given) -> {name: value}."""
+    fam = cell.family
+    if ref is None:
+        ref = fam.reference(kind, cell, weights, frames)
+    return fam.compare(kind, got, ref, weights, frames)
 
 
 def _agree(mesh, done: bool, device) -> bool:

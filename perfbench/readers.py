@@ -5,24 +5,7 @@ of a peak."""
 
 from __future__ import annotations
 
-import re
-
 from . import work
-
-# the kernels of a layer, by the names the trace gives them (csrc/*.cu)
-KERNELS = {
-    "set_abstraction.eval": re.compile(r"(^|[^A-Za-z_])sa_kernel\b"),
-    "cost_volume.eval": re.compile(
-        r"(^|[^A-Za-z_])(knn_staged_kernel|aggregate_kernel|"
-        r"knn_prep_kernel|knn_select_kernel)\b"),
-    "set_abstraction.train": re.compile(
-        r"(^|[^A-Za-z_])(select_kernel|fwd_cluster_kernel|"
-        r"bwd_cluster_kernel)\b|finish_kernel.*ScalePair"),
-    "cost_volume.train": re.compile(
-        r"(^|[^A-Za-z_])(knn_staged_kernel|aggregate_kernel|bwd_head_kernel|"
-        r"pair_layer_kernel|bwd_tail_kernel)\b|"
-        r"finish_kernel(?!.*ScalePair)"),
-}
 
 
 def _traced(run, kind):
@@ -45,10 +28,11 @@ def device_idle_pct(run, kind):
 
 def roofline(run, kind, layer):
     """100 x the least time the card could take for the layer's counted
-    work in the slice / its kernels' device time there."""
+    work in the slice (the family's slice_work) / the device time there
+    of its kernels (the family's KERNELS)."""
     if not _traced(run, kind) or not run.work.get(layer):
         return None
-    pattern = KERNELS[f"{layer}.{kind}"]
+    pattern = run.cell.family.KERNELS[f"{layer}.{kind}"]
     seconds = run.slice.kernel_s(lambda name: pattern.search(name))
     if seconds <= 0.0:
         return None

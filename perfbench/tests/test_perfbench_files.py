@@ -1,6 +1,7 @@
-"""BENCHMARK.json and the files it names: every configuration, mix,
-workload, entry and metric reader loads, and the harness finds each by
-name; the run refuses a machine without a card."""
+"""BENCHMARK.json and the files it names: every configuration, family,
+mix, workload, entry and metric reader loads, and the harness finds each
+by name; a configuration without a family file stops the run, naming the
+file; the run refuses a machine without a card."""
 
 import json
 import subprocess
@@ -24,7 +25,7 @@ def test_benchmark_keys():
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_files_load(name):
     cell = spec.cell(name)
-    assert cell.config["model"]["npoint"] > 0
+    assert set(cell.config["model"]) == set(cell.family.MODEL_KEYS)
     assert cell.traffic["streams"] >= 1
     assert spec.entry_module(cell.workload["entry"]).Entry.kind in (
         "eval", "train")
@@ -45,6 +46,29 @@ def test_every_config_is_used():
     for c in BENCH["configs"]:
         with open(spec.ROOT / c["file"]) as f:
             assert json.load(f)["reduced"] == c["reduced"]
+
+
+@pytest.mark.parametrize("family", [None, "no_such_family"])
+def test_config_without_a_family_file_stops(tmp_path, family):
+    """A configuration with no "family" key, or one that names a family
+    with no file, stops the run with an error that names the file."""
+    bench = spec.benchmark()
+    conf = dict(bench["configs"][0])
+    config = spec.read_json(spec.ROOT / conf["file"])
+    config.pop("family")
+    if family is not None:
+        config["family"] = family
+    conf["file"] = str(tmp_path / "config.json")
+    with open(conf["file"], "w") as f:
+        json.dump(config, f)
+    bench["configs"] = [conf]
+    cell = next(w["name"] for w in bench["workloads"]
+                if w["config"] == conf["name"])
+    with pytest.raises(SystemExit) as err:
+        spec.cell(cell, bench)
+    assert conf["file"] in str(err.value)
+    if family is not None:
+        assert str(spec.HERE / "families" / f"{family}.py") in str(err.value)
 
 
 def test_run_refuses_without_a_card():

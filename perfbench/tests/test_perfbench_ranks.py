@@ -2,8 +2,9 @@
 (ratrack_tpu_torch.parallel.mesh.init_from_env(device="cpu")), each
 running the harness on its shard of a tiny train_vod512_dp4 as rank r;
 rank 0's result is correct, and comes out not correct with the exchange
-between the ranks left out."""
+between the ranks left out (the family's exchange_left_out)."""
 
+import contextlib
 import json
 import time
 
@@ -23,16 +24,14 @@ def _rank(rank, rdv, out, fault):
     from perfbench import harness
     from perfbench.tests.tiny import SEED, tiny_cell
     from ratrack_tpu_torch.parallel import mesh as mesh_mod
-    if fault:
-        mesh_mod.all_reduce_mean_ = lambda mesh, tensors: None
-        import ratrack_tpu_torch.train.step as step
-        step.all_reduce_mean_ = mesh_mod.all_reduce_mean_
     device = mesh_mod.init_from_env("cpu", init_method=f"file://{rdv}")
     mesh = mesh_mod.make_mesh()
     cell = tiny_cell(CELL)
     cell.traffic.update(streams=2 * WORLD)
-    res = harness.run_cell(cell, SEED, 1.0, False, device,
-                           time.perf_counter(), mesh=mesh)
+    with (cell.family.exchange_left_out() if fault
+          else contextlib.nullcontext()):
+        res = harness.run_cell(cell, SEED, 1.0, False, device,
+                               time.perf_counter(), mesh=mesh)
     torch.distributed.destroy_process_group()
     if rank == 0:
         with open(out, "w") as f:
