@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval, train, stretch, general-SA-level and
 serving paths in float32 and bfloat16, its CLI, its visualisers, its
-offline scoring and its data parallelism on one NVIDIA GPU (or several,
-for phase 21) and check them.
+offline scoring, its data parallelism and FLOT's flow scan on one NVIDIA
+GPU (or several, for phase 21) and check them.
 
-    python3 chip_smoke.py [--profile DIR] [--dp-only]
+    python3 chip_smoke.py [--profile DIR] [--dp-only | --flot-only]
 
 Phases, each printing one line:
   1. card       the card's name and power limit (nvidia-smi);
@@ -255,10 +255,24 @@ Phases, each printing one line:
                 2e-2, one checkpoint set written by rank 0, restored into a
                 one-process model. `--dp-only` runs phase 21 alone after
                 the build (the run for a machine of several cards).
+  22. flot      FLOT (configs/flot_8192.yaml, seeded weights, eps 0.08,
+                gamma 1), run after phase 20: (a) on the main path's
+                inputs, 8 streams of 8192 points, B5 at k = 32 (FLOT's
+                graph) against its plain version, indices, keys and
+                validity equal, beside one library call (cdist + topk of
+                32); B11 on the features FLOT computes there against its
+                plain twin, the flow within 5e-4 m; times as phase 3's;
+                (b) the flow scan over 2 streams x 2 frames on the card
+                against the CPU: flow and ot_flow within 1e-4 m, launches
+                counted from zero just before (B5 a frame and one more at
+                the block's first, B11 a frame); (c) the scan at 8 streams
+                x 16 frames, frames/s and peak memory (no gate).
+                `--flot-only` runs phase 22 alone after the build.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's, the bfloat16
-instantiations from phase 19's (b), (d) and (e)), error, times
+instantiations from phase 19's (b), (d) and (e), B11 from phase 22 (b)),
+error, times
 summed over the calls one frame step of that path makes (6 B1, 6 B2, 2 B3;
 9 B9, 2 B10; 2 B5, 2 B4, 6 B6, 1 B7; for B1' the 4 and for B8 the 6
 scales that phase 13's three levels launch one by one; the bfloat16
@@ -273,9 +287,11 @@ two sa1 calls of a stretch frame (8192 points x 512 centers: stretch_ms,
 stretch_plain_ms, stretch_bound_ms), likewise for B2 its two fp1 calls of
 a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
-select_library_ms, select_bound_ms); and last the result
-line. Any failed check exits non-zero before the result line (phases 6-8,
-12-20 and 21 record their failed checks and go on, so that one run reports
+select_library_ms, select_bound_ms), for B5 FLOT's graph at k = 32
+(graph_ms, graph_plain_ms, graph_library_ms, graph_bound_ms); and last
+the result line. Any failed check exits non-zero before the result line
+(phases 6-8, 12-20, 21 and 22 (b) and (c) record their failed checks
+and go on, so that one run reports
 all of them; the script then exits non-zero; a rank that fails fails the
 spawn, and with it the script). With no CUDA device, or without the ratrack_tpu_torch
 package beside this file, it exits non-zero at once.
@@ -327,6 +343,17 @@ DP_CLASS = 1e-5           # phase 21 (a): the float32 reduction class
 DP_PERTURB = 1e-7         # phase 21 (a): relative noise on the yardstick
                           # run's weights, float32's rounding
 DP_CLI_CUTS = {"epochs": 1}   # of synth_train.yaml (dp 4), phase 21 (c)
+FLOT_CONFIG = "configs/flot_8192.yaml"
+FLOT_STREAMS = 8          # phase 22: the FLOT cell's 8 streams of
+FLOT_N = 8192             # 8192 points, all valid,
+FLOT_K = 32               # a kNN graph of 32
+FLOT_SLICE = (2, 2)       # streams, frames of the scan held to the CPU's
+FLOT_SCAN_T = 16          # frames of the timed scan, the cell's block
+# the scan on the card against the CPU's (tests/test_torch_port_flot.py
+# FLOW_TOL) and B11 against its twin (KERNEL_FLOW_TOL: float32 sums of up
+# to 8192 terms in another order, barycentres ~60 m out), in metres
+FLOT_FLOW_TOL = 1e-4
+FLOT_KERNEL_TOL = 5e-4
 REPS = 20
 SEED = 0
 # B6's launch shapes timed against each other: (threads a block, blocks a
@@ -384,6 +411,9 @@ KERNELS = {
     "sinkhorn_uv": dict(
         source="ratrack_tpu_torch/csrc/sinkhorn.cu",
         replaces="ratrack_tpu/ops/pallas_sinkhorn.py:44 (_kernel)"),
+    "transport_flow": dict(
+        source="ratrack_tpu_torch/csrc/transport.cu",
+        replaces="none (FLOT's transport; the JAX package runs no FLOT)"),
 }
 # the bfloat16-operand instantiations (phase 19), by the float32 kernel
 # they instantiate
@@ -400,9 +430,10 @@ EVAL_KERNELS = ("sa_pair", "three_interpolate", "knn_weight_aggregate")
 STRETCH_KERNELS = ("knn_tiled", "knn_gather_apply", "furthest_point_sample",
                    "sinkhorn_uv")
 SCALE_KERNELS = ("sa_scale", "sa_scale_train_fwd", "sa_scale_train_bwd")
+FLOT_KERNELS = ("transport_flow",)
 TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
                       EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
-                      + BF16_KERNELS)
+                      + BF16_KERNELS + FLOT_KERNELS)
 
 
 FAILED: list = []   # failed checks of phases 6-8 and 12-20
@@ -3304,6 +3335,149 @@ def dp_cli(torch, card: str, tmp: str, world: int, dev):
                        f" finite {finite}")
 
 
+def flot_model(torch, seed: int, device):
+    """FLOT built from configs/flot_8192.yaml with seeded weights, and
+    epsilon = ln 0.05, gamma = 0 (eps 0.08, gamma 1) as the benchmark sets
+    them: a plan that separates features, so the flow sees the cost."""
+    from ratrack_tpu_torch.config import load_config
+    from ratrack_tpu_torch.models import model_from_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    model = model_from_config(load_config(os.path.join(here, FLOT_CONFIG)),
+                              generator=torch.Generator().manual_seed(seed),
+                              device=device)
+    model.epsilon.fill_(math.log(0.05))
+    model.gamma.fill_(0.0)
+    return model
+
+
+def flot_frames(torch, seed: int, streams: int, t: int, device):
+    """The FLOT cell's clouds: FLOT_N points all valid (5 objects of 12)."""
+    return make_frames(torch, seed, t, device, FLOT_N, streams, FLOT_N - 60)
+
+
+def phase_flot(torch, seed: int, card: str):
+    """Phase 22: B5 at k = 32 and B11 on the main path's inputs against
+    their plain versions; FLOT's scan on the card against the CPU's, with
+    its launch counts; the timed scan at the cell's shape."""
+    from ratrack_tpu_torch.data import to_tensors
+    from ratrack_tpu_torch.kernels import cases
+    from ratrack_tpu_torch.ops import fused_knn, fused_transport
+    from ratrack_tpu_torch.train.step import make_scan_flow_step_cached
+
+    dev = torch.device("cuda")
+    summary = new_summary(("transport_flow", "knn_graph"))
+    model = flot_model(torch, seed, dev)
+    frames = flot_frames(torch, seed + 22, FLOT_STREAMS, 1, dev)
+    pc1 = frames.pc1[:, 0].contiguous()
+    pc2 = frames.pc2[:, 0].contiguous()
+
+    def check_graph(got, want):
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        if not same:
+            fail(f"knn_tiled k={FLOT_K}: indices, keys or validity differ "
+                 f"from the plain version")
+        return 0.0, 0.0
+
+    graph = dict(query=pc1, points=pc1, points_mask=None, k=FLOT_K)
+    runs = [dict(
+        kernel="knn_graph", config=f"{FLOT_STREAMS}x{FLOT_N}.k{FLOT_K}",
+        run_k=lambda: fused_knn.knn_indices_tiled(pc1, pc1, k=FLOT_K,
+                                                  return_keys=True),
+        run_p=lambda: fused_knn.knn_indices_tiled_reference(pc1, pc1,
+                                                            k=FLOT_K),
+        check=check_graph,
+        work=lambda got: cases.knn_tiled_work(graph, got[0], got[1]),
+        # one library selection: the top 32 of the dense distance matrix
+        library=lambda: torch.topk(torch.cdist(pc1, pc1), FLOT_K, dim=-1,
+                                   largest=False))]
+
+    with torch.inference_mode():
+        f1 = model.features(pc1, model.graph(pc1))
+        f2 = model.features(pc2, model.graph(pc2))
+        f1 = f1 / torch.sqrt(torch.sum(f1 ** 2, -1, keepdim=True) + 1e-8)
+        f2 = f2 / torch.sqrt(torch.sum(f2 ** 2, -1, keepdim=True) + 1e-8)
+        eps = torch.exp(model.epsilon) + 0.03
+        gamma = torch.exp(model.gamma)
+    transport = dict(f=f1, g=f2, p=pc1, q=pc2, eps=eps,
+                     power=gamma / (gamma + eps), iters=model.nb_iter,
+                     support2=float(model.support_m) ** 2)
+
+    def check_transport(got, want):
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        if not (err <= FLOT_KERNEL_TOL and finite):
+            fail(f"transport_flow: max_abs_err {err} m (tol "
+                 f"{FLOT_KERNEL_TOL}), finite {finite}")
+        return err, FLOT_KERNEL_TOL
+
+    runs.append(dict(
+        kernel="transport_flow",
+        config=f"{FLOT_STREAMS}x{FLOT_N}x{FLOT_N}",
+        run_k=lambda: fused_transport.transport_flow(**transport),
+        run_p=lambda: fused_transport.transport_flow_reference(**transport),
+        check=check_transport,
+        work=lambda got: cases.transport_flow_work(transport, got)))
+    run_kernel_cases(torch, "flot_kernel", runs, summary)
+    del runs, graph, transport, f1, f2
+
+    # the scan: FLOT_SLICE on the card against the CPU from one seed
+    b, t = FLOT_SLICE
+    cpu_frames = flot_frames(torch, seed + 23, b, t, "cpu")
+    t0 = time.perf_counter()
+    want = make_scan_flow_step_cached(flot_model(torch, seed, "cpu"))(
+        cpu_frames)
+    cpu_s = time.perf_counter() - t0
+    scan = make_scan_flow_step_cached(model)
+    card_frames = to_tensors(cpu_frames, dev)
+    fused_knn.knn_indices_tiled.launches = 0
+    fused_transport.transport_flow.launches = 0
+    got = scan(card_frames)
+    torch.cuda.synchronize()
+    launches = dict(knn_tiled=fused_knn.knn_indices_tiled.launches,
+                    transport_flow=fused_transport.transport_flow.launches)
+    # a graph a frame and pc2's at the block's first; a transport a frame
+    if launches != dict(knn_tiled=t + 1, transport_flow=t):
+        record_failure(f"flot slice launch counts {launches}, expected "
+                       f"{dict(knn_tiled=t + 1, transport_flow=t)}")
+    gaps = {key: (got[key].cpu() - want[key]).abs().max().item()
+            for key in ("flow", "ot_flow")}
+    for key, gap in gaps.items():
+        if not gap <= FLOT_FLOW_TOL:
+            record_failure(f"flot slice {key}: max gap {gap} m to the CPU "
+                           f"(tol {FLOT_FLOW_TOL})")
+    emit(phase="flot_slice", streams=b, frames=t, n=FLOT_N,
+         flow_gap_m=gaps["flow"], ot_flow_gap_m=gaps["ot_flow"],
+         tol_m=FLOT_FLOW_TOL, launches=launches, cpu_seconds=cpu_s)
+    del got, want, card_frames, cpu_frames
+
+    # the scan at the cell's shape: FLOT_STREAMS x FLOT_SCAN_T, no gate
+    frames = flot_frames(torch, seed + 24, FLOT_STREAMS, FLOT_SCAN_T, dev)
+    scan(frames)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for rep in range(3):
+        fused_knn.knn_indices_tiled.launches = 0
+        fused_transport.transport_flow.launches = 0
+        t0 = time.perf_counter()
+        scan(frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    scan_launches = dict(
+        knn_tiled=fused_knn.knn_indices_tiled.launches,
+        transport_flow=fused_transport.transport_flow.launches)
+    if scan_launches != dict(knn_tiled=FLOT_SCAN_T + 1,
+                             transport_flow=FLOT_SCAN_T):
+        record_failure(f"flot throughput launch counts {scan_launches}")
+    dt = statistics.median(times)
+    emit(phase="flot_throughput", streams=FLOT_STREAMS, frames=FLOT_SCAN_T,
+         n=FLOT_N, seconds=times,
+         frames_per_s=FLOT_STREAMS * FLOT_SCAN_T / dt,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         card=card, launches=scan_launches)
+    return summary, {"transport_flow": launches["transport_flow"]}
+
+
 def run_phase_dp(torch, card: str):
     tmp = tempfile.mkdtemp(prefix="ratrack_dp_")
     try:
@@ -3440,6 +3614,9 @@ def main() -> None:
                     help="only phase 21 (data parallelism over the cards) "
                          "after the build: the run for a machine of "
                          "several cards")
+    ap.add_argument("--flot-only", action="store_true",
+                    help="only phase 22 (FLOT: B5 at k = 32, B11, the "
+                         "flow scan) after the build")
     args = ap.parse_args()
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3465,6 +3642,14 @@ def main() -> None:
          ptxas=ptxas_summary(build.last_build["log"]))
     if args.dp_only:
         run_phase_dp(torch, card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.flot_only:
+        phase_flot(torch, SEED, card)
+        if FAILED:
+            fail(f"{len(FAILED)} failed checks in phase 22")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3503,13 +3688,15 @@ def main() -> None:
         phase_bf16_train(torch, SEED, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    flot_summary, flot_launches = phase_flot(torch, SEED, card)
+    summary.update(flot_summary)
     if FAILED:
-        fail(f"{len(FAILED)} failed checks in phases 12-20")
+        fail(f"{len(FAILED)} failed checks in phases 12-20 and 22")
     run_phase_dp(torch, card)
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},
-                **scale_launches, **bf16_launches}
+                **scale_launches, **bf16_launches, **flot_launches}
     if not all(launches.values()):
         fail(f"a kernel was never launched on its path: {launches}")
 
@@ -3528,12 +3715,13 @@ def main() -> None:
             library_ms=entry["library_ms"]))
     # B1 and B2 at the stretch shape: both heads' sa1 (8192 points x 512
     # centers) and fp1 (8192 unknowns x 512 known points); B3's selection
-    # launches of an eval step
+    # launches of an eval step; B5 at k = 32, FLOT's graph
     for name, part, prefix in (("sa_pair", "sa_pair_stretch", "stretch"),
                                ("three_interpolate",
                                 "three_interpolate_stretch", "stretch"),
                                ("knn_weight_aggregate", "knn_select",
-                                "select")):
+                                "select"),
+                               ("knn_tiled", "knn_graph", "graph")):
         entry = summary[part]
         bound_ms, _ = roofline(entry["bytes"], entry["mm_ops"], entry["ops"])
         extra = {f"{prefix}_ms": entry["ms"],

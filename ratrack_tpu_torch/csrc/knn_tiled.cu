@@ -1,7 +1,7 @@
 // Tiled kNN selection for large clouds (kernel B5).
 //
 // Replaces the TPU kernel ratrack_tpu/ops/pallas_knn.py::_knn_kernel
-// (knn_indices_tiled). For each query: the k <= 16 nearest valid
+// (knn_indices_tiled). For each query: the k <= 32 nearest valid
 // candidates in ascending order of the expanded-form distance
 // (common.cuh::sq_dist, bit for bit ops.neighborhood.point_distance),
 // equal distances to the lowest candidate index. Outputs
@@ -28,10 +28,14 @@
 //                 over its VALID points (exact min / max, the count, sum
 //                 of max squares);
 //   knn_select_kernel a block owns a tile of Q queries, 16 lanes (half a
-//                 warp) a query: the top-k list of knn_common.cuh
-//                 (insertion, a bitonic merge for a batch that many
+//                 warp) a query for k <= 16, a warp a query for 16 < k <=
+//                 32: the top-k list of knn_common.cuh (WarpList<16> or
+//                 <32>: insertion, a bitonic merge for a batch that many
 //                 candidates beat), which B3's selection launch
-//                 (correlator.cu) shares.
+//                 (correlator.cu) shares at depth 16. Depth 32 (FLOT's
+//                 kNN graph, k = 32) is instantiated at 8 queries a block
+//                 only, the one launch shape the port uses at that depth,
+//                 so that the build grows by one kernel.
 //                 Chunks of P candidates (128-512) come through cp.async,
 //                 double-buffered. The TPU kernel's gate 1, with boxes for
 //                 its spheres: the chunks are visited locality first (from
@@ -62,7 +66,7 @@
 namespace {
 
 using ratrack::knn::kK;
-using ratrack::knn::kLanes;
+using ratrack::knn::kKWarp;
 constexpr int kBox = 8;       // lo xyz, hi xyz, valid count, sum max(lo^2, hi^2)
 constexpr int kMaxChunk = 512;
 constexpr float kMargin = 4e-6f;
@@ -173,8 +177,8 @@ __device__ __forceinline__ bool box_needed(const float* box,
   return !(bound > kth);
 }
 
-template <int kQ>
-__global__ void __launch_bounds__(kQ * kLanes)
+template <int kQ, int kW>
+__global__ void __launch_bounds__(kQ * kW)
 knn_select_kernel(const float* __restrict__ query,
                   const float4* __restrict__ packed,
                   const float* __restrict__ boxes, int n, int m_pad, int k,
@@ -183,9 +187,10 @@ knn_select_kernel(const float* __restrict__ query,
   extern __shared__ float4 buf[];            // 2 x chunk candidates
   __shared__ float qc[kQ][3];
   __shared__ float kq[kQ];
-  constexpr int kThreads = kQ * kLanes;
+  using List = ratrack::knn::WarpList<kW>;
+  constexpr int kThreads = kQ * kW;
   const int tid = threadIdx.x;
-  const int ql = tid / kLanes, l16 = tid % kLanes;
+  const int ql = tid / kW, l16 = tid % kW;
   const int bi = blockIdx.y;
   const int qi = blockIdx.x * kQ + ql;
   const bool active = qi < n;
@@ -223,7 +228,7 @@ knn_select_kernel(const float* __restrict__ query,
     sq = __fadd_rn(sq, fmaxf(__fmul_rn(qlo[a], qlo[a]),
                              __fmul_rn(qhi[a], qhi[a])));
 
-  auto list = ratrack::knn::HalfWarpList::empty(k, tid & 31);
+  auto list = List::empty(k, tid & 31);
   float tile_kth = CUDART_INF_F;
 
   auto chunk_needed = [&](int c) {
@@ -261,7 +266,7 @@ knn_select_kernel(const float* __restrict__ query,
     const int c = (c0 + p_cur) % n_chunks;
     if (chunk_needed(c)) {
       const float4* cb = buf + b * chunk;
-      for (int s = 0; s < chunk; s += ratrack::knn::kStep)
+      for (int s = 0; s < chunk; s += List::kStep)
         list.step(cb + s, c * chunk + s, qx, qy, qz, sqq, active);
     }
     if (l16 == 0) kq[ql] = list.kd;
@@ -272,7 +277,7 @@ knn_select_kernel(const float* __restrict__ query,
     b ^= 1;
   }
 
-  const int first = __shfl_sync(ratrack::kFullMask, list.sj, 0, kLanes);
+  const int first = __shfl_sync(ratrack::kFullMask, list.sj, 0, kW);
   if (!active || l16 >= k) return;
   const bool filled = list.sj != INT_MAX;
   const size_t o = ((size_t)bi * n + qi) * k + l16;
@@ -280,22 +285,22 @@ knn_select_kernel(const float* __restrict__ query,
   keys[o] = filled ? -list.sd : -ratrack::kBig;
 }
 
-template <int kQ>
+template <int kQ, int kW = 16>
 int launch_select(const float* query, const float4* packed,
                   const float* boxes, int nb, int n, int m_pad, int k,
                   int chunk, int n_chunks, int* idx, float* keys,
                   cudaStream_t stream) {
   const size_t smem = 2 * sizeof(float4) * chunk;
   const dim3 grid((n + kQ - 1) / kQ, nb);
-  knn_select_kernel<kQ><<<grid, kQ * kLanes, smem, stream>>>(
+  knn_select_kernel<kQ, kW><<<grid, kQ * kW, smem, stream>>>(
       query, packed, boxes, n, m_pad, k, chunk, n_chunks, idx, keys);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// queries: queries a block (8, 16 or 32); chunk: candidates a chunk (128,
-// 256 or 512).
+// queries: queries a block (8, 16 or 32; 8 where k > 16); chunk:
+// candidates a chunk (128, 256 or 512).
 // scratch: nb * n_chunks * (4 * chunk + 8) floats, 16-byte aligned, with
 // n_chunks = ceil(m / chunk).
 extern "C" int ratrack_knn_tiled(const float* query, const float* points,
@@ -303,7 +308,8 @@ extern "C" int ratrack_knn_tiled(const float* query, const float* points,
                                  int m, int k, int queries, int chunk,
                                  float* scratch, int* idx, float* keys,
                                  void* stream) {
-  if (nb < 1 || nb > 65535 || n < 1 || m < 1 || k < 1 || k > kK ||
+  if (nb < 1 || nb > 65535 || n < 1 || m < 1 || k < 1 || k > kKWarp ||
+      (k > kK && queries != 8) ||
       (chunk != 128 && chunk != 256 && chunk != kMaxChunk) ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -316,6 +322,9 @@ extern "C" int ratrack_knn_tiled(const float* query, const float* points,
       points, mask, m, m_pad, chunk, n_chunks, packed, boxes);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
+  if (k > kK)
+    return launch_select<8, kKWarp>(query, packed, boxes, nb, n, m_pad, k,
+                                    chunk, n_chunks, idx, keys, st);
   switch (queries) {
     case 8:
       return launch_select<8>(query, packed, boxes, nb, n, m_pad, k, chunk,

@@ -59,6 +59,8 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _I, _P, _P],
     "ratrack_knn_tiled": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _P],
+    "ratrack_transport_flow": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                               _P, _P, _P, _P, _P],
     "ratrack_fps": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "ratrack_sinkhorn": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ratrack_sinkhorn_variant": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

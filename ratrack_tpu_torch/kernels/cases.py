@@ -39,6 +39,7 @@ packages.
 of the case read once, every output written once) and the float32
 operations it needs on these inputs, the matrix products' (every x @ W
 multiply-add, 2 K N a row) apart from the rest, for the roofline bound.
+`transport_flow_work` counts B11's (FLOT's transport) likewise.
 `bf16_case` turns an eval kernel's case into its bfloat16 instantiation's
 (compute_dtype, and B2's known features in bfloat16, as the bfloat16 model
 passes them), so the bytes count each tensor at its own width; the
@@ -803,6 +804,18 @@ def knn_tiled_work(kw: dict, idx, keys):
     valid = (int(kw["points_mask"].sum()) if kw["points_mask"] is not None
              else b * kw["points"].shape[1])
     return case_bytes(kw, idx, keys), 0, DIST_OPS * n * valid
+
+
+def transport_flow_work(kw: dict, flow):
+    """B11 -> (bytes, product operations, other operations), counting the
+    dense n x m algorithm: the cost's and the distances' products, 4 n m
+    operations an iteration, 8 n m for the plan's flow and row sums; the
+    features, clouds and flow in and out."""
+    b, n, c = kw["f"].shape
+    m = kw["g"].shape[1]
+    nbytes = case_bytes(kw["f"], kw["g"], kw["p"], kw["q"], flow)
+    return (nbytes, b * 2 * n * m * (c + 3),
+            b * n * m * (4 * kw["iters"] + 8))
 
 
 def fps_work(kw: dict, out):

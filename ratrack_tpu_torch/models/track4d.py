@@ -224,15 +224,24 @@ class Track4D(nn.Module):
 
 def model_from_config(cfg, *, sinkhorn_kernel: bool = False,
                       generator: torch.Generator | None = None,
-                      device=None) -> Track4D:
+                      device=None):
     """Track4D from a `config.Config` (JAX `model_from_config`,
     track4d.py:225-236); `sinkhorn_tol` is the early exit.
     `sinkhorn_kernel` is no config key (the JAX package switches it with a
     module global). `fused_sa: false` (the JAX package's unfused eval path)
     holds on the CPU, where every wrapper takes its plain version; on the
     card the port always runs its kernels, so there it raises. `dtype`:
-    "float32" or "bfloat16" (config.Config refuses any other)."""
+    "float32" or "bfloat16" (config.Config refuses any other).
+
+    `model: flot` builds FLOT (models/flot.py) instead, at its published
+    settings (the `FLOT` constructor's defaults), in float32 only."""
     device = resolve_device(device)
+    if cfg.model == "flot":
+        from .flot import FLOT
+        if cfg.dtype != "float32":
+            raise NotImplementedError(f"FLOT runs in float32; got dtype "
+                                      f"{cfg.dtype!r}")
+        return FLOT(generator=generator, device=device)
     if not cfg.fused_sa and device.type != "cpu":
         raise NotImplementedError(
             f"fused_sa=False on {device}: the port has no switch to its "

@@ -1,5 +1,5 @@
 """Point ops and the kernel wrappers (eval B1-B3, train B9 and B10,
-stretch B4-B7)."""
+stretch B4-B7, FLOT's transport B11)."""
 
 from .neighborhood import (square_distance, point_distance, knn, knn_auto,
                            ball_query, three_nn)
@@ -16,6 +16,7 @@ from .fused_correlator import (fused_knn_weight_aggregate,
 from .fused_knn import (knn_indices_tiled, knn_indices_tiled_reference,
                         knn_tiled)
 from .fused_sinkhorn import sinkhorn_uv, sinkhorn_uv_reference
+from .fused_transport import transport_flow, transport_flow_reference
 from .fused_sa_train import (fused_sa_pair_train, sa_pair_train,
                              sa_pair_train_reference)
 from .fused_correlator_train import (fused_knn_weight_aggregate_train,
@@ -33,6 +34,7 @@ __all__ = [
     "knn_gather_apply", "knn_gather_apply_reference",
     "knn_indices_tiled", "knn_indices_tiled_reference", "knn_tiled",
     "sinkhorn_uv", "sinkhorn_uv_reference",
+    "transport_flow", "transport_flow_reference",
     "fused_sa_pair_train", "sa_pair_train", "sa_pair_train_reference",
     "fused_knn_weight_aggregate_train",
     "knn_weight_aggregate_train_reference",

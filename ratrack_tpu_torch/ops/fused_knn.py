@@ -28,9 +28,11 @@ import torch
 from ..kernels import build as kb
 from .neighborhood import BIG, point_distance
 
-KERNEL_K_MAX = 16        # csrc/knn_tiled.cu keeps a top-16 per query
+KERNEL_K_MAX = 32        # csrc/knn_tiled.cu keeps a top-32 per query
+HALF_WARP_K_MAX = 16     # k up to this on half a warp a query, beyond on a warp
 # Launch shapes of csrc/knn_tiled.cu: queries a block and candidates a
-# chunk (the defaults read off `kernels/tune.py --knn`)
+# chunk (the defaults read off `kernels/tune.py --knn`); a list deeper than
+# HALF_WARP_K_MAX is built at 8 queries a block only
 KERNEL_QUERIES = (8, 16, 32)
 KERNEL_CHUNKS = (128, 256, 512)
 KERNEL_SHAPE = (8, 256)
@@ -100,6 +102,9 @@ def knn_indices_tiled(query, points, points_mask=None, *, k: int,
     if queries not in KERNEL_QUERIES or chunk not in KERNEL_CHUNKS:
         raise ValueError(f"shape {shape}: the kernel takes queries in "
                          f"{KERNEL_QUERIES}, chunks in {KERNEL_CHUNKS}")
+    if k > HALF_WARP_K_MAX and queries != 8:
+        raise ValueError(f"shape {shape}: a list deeper than "
+                         f"{HALF_WARP_K_MAX} takes 8 queries a block")
     idx = torch.empty((b, n, k), device=dev, dtype=torch.int32)
     keys = torch.empty((b, n, k), device=dev, dtype=torch.float32)
     # the packed candidates and each chunk's box (csrc/knn_tiled.cu)

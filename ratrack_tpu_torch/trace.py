@@ -54,6 +54,14 @@ SPANS = {
                  "all-reduces of a data parallel frame step",
     "optimizer": "zero_grad and optimizer_step (Adam, StepLR)",
     "data_wait": "the CLI's wait for the data pipeline (data_wait_s)",
+    # FLOT's frame step (models/flot.py), partitioned by these four
+    "graph": "FLOT.graph: the kNN graph of a cloud (B5 at k = 32 above "
+             "4 M pairs) and its edge offsets",
+    "setconv": "FLOT.features: the feature SetConvs of a cloud",
+    "transport": "unbalanced_transport_flow: the normalised features, "
+                 "kernel B11 or its plain twin",
+    "refine": "FLOT.refine: the refinement SetConvs and the linear layer "
+              "on the transport's flow",
 }
 
 

@@ -1,4 +1,9 @@
-"""Masked log-space Sinkhorn optimal transport with a dustbin, batched.
+"""The port's Sinkhorn transports: RaTrack's masked log-space transport with
+a dustbin (`log_optimal_transport_masked`, below) and FLOT's unbalanced
+scaling-form transport over dense point clouds
+(`unbalanced_transport_flow`, at the end).
+
+Masked log-space Sinkhorn optimal transport with a dustbin, batched.
 Counterpart of `ratrack_tpu/tracker/sinkhorn.py::log_optimal_transport_masked`.
 With tol = 0 it runs all `iters` iterations (500 in the model); with tol > 0
 each stream stops early (`sinkhorn_uv_early_exit`).
@@ -59,6 +64,7 @@ import torch
 
 from ..ops.fused_sinkhorn import (lse_bounded, sinkhorn_uv,
                                   sinkhorn_uv_reference)
+from ..ops.fused_transport import transport_flow
 from ..trace import span
 
 NEG = -1e9
@@ -261,3 +267,32 @@ def log_optimal_transport_masked(scores: torch.Tensor, m: torch.Tensor,
 log_optimal_transport_masked.captures = 0
 log_optimal_transport_masked.replays = 0
 log_optimal_transport_masked.eager_on_device = 0
+
+
+@span("transport")
+def unbalanced_transport_flow(f1: torch.Tensor, f2: torch.Tensor,
+                              p1: torch.Tensor, p2: torch.Tensor, eps,
+                              gamma, iters: int, support: float
+                              ) -> torch.Tensor:
+    """FLOT's transport (arXiv:2007.11142, `ot.sinkhorn` and the flow of
+    `FLOT.forward`): features f1 (B, n, C) of the clouds p1 (B, n, 3) and
+    f2 (B, m, C) of p2 (B, m, 3), the entropy eps and the mass penalty
+    gamma (one-element tensors) -> ot_flow (B, n, 3), the flow of p1's
+    points to the plan's barycentres of p2.
+
+    The features are divided by sqrt(|f|^2 + 1e-8); the cost is 1 - their
+    products, pairs at least `support` metres apart carry no mass, and
+    `iters` >= 1 scaling iterations of the unbalanced entropic Sinkhorn
+    run from a = 1/n with the exponent gamma / (gamma + eps)
+    (ops/fused_transport.py states the equations). This normalises the
+    features and hands them to `fused_transport.transport_flow`: CUDA
+    tensors launch kernel B11 (counted in `transport_flow.launches`), which
+    materialises the plan's kernel matrix (B, n, m) for the call and raises
+    on inputs that require grad; CPU tensors take the plain twin, a chunk
+    of rows at a time."""
+    f1 = f1 / torch.sqrt(torch.sum(f1 ** 2, -1, keepdim=True) + 1e-8)
+    f2 = f2 / torch.sqrt(torch.sum(f2 ** 2, -1, keepdim=True) + 1e-8)
+    power = gamma / (gamma + eps)
+    return transport_flow(f1.contiguous(), f2.contiguous(), p1.contiguous(),
+                          p2.contiguous(), eps, power, iters,
+                          float(support) ** 2)

@@ -23,6 +23,10 @@ each frame's f1 is carried as the next frame's f2. `make_eval_step` and
 heads every frame, as serving runs it. `make_pipelined_eval_step`
 (:219-365) runs every stage that depends on no earlier frame once over the
 whole (B, T) block and only the GRU and the ID inheritance frame by frame.
+
+FLOT (`make_scan_flow_step_cached`, the port's own): the same carry as the
+cached eval scan, pc1's features of frame t serving as pc2's of frame
+t + 1, so a frame step computes one cloud's graph and features.
 """
 
 from __future__ import annotations
@@ -115,6 +119,37 @@ def make_scan_eval_step_cached(model, mesh=None):
                              for k, v in outs.items()}
 
     return scan_eval
+
+
+def make_scan_flow_step_cached(model):
+    """-> scan_flow(frames (B, T, ...)) -> {"flow", "ot_flow"}: (B, T, n,
+    3) each, FLOT's refined flow and its transport's flow, frame by frame.
+    A frame step builds pc1's graph, runs pc1's features, the transport
+    against the carried features of pc2 (the previous step's pc1) and the
+    refinement on pc1's graph; a block's first frame computes pc2's
+    features too. Valid where `chain_contiguous` holds, as the cached eval
+    scan. Every point of every cloud must be valid (models/flot.py): one
+    host sync a block checks the masks."""
+
+    @torch.inference_mode()
+    def scan_flow(frames: FrameBatch):
+        model.check_full(frames.mask1, frames.mask2)
+        pc2 = frames.pc2[:, 0].contiguous()
+        f2 = model.features(pc2, model.graph(pc2))
+        flows, ot_flows = [], []
+        for t in range(frames.pc1.shape[1]):
+            pc1 = frames.pc1[:, t].contiguous()
+            pc2 = frames.pc2[:, t].contiguous()
+            graph = model.graph(pc1)
+            f1 = model.features(pc1, graph)
+            ot_flow = model.transport(f1, f2, pc1, pc2)
+            flows.append(model.refine(ot_flow, graph))
+            ot_flows.append(ot_flow)
+            f2 = f1
+        return {"flow": torch.stack(flows, dim=1),
+                "ot_flow": torch.stack(ot_flows, dim=1)}
+
+    return scan_flow
 
 
 def make_pipelined_eval_step(model):

@@ -319,5 +319,8 @@ def test_continue_model_resumes_last_and_profile_dir_writes_a_trace(work):
     with open(work / "profile" / "trace.json") as f:
         names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
     from ratrack_tpu_torch.trace import PREFIX, SPANS
-    want = {PREFIX + n for n in SPANS if n != "allreduce"}
+    # the CLI runs RaTrack on one process: no all-reduce, none of FLOT's
+    want = {PREFIX + n for n in SPANS
+            if n not in ("allreduce", "graph", "setconv", "transport",
+                         "refine")}
     assert want <= names, want - names

@@ -1278,14 +1278,16 @@ def _canary_fp_and_stretch(lib, stream, guard, pc, mask, device):
                                   name=f"{name}.idx")), stream), name)
     xyz, dmask = pc.to(device), mask.to(device)
     # the smallest and largest shapes and the kernel's own (8, 256)
-    for queries, chunk in ((8, 128), fused_knn.KERNEL_SHAPE, (32, 512)):
-        name = f"knn_tiled[{queries},{chunk}]"
+    # and the depth-32 list at its one launch shape (8 queries a block)
+    for queries, chunk, k in ((8, 128, 16), fused_knn.KERNEL_SHAPE + (16,),
+                              (32, 512, 16), (8, 256, 32)):
+        name = f"knn_tiled[{queries},{chunk},k={k}]"
         kb.check(lib.ratrack_knn_tiled(
-            kb.ptr(xyz), kb.ptr(xyz), kb.ptr(dmask), b, n, n, 16, queries,
+            kb.ptr(xyz), kb.ptr(xyz), kb.ptr(dmask), b, n, n, k, queries,
             chunk, kb.ptr(guard.view((b * (4 * chunk + 8),),
                                         name=f"{name}.scratch")),
-            kb.ptr(guard.view((b, n, 16), torch.int32, name=f"{name}.idx")),
-            kb.ptr(guard.view((b, n, 16), name=f"{name}.keys")), stream),
+            kb.ptr(guard.view((b, n, k), torch.int32, name=f"{name}.idx")),
+            kb.ptr(guard.view((b, n, k), name=f"{name}.keys")), stream),
             name)
     for threads, blocks in ((0, 0), (32, 1), (128, 2), (128, 8)):
         kb.check(lib.ratrack_fps(
@@ -1464,6 +1466,31 @@ def _canary_sa_train(lib, stream, guard, pc, mask, device):
         assert bool(torch.isfinite(sc["dwx"]).all())
 
 
+def _canary_transport(lib, stream, guard, pc, mask, device):
+    """B11 on the cloud against its first 32 points (m a multiple of 4),
+    128 features, one and two iterations: the plan's scratch, a, b and
+    the flow guarded."""
+    b, n = pc.shape[:2]
+    m, c = 32, 128
+    gen = _gen(78)
+    f = torch.nn.functional.normalize(torch.randn((b, n, c), generator=gen),
+                                      dim=-1).to(device)
+    g = f[:, :m].contiguous()
+    p = pc.to(device)
+    q = p[:, :m].contiguous()
+    params = torch.tensor([0.08, 1.0 / 1.08], device=device)
+    for iters in (1, 2):
+        name = f"transport_flow[{iters}]"
+        a = guard.view((b, n), name=f"{name}.a")
+        a.fill_(1.0 / n)
+        kb.check(lib.ratrack_transport_flow(
+            kb.ptr(f), kb.ptr(g), kb.ptr(p), kb.ptr(q), kb.ptr(params), b, n,
+            m, c, 100.0, iters,
+            kb.ptr(guard.view((b, n, m), name=f"{name}.kmat")), kb.ptr(a),
+            kb.ptr(guard.view((b, m), name=f"{name}.b")),
+            kb.ptr(guard.view((b, n, 3), name=f"{name}.flow")), stream), name)
+
+
 # every C entry of kernels/build.py's library that launches a kernel, by
 # the helper above that calls it with guarded outputs
 CANARY_ENTRIES = {
@@ -1489,6 +1516,7 @@ CANARY_ENTRIES = {
     "ratrack_sa_scale_train_fwd": _canary_sa_train,
     "ratrack_sa_train_bwd": _canary_sa_train,
     "ratrack_sa_scale_train_bwd": _canary_sa_train,
+    "ratrack_transport_flow": _canary_transport,
 }
 
 
@@ -1497,7 +1525,8 @@ def test_kernels_write_only_inside_their_outputs(device, n_valid):
     """Every C entry of the library (CANARY_ENTRIES: B1, B1', B2 at every
     launch shape, B3's two launches (the selection at every tile), B4 at
     both block shapes, the bfloat16 instantiations of B1, B1', B2, B3's
-    aggregate launch and B4 (their outputs are float32), B5, B6 at four
+    aggregate launch and B4 (their outputs are float32), B5 (at k = 16
+    and 32), B11 at one and two iterations, B6 at four
     launch shapes, B7 and each of its variants, the B9 / B8 forward
     and backward, the B10 forward and backward, both correlator stages),
     called directly, with every output and scratch pointer a view inside

@@ -7,8 +7,9 @@ the traces agree.
 
 Paths: the cached scan (both heads at a block's first frame, one head a
 frame after), the uncached scan, the pipelined step (each stage once a
-block, the GRU and the ids once a frame), serving's model step and the
-train scan (one step a frame)."""
+block, the GRU and the ids once a frame), serving's model step, the
+train scan (one step a frame) and FLOT's scan (a graph and the features
+of both clouds at a block's first frame, of one after)."""
 
 import ast
 import collections
@@ -22,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 from ratrack_tpu_torch import trace
 from ratrack_tpu_torch.data.frames import FrameBatch
 from ratrack_tpu_torch.data.synthetic import stack_frames, synthetic_clip
+from ratrack_tpu_torch.models.flot import FLOT
 from ratrack_tpu_torch.models.track4d import Track4D
 from ratrack_tpu_torch.serve import RadarTracker
 from ratrack_tpu_torch.tracker.state import init_state
@@ -39,6 +41,14 @@ def _model():
 def _frames():
     clips = [stack_frames(synthetic_clip(40 + s, T, n_max=N, g_max=6,
                                          n_static=24, n_objects=2,
+                                         pts_per_obj=6)) for s in range(B)]
+    return FrameBatch(*[torch.as_tensor(np.stack(x)) for x in zip(*clips)])
+
+
+def _full_frames():
+    """`_frames` with every point valid, as FLOT takes them."""
+    clips = [stack_frames(synthetic_clip(40 + s, T, n_max=N, g_max=6,
+                                         n_static=N - 12, n_objects=2,
                                          pts_per_obj=6)) for s in range(B)]
     return FrameBatch(*[torch.as_tensor(np.stack(x)) for x in zip(*clips)])
 
@@ -82,6 +92,7 @@ PATHS = {
         _state(), f)[1],
     "serve": _serve,
     "train": _train,
+    "flot": lambda m, f: step_mod.make_scan_flow_step_cached(m)(f),
 }
 # each path's span counts: a frame step of the scans enters the cost
 # volume twice (the head features' concatenation, then the correlator's
@@ -100,12 +111,17 @@ EXPECTED = {
                   head=2 * SERVE_STEPS),
     "train": dict({k: T * v for k, v in PER_STEP.items()}, head=2 * T,
                   forward=T, loss=T, backward=T, optimizer=2 * T),
+    "flot": dict(graph=T + 1, setconv=T + 1, transport=T, refine=T),
 }
 
 
 def _run(path, profiled):
     """-> (outputs, Counter of the spans' short names)."""
-    model, frames = _model(), _frames()
+    if path == "flot":
+        model = FLOT(generator=torch.Generator().manual_seed(3), device="cpu")
+        frames = _full_frames()
+    else:
+        model, frames = _model(), _frames()
     if not profiled:
         return PATHS[path](model, frames), collections.Counter()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
