@@ -268,13 +268,26 @@ Phases, each printing one line:
                 the block's first, B11 a frame); (c) the scan at 8 streams
                 x 16 frames, frames/s and peak memory (no gate).
                 `--flot-only` runs phase 22 alone after the build.
+  23. dbscan    B12 (run after phase 4, on its model): DBSCAN's inputs of
+                one cached eval frame step of that model over 8, 32 and
+                256 synthetic streams of 512 points, under the model's
+                motion mask (what the main path clusters) and under the
+                valid mask: the kernel's labels from square_distance(x, x)
+                equal to dbscan_reference's on the card (torch.equal), the
+                route's too, one launch a call; median CUDA-event ms of
+                the kernel, of the route (distances and kernel) and of the
+                plain version, and the kernel's bound: the bytes of d2 it
+                reads (a masked-in row's 32-byte sectors that hold a
+                masked-in column) and of the mask and labels, at 3.35
+                TB/s.
 Then one JSON line with every kernel's route, source, launches (B1-B3
 from phase 5's run, train kernels from phase 8's, B5 / B4 / B6 / B7 from
 phase 11's 8192-point run, B1' and B8 from phase 13's, the bfloat16
-instantiations from phase 19's (b), (d) and (e), B11 from phase 22 (b)),
+instantiations from phase 19's (b), (d) and (e), B11 from phase 22 (b),
+B12 from phase 5's),
 error, times
 summed over the calls one frame step of that path makes (6 B1, 6 B2, 2 B3;
-9 B9, 2 B10; 2 B5, 2 B4, 6 B6, 1 B7; for B1' the 4 and for B8 the 6
+9 B9, 2 B10; 2 B5, 2 B4, 6 B6, 1 B7; 1 B12; for B1' the 4 and for B8 the 6
 scales that phase 13's three levels launch one by one; the bfloat16
 rows as their float32 ones), the roofline
 bound of the same work (the largest of bytes / 3.35 TB/s, matrix-product
@@ -288,7 +301,9 @@ stretch_plain_ms, stretch_bound_ms), likewise for B2 its two fp1 calls of
 a stretch frame (8192 unknowns x 512 known points), and for B3 its two
 selection launches of an eval step (select_ms, select_plain_ms,
 select_library_ms, select_bound_ms), for B5 FLOT's graph at k = 32
-(graph_ms, graph_plain_ms, graph_library_ms, graph_bound_ms); and last
+(graph_ms, graph_plain_ms, graph_library_ms, graph_bound_ms), for B12
+its call at 32 and at 256 streams (b32_ms, b32_plain_ms, b32_bound_ms and
+the b256 ones); and last
 the result line. Any failed check exits non-zero before the result line
 (phases 6-8, 12-20, 21 and 22 (b) and (c) record their failed checks
 and go on, so that one run reports
@@ -354,6 +369,7 @@ FLOT_SCAN_T = 16          # frames of the timed scan, the cell's block
 # to 8192 terms in another order, barycentres ~60 m out), in metres
 FLOT_FLOW_TOL = 1e-4
 FLOT_KERNEL_TOL = 5e-4
+DBSCAN_STREAMS = (N_STREAMS, 32, 256)   # phase 23: the slice's, b32's, b256's
 REPS = 20
 SEED = 0
 # B6's launch shapes timed against each other: (threads a block, blocks a
@@ -414,6 +430,10 @@ KERNELS = {
     "transport_flow": dict(
         source="ratrack_tpu_torch/csrc/transport.cu",
         replaces="none (FLOT's transport; the JAX package runs no FLOT)"),
+    "dbscan_labels": dict(
+        source="ratrack_tpu_torch/csrc/dbscan.cu",
+        replaces="none (DBSCAN's labels; the JAX package's dbscan is plain "
+                 "JAX)"),
 }
 # the bfloat16-operand instantiations (phase 19), by the float32 kernel
 # they instantiate
@@ -431,9 +451,10 @@ STRETCH_KERNELS = ("knn_tiled", "knn_gather_apply", "furthest_point_sample",
                    "sinkhorn_uv")
 SCALE_KERNELS = ("sa_scale", "sa_scale_train_fwd", "sa_scale_train_bwd")
 FLOT_KERNELS = ("transport_flow",)
+CLUSTER_KERNELS = ("dbscan_labels",)   # one launch a frame step, every path
 TRAIN_KERNELS = tuple(k for k in KERNELS if k not in
                       EVAL_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
-                      + BF16_KERNELS + FLOT_KERNELS)
+                      + BF16_KERNELS + FLOT_KERNELS + CLUSTER_KERNELS)
 
 
 FAILED: list = []   # failed checks of phases 6-8 and 12-20
@@ -927,6 +948,7 @@ def counters():
                                        fused_correlator_train, fused_fp,
                                        fused_knn, fused_sa, fused_sa_train,
                                        fused_sinkhorn, sampling)
+    from ratrack_tpu_torch.tracker.dbscan import dbscan_labels
     return {"knn_tiled": fused_knn.knn_indices_tiled,
             "knn_gather_apply": fused_correlator.knn_gather_apply,
             "furthest_point_sample": sampling.furthest_point_sample,
@@ -950,7 +972,8 @@ def counters():
             "three_interpolate_bf16": fused_fp.fused_three_interpolate.bf16,
             "knn_weight_aggregate_bf16":
                 fused_correlator.fused_knn_weight_aggregate.bf16,
-            "knn_gather_apply_bf16": fused_correlator.knn_gather_apply.bf16}
+            "knn_gather_apply_bf16": fused_correlator.knn_gather_apply.bf16,
+            "dbscan_labels": dbscan_labels}
 
 
 def reset_counters():
@@ -968,7 +991,7 @@ def expected_launches(t: int):
     return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
                + BF16_KERNELS},
             "sa_pair": 6 * t + 3, "three_interpolate": 6 * t + 3,
-            "knn_weight_aggregate": 2 * t}
+            "knn_weight_aggregate": 2 * t, "dbscan_labels": t}
 
 
 def expected_stretch_launches(t: int):
@@ -979,7 +1002,8 @@ def expected_stretch_launches(t: int):
             "knn_weight_aggregate": 0,
             "sa_pair": 6 * t + 3, "three_interpolate": 6 * t + 3,
             "knn_tiled": 2 * t, "knn_gather_apply": 2 * t,
-            "furthest_point_sample": 6 * t + 3, "sinkhorn_uv": t}
+            "furthest_point_sample": 6 * t + 3, "sinkhorn_uv": t,
+            "dbscan_labels": t}
 
 
 def expected_train_launches(t: int):
@@ -989,7 +1013,7 @@ def expected_train_launches(t: int):
                + BF16_KERNELS},
             "sa_pair_train_fwd": 9 * t, "sa_pair_train_bwd": 9 * t,
             "knn_weight_aggregate_train_fwd": 2 * t,
-            "knn_weight_aggregate_train_bwd": 2 * t}
+            "knn_weight_aggregate_train_bwd": 2 * t, "dbscan_labels": t}
 
 
 def make_frames(torch, seed: int, t: int, device, n_max: int = N_MAX,
@@ -1111,6 +1135,97 @@ def phase_stretch_slice(torch, seed: int):
                   expected_stretch_launches(STRETCH_SLICE_T), 1,
                   STRETCH_SLICE_T, STRETCH_N)
     return model
+
+
+def dbscan_inputs(torch, model, seed: int, streams: int):
+    """DBSCAN's input in one cached eval frame step of `model` over
+    `streams` synthetic streams on the model's device: (x, the motion mask
+    it is given, the valid mask)."""
+    from ratrack_tpu_torch.models import track4d
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import make_scan_eval_step_cached
+
+    dev = next(model.parameters()).device
+    frames = make_frames(torch, seed, 1, dev, streams=streams)
+    seen, route = [], track4d.dbscan
+
+    def record(x, mask, *args):
+        seen.append((x, mask))
+        return route(x, mask, *args)
+    track4d.dbscan = record
+    try:
+        make_scan_eval_step_cached(model)(
+            init_state(streams, K_MAX, device=dev), frames)
+    finally:
+        track4d.dbscan = route
+    (x, mov), = seen
+    return x, mov, frames.mask1[:, 0].contiguous()
+
+
+def dbscan_bytes(mask) -> int:
+    """The bytes B12 moves for one call: of each masked-in row of d2 the
+    32-byte sectors that hold a masked-in column (it loads no other), the
+    mask, and the int32 labels it writes."""
+    b, n = mask.shape
+    cols = mask.new_zeros((b, -(-n // 8) * 8))
+    cols[:, :n] = mask
+    sectors = cols.reshape(b, -1, 8).any(-1).sum(-1)
+    return int((mask.sum(-1) * sectors).sum()) * 32 + 5 * b * n
+
+
+def phase_dbscan(torch, model, seed: int):
+    """Phase 23: B12 on the DBSCAN input of phase 4's model (on the card)
+    against the plain version. -> summary entries: dbscan_labels (the
+    8-stream call under the motion mask, one a frame step), dbscan_b32 and
+    dbscan_b256 (the same at 32 and 256 streams)."""
+    from ratrack_tpu_torch.ops.neighborhood import square_distance
+    from ratrack_tpu_torch.tracker.dbscan import (dbscan, dbscan_labels,
+                                                  dbscan_reference)
+
+    eps, min_samples = model.dbscan_eps, model.min_obj_points
+    iters = model.dbscan_max_iters
+    summary = new_summary(("dbscan_labels", "dbscan_b32", "dbscan_b256"))
+    with torch.inference_mode():
+        for streams in DBSCAN_STREAMS:
+            x, mov, valid = dbscan_inputs(torch, model, seed + streams,
+                                          streams)
+            d2 = square_distance(x, x)
+            for name, mask in (("motion", mov), ("valid", valid)):
+                before = dbscan_labels.launches
+                got = dbscan_labels(d2, mask, eps, min_samples, iters)
+                launched = dbscan_labels.launches - before
+                want = dbscan_reference(x, mask, eps, min_samples, iters)
+                routed = dbscan(x, mask, eps, min_samples, iters)
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(got, want)
+                             and torch.equal(routed, want))
+                if not (equal and launched == 1):
+                    fail(f"dbscan_labels[{streams}, {name}]: labels equal "
+                         f"{equal}, launches {launched}")
+                nbytes = dbscan_bytes(mask)
+                bound_ms, bound_by = roofline(nbytes, 0, 0)
+                ms = device_ms(torch, lambda: dbscan_labels(
+                    d2, mask, eps, min_samples, iters))
+                route_ms = device_ms(torch, lambda: dbscan(
+                    x, mask, eps, min_samples, iters))
+                plain_ms = device_ms(torch, lambda: dbscan_reference(
+                    x, mask, eps, min_samples, iters))
+                emit(phase="dbscan", kernel="dbscan_labels", streams=streams,
+                     points=N_MAX, mask=name,
+                     masked_points=int(mask.sum()),
+                     clustered_points=int((want >= 0).sum()),
+                     clusters=int((want.max(-1).values + 1).sum()),
+                     labels_equal=True, ms=ms, route_ms=route_ms,
+                     plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                     bound_by=bound_by, d2_bound_ms=roofline(
+                         d2.numel() * 4, 0, 0)[0])
+                if name == "motion":
+                    key = ("dbscan_labels" if streams == N_STREAMS
+                           else f"dbscan_b{streams}")
+                    tally(summary[key], 1, 0.0, ms, plain_ms, None, nbytes,
+                          0, 0)
+            del x, mov, valid, d2, got, want, routed
+    return summary
 
 
 def timed_scans(torch, scan, state0, frames, reps: int = 3):
@@ -1754,7 +1869,7 @@ def phase_serving(torch, seed: int, card: str):
                                rng.randn(360, 2).astype(np.float32)], axis=1)
 
     step_launches = {"sa_pair": 9, "three_interpolate": 9,
-                     "knn_weight_aggregate": 2}
+                     "knn_weight_aggregate": 2, "dbscan_labels": 1}
     for sinkhorn_kernel in (False, True):
         net = model("cuda", sinkhorn_kernel)
         for name, bucket in (("serve_latency_1stream", 1),
@@ -1912,6 +2027,7 @@ def expected_cli_eval_launches(stats: dict, t: int):
     want["sa_pair"] += plain * 9 * t
     want["three_interpolate"] += plain * 9 * t
     want["knn_weight_aggregate"] += plain * 2 * t
+    want["dbscan_labels"] += plain * t
     return want
 
 
@@ -2122,10 +2238,11 @@ def phase_offline_eval(vod: dict, tmp: str, card: str):
 
 def expected_pipelined_launches():
     # one block, whatever T: 3 PNHeads (pc1, pc2, the decoder's mse) x 3 SA
-    # and 3 FP levels, 2 correlator stages
+    # and 3 FP levels, 2 correlator stages, one DBSCAN over the B x T clouds
     return {**{k: 0 for k in TRAIN_KERNELS + STRETCH_KERNELS + SCALE_KERNELS
                + BF16_KERNELS},
-            "sa_pair": 9, "three_interpolate": 9, "knn_weight_aggregate": 2}
+            "sa_pair": 9, "three_interpolate": 9, "knn_weight_aggregate": 2,
+            "dbscan_labels": 1}
 
 
 def cuda_kernels_of(torch, fn):
@@ -2679,7 +2796,8 @@ def phase_bf16(torch, seed: int, card: str):
     launches = read_counters()
     want = as_bf16({**{k: 0 for k in counters()}, "sa_pair": 9 * SERVE_SCANS,
                     "three_interpolate": 9 * SERVE_SCANS,
-                    "knn_weight_aggregate": 2 * SERVE_SCANS})
+                    "knn_weight_aggregate": 2 * SERVE_SCANS,
+                    "dbscan_labels": SERVE_SCANS})
     if launches != want:
         record_failure(f"bf16 serving launch counts {launches}, expected "
                        f"{want}")
@@ -3657,6 +3775,7 @@ def main() -> None:
 
     summary = phase_kernels(torch, SEED)
     model = phase_slice(torch, SEED)
+    summary.update(phase_dbscan(torch, model, SEED))
     launches, eval_fps = phase_throughput(torch, model, SEED, card,
                                           args.profile)
     del model
@@ -3696,6 +3815,7 @@ def main() -> None:
     launches = {**{k: launches[k] for k in EVAL_KERNELS},
                 **{k: train_launches[k] for k in TRAIN_KERNELS},
                 **{k: stretch_launches[k] for k in STRETCH_KERNELS},
+                **{k: launches[k] for k in CLUSTER_KERNELS},
                 **scale_launches, **bf16_launches, **flot_launches}
     if not all(launches.values()):
         fail(f"a kernel was never launched on its path: {launches}")
@@ -3715,13 +3835,16 @@ def main() -> None:
             library_ms=entry["library_ms"]))
     # B1 and B2 at the stretch shape: both heads' sa1 (8192 points x 512
     # centers) and fp1 (8192 unknowns x 512 known points); B3's selection
-    # launches of an eval step; B5 at k = 32, FLOT's graph
+    # launches of an eval step; B5 at k = 32, FLOT's graph; B12 at 32 and
+    # 256 streams
     for name, part, prefix in (("sa_pair", "sa_pair_stretch", "stretch"),
                                ("three_interpolate",
                                 "three_interpolate_stretch", "stretch"),
                                ("knn_weight_aggregate", "knn_select",
                                 "select"),
-                               ("knn_tiled", "knn_graph", "graph")):
+                               ("knn_tiled", "knn_graph", "graph"),
+                               ("dbscan_labels", "dbscan_b32", "b32"),
+                               ("dbscan_labels", "dbscan_b256", "b256")):
         entry = summary[part]
         bound_ms, _ = roofline(entry["bytes"], entry["mm_ops"], entry["ops"])
         extra = {f"{prefix}_ms": entry["ms"],

@@ -61,6 +61,7 @@ SIGNATURES = {
                           _P],
     "ratrack_transport_flow": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                _P, _P, _P, _P, _P],
+    "ratrack_dbscan_labels": [_P, _P, _I, _I, _F, _I, _I, _P, _P],
     "ratrack_fps": [_P, _P, _I, _I, _I, _P, _I, _I, _P],
     "ratrack_sinkhorn": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ratrack_sinkhorn_variant": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

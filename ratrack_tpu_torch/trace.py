@@ -38,7 +38,8 @@ SPANS = {
     "decoder": "FlowDecoder.pre_gru, gru_apply and post_gru: the motion "
                "and flow heads, the embedding PNHead, the GRU",
     "dbscan": "dbscan, compact_dbscan and the assembly of their input in "
-              "Track4D.output_stage",
+              "Track4D.output_stage: kernel B12 on the card "
+              "(dbscan_labels.launches), the plain version on the CPU",
     "descriptors": "cluster_descriptors and greedy_gt_match",
     "affinity": "Track4D.affinity_stage: the affinity MLP over descriptor "
                 "differences",

@@ -8,25 +8,80 @@ Counterpart of `ratrack_tpu/tracker/dbscan.py` (`dbscan`, `compact_dbscan`).
   * border points adopt their minimum-label core neighbour; noise -> -1;
   * cluster ids are ranks of the component roots in index order.
 
-The JAX loop stops when no label changed, which in eager torch would be a
-host sync every iteration. Here the propagation always runs max_iters
-steps after the first: it is a fixpoint iteration, so the labels are
-identical to the early-stopping loop (which is itself capped at
-max_iters), and nothing syncs.
+  dbscan            the route: CUDA tensors take kernel B12
+                    (`dbscan_labels`, at most KERNEL_POINTS points a cloud:
+                    it raises above), CPU tensors the plain version
+  dbscan_labels     the wrapper of kernel B12 (`csrc/dbscan.cu`): the
+                    squared distances in, the labels out, one launch
+  dbscan_reference  the plain version
+
+Both read the same `square_distance(x, x)`, so they make every adjacency
+decision alike and give the same labels bit for bit. The JAX loop stops
+when no label changed, which in eager torch would be a host sync every
+iteration. The plain version always runs max_iters steps after the first:
+it is a fixpoint iteration, so the labels are identical to the
+early-stopping loop (which is itself capped at max_iters), and nothing
+syncs. The kernel stops at the first round that changes no label, on the
+device.
+
+Counter: `dbscan_labels.launches` (kernel launches). A larger cloud on
+the card is cut to size before it gets here: `compact_dbscan` (Track4D's
+`mov_budget`) clusters the selected points.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import build as kb
 from ..ops.neighborhood import square_distance
 from ..trace import span
+
+KERNEL_POINTS = 1024   # the most points a cloud kernel B12 takes
 
 
 @span("dbscan")
 def dbscan(x: torch.Tensor, mask: torch.Tensor, eps: float,
            min_samples: int, max_iters: int = 64) -> torch.Tensor:
     """x (B, N, D), mask (B, N) -> (B, N) int32 labels, -1 for noise."""
+    if x.is_cuda:
+        return dbscan_labels(square_distance(x, x), mask.contiguous(), eps,
+                             min_samples, max_iters)
+    return dbscan_reference(x, mask, eps, min_samples, max_iters)
+
+
+def dbscan_labels(d2: torch.Tensor, mask: torch.Tensor, eps: float,
+                  min_samples: int, max_iters: int = 64) -> torch.Tensor:
+    """Kernel B12: d2 (B, N, N) float32 squared distances, mask (B, N) bool,
+    both contiguous on the card, N <= KERNEL_POINTS -> (B, N) int32 labels,
+    -1 for noise. eps^2 is rounded to float32, as the plain version's
+    comparison rounds it."""
+    dev = d2.device
+    b_, n = mask.shape
+    kb.require(d2, "d2", (b_, n, n), dev)
+    kb.require(mask, "mask", (b_, n), dev, dtype=torch.bool)
+    if n > KERNEL_POINTS:
+        raise ValueError(f"the kernel takes at most {KERNEL_POINTS} points "
+                         f"a cloud; got {n}: select them first "
+                         f"(compact_dbscan, Track4D's mov_budget)")
+    out = torch.empty((b_, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = kb.load().ratrack_dbscan_labels(
+            kb.ptr(d2), kb.ptr(mask), b_, n, float(eps * eps),
+            int(min_samples), 1 + max(int(max_iters), 0), kb.ptr(out),
+            kb.stream_of(d2))
+    kb.check(code, "dbscan_labels")
+    dbscan_labels.launches += 1
+    return out
+
+
+dbscan_labels.launches = 0
+
+
+def dbscan_reference(x: torch.Tensor, mask: torch.Tensor, eps: float,
+                     min_samples: int, max_iters: int = 64) -> torch.Tensor:
+    """Plain version: x (B, N, D), mask (B, N) -> (B, N) int32 labels, -1
+    for noise."""
     n = x.shape[1]
     sentinel = n
     adj = ((square_distance(x, x) <= eps * eps)

@@ -42,7 +42,9 @@ from ratrack_tpu_torch.kernels import cases
 from ratrack_tpu_torch.ops import (fused_correlator, fused_correlator_train,
                                    fused_fp, fused_knn, fused_sa,
                                    fused_sa_train, fused_sinkhorn, sampling)
-from ratrack_tpu_torch.ops.neighborhood import knn
+from ratrack_tpu_torch.ops.neighborhood import knn, square_distance
+from ratrack_tpu_torch.tracker.dbscan import (KERNEL_POINTS, dbscan,
+                                              dbscan_labels, dbscan_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -604,7 +606,8 @@ def test_stretch_wrappers_raise_and_count(device):
     fused_knn.knn_indices_tiled(**kw)
     assert fused_knn.knn_indices_tiled.launches == before + 1
     with pytest.raises(ValueError):
-        fused_knn.knn_indices_tiled(**{**kw, "k": 17})
+        fused_knn.knn_indices_tiled(**{**kw,
+                                       "k": fused_knn.KERNEL_K_MAX + 1})
     with pytest.raises(TypeError):
         sampling.furthest_point_sample(kw["query"].double(), 8)
     with pytest.raises(ValueError):
@@ -1491,6 +1494,20 @@ def _canary_transport(lib, stream, guard, pc, mask, device):
             kb.ptr(guard.view((b, n, 3), name=f"{name}.flow")), stream), name)
 
 
+def _canary_dbscan(lib, stream, guard, pc, mask, device):
+    """B12 on the cloud's squared distances at eps 1.5, with and without
+    rounds of propagation: the labels guarded."""
+    b, n = pc.shape[:2]
+    d2 = square_distance(pc, pc).to(device)
+    m = mask.to(device)
+    for rounds in (1, 65):
+        name = f"dbscan_labels[{rounds}]"
+        kb.check(lib.ratrack_dbscan_labels(
+            kb.ptr(d2), kb.ptr(m), b, n, 2.25, 2, rounds,
+            kb.ptr(guard.view((b, n), dtype=torch.int32, name=name)),
+            stream), name)
+
+
 # every C entry of kernels/build.py's library that launches a kernel, by
 # the helper above that calls it with guarded outputs
 CANARY_ENTRIES = {
@@ -1517,6 +1534,7 @@ CANARY_ENTRIES = {
     "ratrack_sa_train_bwd": _canary_sa_train,
     "ratrack_sa_scale_train_bwd": _canary_sa_train,
     "ratrack_transport_flow": _canary_transport,
+    "ratrack_dbscan_labels": _canary_dbscan,
 }
 
 
@@ -1526,7 +1544,8 @@ def test_kernels_write_only_inside_their_outputs(device, n_valid):
     launch shape, B3's two launches (the selection at every tile), B4 at
     both block shapes, the bfloat16 instantiations of B1, B1', B2, B3's
     aggregate launch and B4 (their outputs are float32), B5 (at k = 16
-    and 32), B11 at one and two iterations, B6 at four
+    and 32), B11 at one and two iterations, B12 with and without
+    propagation rounds, B6 at four
     launch shapes, B7 and each of its variants, the B9 / B8 forward
     and backward, the B10 forward and backward, both correlator stages),
     called directly, with every output and scratch pointer a view inside
@@ -2619,3 +2638,118 @@ def test_init_from_env_refuses_a_rank_without_a_card(device, monkeypatch):
     with pytest.raises(RuntimeError, match="cards"):
         init_from_env()
     assert not dist.is_initialized()
+
+
+# ---- B12: DBSCAN's labels -------------------------------------------------
+
+# (kind, streams, points, masks / max_iters): seeded blobs and uniform noise
+# under every mask at min_samples 1, 2 and 5; chains 1.0 apart whose
+# propagation the cap cuts; a cloud above the kernel's limit
+DBSCAN_CASES = (
+    [("blobs", b, n, masks) for b in (1, 3, 32, 256)
+     for n in (33, 360, 512, 1000) for masks in ("all", "none", "random")]
+    + [("chain", 2, n, iters) for n in (360, 1000) for iters in (0, 1, 2, 64)]
+    + [("blobs", 2, KERNEL_POINTS + 76, "random")])
+
+
+def _dbscan_cloud(kind, b, n, masks, seed):
+    """(x (b, n, 8), mask (b, n)): blobs (std 0.3, centers in [-6, 6]) of
+    half the points and uniform noise in [-20, 20], or a chain of points
+    1.0 apart along one axis (exact squared distances), in a random
+    order."""
+    gen = _gen(seed)
+    if kind == "chain":
+        x = torch.zeros((b, n, 8))
+        x[..., 0] = torch.arange(n, dtype=torch.float32)
+        mask = torch.ones((b, n), dtype=torch.bool)
+    else:
+        blobs = max(n // 40, 1)
+        per = n // (2 * blobs)
+        centers = 12 * torch.rand((b, blobs, 1, 8), generator=gen) - 6
+        pts = centers + 0.3 * torch.randn((b, blobs, per, 8), generator=gen)
+        noise = 40 * torch.rand((b, n - blobs * per, 8), generator=gen) - 20
+        x = torch.cat([pts.reshape(b, -1, 8), noise], dim=1)
+        mask = {"all": torch.ones((b, n), dtype=torch.bool),
+                "none": torch.zeros((b, n), dtype=torch.bool),
+                "random": torch.rand((b, n), generator=gen) > 0.3}[masks]
+    return x[:, torch.randperm(n, generator=gen)].contiguous(), mask
+
+
+@pytest.mark.parametrize("case", DBSCAN_CASES,
+                         ids=["-".join(map(str, c)) for c in DBSCAN_CASES])
+def test_dbscan_kernel_equals_the_plain_version(device, case):
+    """B12's labels equal dbscan_reference's on the card (torch.equal,
+    int32), and a call launches B12 once; a cloud above KERNEL_POINTS
+    raises and launches nothing. A chain under a cap of 0-2 rounds stops
+    short of its converged labels, so the early exit is held to the
+    cap."""
+    kind, b, n, arg = case
+    x, mask = (t.to(device) for t in _dbscan_cloud(kind, b, n, arg,
+                                                   90 + n + b))
+    runs = ([(2, arg)] if kind == "chain" else
+            [(min_samples, 64) for min_samples in (1, 2, 5)])
+    for min_samples, iters in runs:
+        launches = dbscan_labels.launches
+        if n > KERNEL_POINTS:
+            with pytest.raises(ValueError, match="mov_budget"):
+                dbscan(x, mask, 1.5, min_samples, iters)
+            assert dbscan_labels.launches == launches
+            continue
+        got = dbscan(x, mask, 1.5, min_samples, iters)
+        assert dbscan_labels.launches == launches + 1
+        want = dbscan_reference(x, mask, 1.5, min_samples, iters)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, want), (min_samples, iters)
+        if kind == "chain" and iters < 3:
+            assert not torch.equal(
+                got, dbscan_reference(x, mask, 1.5, min_samples, 64))
+        if arg == "none":
+            assert bool((got == -1).all())
+        elif kind == "blobs":
+            assert int(got.max()) >= 0
+
+
+@pytest.mark.parametrize("n", [512, 8192])
+def test_track4d_labels_with_the_dbscan_kernel_equal_the_plain_version(
+        device, monkeypatch, n):
+    """Two eval frames of the cached scan at 512 points, and at 8192 with
+    mov_budget 512 (compact DBSCAN over the 512 selected points): the same
+    labels with B12 as with the plain version (`dbscan_reference`
+    monkeypatched in as the route), and one B12 launch a frame step. The
+    motion threshold is set so that 30% of the valid points move."""
+    import importlib
+    from ratrack_tpu_torch.data import stack_frames, synthetic_clip, to_tensors
+    from ratrack_tpu_torch.models import Track4D
+    from ratrack_tpu_torch.tracker import init_state
+    from ratrack_tpu_torch.train import make_scan_eval_step_cached
+
+    module = importlib.import_module("ratrack_tpu_torch.tracker.dbscan")
+    track4d = importlib.import_module("ratrack_tpu_torch.models.track4d")
+    k, t = 8, 2
+    frames = to_tensors(stack_frames([stack_frames(synthetic_clip(
+        1, t, n_max=n, g_max=k, n_static=n // 2, n_objects=6))]), device)
+    big = n > 512
+    model = Track4D(npoint=512 if big else n, k_max=k, sinkhorn_iters=50,
+                    exact_fps=big, mov_budget=512 if big else 0,
+                    sinkhorn_kernel=big,
+                    generator=torch.Generator().manual_seed(0),
+                    device="cpu").to(device)
+    scan = make_scan_eval_step_cached(model)
+
+    def run():
+        launches = dbscan_labels.launches
+        _, out = scan(init_state(1, k, device=device), frames)
+        torch.cuda.synchronize()
+        return out, dbscan_labels.launches - launches
+
+    with monkeypatch.context() as m:
+        for mod in (module, track4d):   # dbscan, and compact_dbscan's
+            m.setattr(mod, "dbscan", module.dbscan_reference)
+        out, _ = run()
+        cls = out["cls"][frames.mask1]
+        model.mov_thres = float(torch.quantile(cls.float(), 0.7))
+        plain, plain_launches = run()
+    kernel, launches = run()
+    assert (plain_launches, launches) == (0, t)
+    assert torch.equal(kernel["labels"], plain["labels"])
+    assert int(kernel["labels"].max()) >= 0

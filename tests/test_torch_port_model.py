@@ -196,6 +196,23 @@ def test_dbscan_matches_jax(seed):
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
 
 
+def test_dbscan_on_the_cpu_takes_the_plain_version():
+    """CPU tensors take dbscan_reference (kernel B12 runs on the card only)
+    and launch nothing."""
+    from ratrack_tpu_torch.tracker.dbscan import (dbscan_labels,
+                                                  dbscan_reference)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(np.concatenate(
+        [0.3 * rng.randn(B, 24, 8), rng.uniform(-20, 20, (B, N - 24, 8))],
+        axis=1).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(B, N) > 0.2)
+    launches = dbscan_labels.launches
+    got = dbscan(x, mask, 1.5, 2, 64)
+    assert torch.equal(got, dbscan_reference(x, mask, 1.5, 2, 64))
+    assert int(got.max()) >= 0
+    assert dbscan_labels.launches == launches
+
+
 def _assoc_inputs(seed):
     rng = np.random.RandomState(seed)
     aff = rng.rand(B, K, K).astype(np.float32)
